@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``marie_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``marie_tpu_torch/csrc`` with nvcc, holds each
+against its plain PyTorch version at the shapes of the main path, runs the
+page-OCR slice (``PipelineOcrEngine.extract``) on 8 numpy-drawn 1024x768
+pages at the models' full widths with random weights from a seed, checks
+the slice on a small input against the plain CPU path, traces one more
+slice run per box source with torch.profiler, and prints one JSON line
+per phase.  The last two lines are the kernel table and
+``{"ok": true, "device": {...}}``.  Every phase raises on failure; the
+script exits nonzero, with no result line, without a CUDA device or
+without the package beside it.  It imports nothing of JAX.
+"""
+
+import json
+import os
+import statistics
+import sys
+import time
+
+SEED = 0
+H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
+H100_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor bf16 / fp32 SIMT
+
+K1_LIMIT = 1e-5
+K2_LIMITS = {"fp32": 1e-4, "bf16": 2e-2}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def device_ms(fn, reps: int = 25) -> float:
+    """Median device time of one call of ``fn``: the stream is kept busy
+    with a sleep kernel while the events and the call are enqueued, so the
+    host's launch overhead stays out of the measurement."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def draw_pages(n: int, h: int, w: int, seed: int):
+    """White pages with lines of word-shaped ink blocks: each word is a run
+    of glyph strokes of random darkness, ~20 px tall."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pages = np.full((n, h, w), 255, np.uint8)
+    for page in pages:
+        y = int(rng.integers(30, 60))
+        while y < h - 40:
+            x = int(rng.integers(20, 60))
+            th = int(rng.integers(14, 24))
+            while x < w - 80:
+                ww = int(rng.integers(24, 120))
+                level = int(rng.integers(0, 90))
+                for gx in range(x, x + ww, int(rng.integers(5, 9))):
+                    gw = int(rng.integers(2, 5))
+                    top = y + int(rng.integers(0, 4))
+                    page[top:y + th, gx:gx + gw] = level
+                page[y + th // 2:y + th // 2 + 2, x:x + ww] = level
+                x += ww + int(rng.integers(12, 28))
+            y += th + int(rng.integers(14, 30))
+    return pages
+
+
+def phase_device():
+    import torch
+
+    from marie_tpu_torch.ops.kernels import _build
+    from marie_tpu_torch.utils.device import card_name_and_power_limit, set_parity_precision
+
+    set_parity_precision()
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    build_s = time.perf_counter() - t0
+    card = card_name_and_power_limit()
+    if card is None:
+        raise RuntimeError("nvidia-smi did not report the card")
+    emit({"phase": "device", "card": card,
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": round(build_s, 3),
+          "built": {k: round(v, 3) for k, v in built.items()}})
+    return card
+
+
+def k1_source_pixels(boxes, page_of, page_shape, oh, ow):
+    """(page pixels K1's bilinear taps reach, output pixels it samples)
+    for these boxes: each box reads the rows of its out_h row taps times
+    the columns of its eff_w column taps, counted once per page.  The
+    arithmetic is the kernel's, in float32."""
+    import numpy as np
+
+    p, h, w = page_shape
+    f = np.float32
+    touched = np.zeros(page_shape, bool)
+    sampled = 0
+    for (x0, y0, x1, y1), pg in zip(boxes.astype(f), page_of):
+        bh, bw = max(y1 - y0, f(1)), max(x1 - x0, f(1))
+        eff_w = int(min(np.rint(bw * (f(oh) / bh)), ow))
+        step = max(bh * f(1.0 / oh), bw * f(1.0 / ow))
+        sy = np.clip((np.arange(oh, dtype=f) + f(0.5)) * f(1.0 / oh) * bh + y0 - f(0.5), 0, h - 1)
+        sx = np.clip((np.arange(eff_w, dtype=f) + f(0.5)) * step + x0 - f(0.5), 0, w - 1)
+        ys, xs = np.floor(sy).astype(int), np.floor(sx).astype(int)
+        rows = np.union1d(ys, np.minimum(ys + 1, h - 1))
+        cols = np.union1d(xs, np.minimum(xs + 1, w - 1))
+        touched[min(max(int(pg), 0), p - 1)][np.ix_(rows, cols)] = True
+        sampled += oh * eff_w
+    return int(touched.sum()), sampled
+
+
+def phase_k1():
+    """K1 at the slice's shapes: 8 pages of the 1024x768 bucket, 256
+    crops of 48x320, with boxes taller than the TPU kernel's 192-row
+    window and boxes clipped at the page edges."""
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.ops.kernels.crop_resize import crop_resize, crop_resize_plain
+
+    dev = torch.device("cuda")
+    p, h, w, n, oh, ow = 8, 1024, 768, 256, 48, 320
+    rng = np.random.default_rng(SEED + 1)
+    pages = torch.from_numpy(draw_pages(p, h, w, SEED + 2)).to(dev)
+    x0 = rng.uniform(-20, w - 40, n)
+    y0 = rng.uniform(-10, h - 30, n)
+    bw = rng.uniform(8, 400, n)
+    bh = rng.uniform(6, 60, n)
+    bh[:16] = rng.uniform(200, 700, 16)  # taller than the 192-row window
+    boxes = np.stack([x0, y0, x0 + bw, y0 + bh], -1)
+    boxes[16:24, 2] = w  # right edge
+    boxes[24:32, 3] = h  # bottom edge
+    boxes[32:40, :2] = 0.0  # top-left corner
+    boxes = np.clip(boxes, 0, [w, h, w, h]).astype(np.float32)
+    boxes_t = torch.from_numpy(boxes).to(dev)
+    page_of = torch.from_numpy(rng.integers(0, p, n).astype(np.int32)).to(dev)
+
+    got, got_w = crop_resize(pages, page_of, boxes_t, oh, ow)
+    want, want_w = crop_resize_plain(pages, page_of, boxes_t, oh, ow)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not (err <= K1_LIMIT and torch.equal(got_w, want_w)):
+        raise AssertionError(f"K1 disagrees with its plain version: max abs err "
+                             f"{err}, eff_w equal {torch.equal(got_w, want_w)}")
+    ms = device_ms(lambda: crop_resize(pages, page_of, boxes_t, oh, ow))
+    plain_ms = device_ms(lambda: crop_resize_plain(pages, page_of, boxes_t, oh, ow))
+    page_bytes, sampled = k1_source_pixels(boxes, page_of.cpu().numpy(), (p, h, w), oh, ow)
+    nbytes = (page_bytes + page_of.numel() * 4 + boxes_t.numel() * 4
+              + n * oh * ow * 4 + n * 4)
+    # per sampled output pixel: 5 fma (2 flops each), 5 mul, 8 add/sub
+    flops = sampled * 23
+    bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ops = flops / H100_FLOPS["fp32"] * 1e3
+    row = {"name": "crop_resize", "route": "cuda",
+           "source": "marie_tpu_torch/csrc/crop_resize.cu",
+           "replaces": "marie_tpu/ops/pallas/crop_resize.py:140",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "library_ms": None}
+    emit({"phase": "k1", "shape": [p, h, w, n, oh, ow], "limit": K1_LIMIT,
+          "tall_boxes": 16, "edge_boxes": 24, **row})
+    return row
+
+
+def _attn_inputs(b, h, sq, skv, d, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, sq, d, device="cuda", generator=g).to(dtype)
+    k = torch.randn(b, h, skv, d, device="cuda", generator=g).to(dtype)
+    v = torch.randn(b, h, skv, d, device="cuda", generator=g).to(dtype)
+    return q, k, v
+
+
+def phase_k2():
+    """K2 at the encoder's shape (B=256 crops, 6 heads, 20 tokens, D=64)
+    in bf16 (the serving dtype) and fp32 (TF32 off), plus a causal +
+    kv_len case at D=128 with Sq != Skv."""
+    import torch
+    import torch.nn.functional as F
+
+    from marie_tpu_torch.ops.kernels.flash_attention import attention_reference, flash_attention
+
+    row = None
+    cases = [
+        ("encoder_bf16", (256, 6, 20, 20, 64), torch.bfloat16, False, False),
+        ("encoder_fp32", (256, 6, 20, 20, 64), torch.float32, False, False),
+        ("causal_kvlen_fp32", (8, 4, 37, 53, 128), torch.float32, True, True),
+        ("causal_kvlen_bf16", (8, 4, 37, 53, 128), torch.bfloat16, True, True),
+    ]
+    for i, (name, (b, h, sq, skv, d), dtype, causal, ragged) in enumerate(cases):
+        q, k, v = _attn_inputs(b, h, sq, skv, d, dtype, SEED + 10 + i)
+        kv_len = (torch.randint(1, skv + 1, (b,), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(SEED + 20 + i))
+                  .to(torch.int32) if ragged else None)
+        scale = 1.0 / d ** 0.5
+        got = flash_attention(q, k, v, kv_len=kv_len, causal=causal)
+        want = attention_reference(q, k, v, causal=causal, kv_len=kv_len, sm_scale=scale)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        if not err <= K2_LIMITS[tag]:
+            raise AssertionError(f"K2 {name} disagrees with its plain version: "
+                                 f"max abs err {err} > {K2_LIMITS[tag]}")
+        ms = device_ms(lambda: flash_attention(q, k, v, kv_len=kv_len, causal=causal))
+        plain_ms = device_ms(lambda: attention_reference(
+            q, k, v, causal=causal, kv_len=kv_len, sm_scale=scale))
+        lib_ms = None
+        if not causal and kv_len is None:
+            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        esz = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz + (b * 4 if ragged else 0)
+        # score and PV flops of the (query, key) pairs the masks leave
+        pairs = torch.ones(b, sq, skv, dtype=torch.bool, device="cuda")
+        if ragged:
+            pairs &= torch.arange(skv, device="cuda") < kv_len[:, None, None]
+        if causal:
+            pairs &= (torch.arange(sq, device="cuda")[:, None]
+                      >= torch.arange(skv, device="cuda")[None, :] - (skv - sq))
+        flops = 4 * h * d * int(pairs.sum())
+        bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        bound_ops = flops / H100_FLOPS[tag] * 1e3
+        entry = {"name": "flash_attention", "route": "cuda",
+                 "source": "marie_tpu_torch/csrc/flash_attention.cu",
+                 "replaces": "marie_tpu/ops/pallas/flash_attention.py:112",
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(bound_bytes, bound_ops),
+                 "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+                 "library_ms": lib_ms}
+        emit({"phase": "k2", "case": name, "shape": [b, h, sq, skv, d],
+              "dtype": tag, "causal": causal, "kv_len": ragged,
+              "limit": K2_LIMITS[tag], **entry})
+        if name == "encoder_bf16":
+            row = entry
+    return row
+
+
+def _reset_counts():
+    from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
+    from marie_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    crop_resize.launches = 0
+    flash_attention.launches = 0
+
+
+def _read_counts():
+    from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
+    from marie_tpu_torch.ops.kernels.flash_attention import flash_attention
+
+    return {"crop_resize": crop_resize.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def _check_words(pages_words, n_pages, h, w):
+    import math
+
+    if len(pages_words) != n_pages:
+        raise AssertionError(f"{len(pages_words)} page results for {n_pages} pages")
+    for words in pages_words:
+        for wd in words:
+            x, y, bw, bh = wd["box"]
+            if not (0 <= x and 0 <= y and bw > 0 and bh > 0
+                    and x + bw <= w + 1e-3 and y + bh <= h + 1e-3):
+                raise AssertionError(f"box out of the page: {wd['box']}")
+            if not (math.isfinite(wd["confidence"]) and 0.0 <= wd["confidence"] <= 1.0):
+                raise AssertionError(f"confidence not in [0, 1]: {wd['confidence']}")
+            if not isinstance(wd["text"], str):
+                raise AssertionError("text is not a string")
+
+
+def heatmap_thresholds(engine, pages):
+    """(low_text, text_threshold) at the 0.6 and 0.8 quantiles of the
+    engine's CRAFT region map on these pages: with random weights the
+    default thresholds keep no component, so the production mask would
+    crop and decode nothing."""
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.preprocess.ops import normalize_page
+
+    x = torch.from_numpy(pages).to(engine.device)
+    with torch.no_grad():
+        region = engine.craft(normalize_page(x[..., None].expand(*x.shape, 3)))[..., 0]
+    region = region.float().cpu().numpy()
+    return float(np.quantile(region, 0.6)), float(np.quantile(region, 0.8))
+
+
+def phase_slice():
+    """The main path at full width: CRAFT fast_s2d2 + TrOCR fast_v3_g2_d6
+    (bf16), 8 pages of 1024x768, 32 recognition rows per page (256 in
+    all), box_source "ink" and then "heatmap" (the production mask, with
+    thresholds from quantiles of the random-weight heatmap).  Both runs
+    must keep boxes; the kernels line reads the heatmap run's launches."""
+    import torch
+
+    from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
+
+    n, h, w = 8, 1024, 768
+    pages = draw_pages(n, h, w, SEED + 3)
+    engine = PipelineOcrEngine(
+        CraftConfig.fast_s2d2(), TrOCRConfig.fast_v3_g2_d6(), device="cuda",
+        seed=SEED, max_components=256, page_batch=8,
+        compact_slots=32, bucket_spec=BucketSpec(shapes=((h, w),)))
+    engine.low_text, engine.text_threshold = heatmap_thresholds(engine, pages)
+    counts = {}
+    for source in ("ink", "heatmap"):
+        engine.extract(pages, box_source=source)  # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        words = engine.extract(pages, box_source=source)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[source] = _read_counts()
+        _check_words(words, n, h, w)
+        kept = sum(len(ws) for ws in words)
+        read = sum(1 for ws in words for wd in ws if wd["text"])
+        emit({"phase": "slice", "box_source": source, "pages": n,
+              "page_hw": [h, w], "kept_boxes": kept, "words_with_text": read,
+              "low_text": engine.low_text, "text_threshold": engine.text_threshold,
+              "wall_ms_per_page": wall / n * 1e3, "launches": counts[source],
+              "max_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
+        if min(counts[source].values()) <= 0:
+            raise AssertionError(f"{source}: a kernel of the path never launched: "
+                                 f"{counts[source]}")
+        if kept <= 0:
+            raise AssertionError(f"{source} run kept no boxes")
+    return counts["heatmap"], engine, pages
+
+
+def phase_profile(engine, pages):
+    """Where the slice's time goes: torch.profiler over one more extract
+    per box_source; wall time, device busy time, the ``marie.*`` stage
+    ranges and the kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for source in ("ink", "heatmap"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.extract(pages, box_source=source)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        # marie.* ranges come back twice: the host range (CPU) and its span
+        # on the device timeline (CUDA, first to last kernel, gaps included)
+        ranges = {}
+        for e in events:
+            if e.key.startswith("marie."):
+                r = ranges.setdefault(e.key, {"count": e.count})
+                if e.device_type == DeviceType.CPU:
+                    r["host_ms"] = e.cpu_time_total / 1e3
+                else:
+                    r["device_span_ms"] = e.device_time_total / 1e3
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("marie.")]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+        emit({"phase": "profile", "box_source": source, "pages": len(pages),
+              "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+              "busy_share": busy_ms / wall_ms, "kernel_launches": sum(e.count for e in kernels),
+              "ranges": ranges,
+              "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                              for e in top]})
+
+
+def phase_small_reference():
+    """The slice on a small input on the card against the plain CPU path
+    (tiny configs, float32, TF32 off): same boxes, same texts."""
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
+
+    pages = draw_pages(2, 256, 384, SEED + 4)
+    kw = dict(seed=SEED + 5, min_area=4, page_batch=2, compact_slots=32,
+              trocr_dtype=torch.float32, bucket_spec=BucketSpec(shapes=((256, 384),)))
+    ref = PipelineOcrEngine(CraftConfig.tiny(), TrOCRConfig.tiny(), device="cpu", **kw)
+    card = PipelineOcrEngine(CraftConfig.tiny(), TrOCRConfig.tiny(), device="cuda", **kw)
+    want = ref.extract(pages, box_source="ink")
+    got = card.extract(pages, box_source="ink")
+    boxes_equal = all(
+        np.array_equal(np.asarray([wd["box"] for wd in a]), np.asarray([wd["box"] for wd in b]))
+        for a, b in zip(got, want))
+    texts_a = [wd["text"] for ws in got for wd in ws]
+    texts_b = [wd["text"] for ws in want for wd in ws]
+    same_text = sum(a == b for a, b in zip(texts_a, texts_b))
+    conf_err = max((abs(a["confidence"] - b["confidence"])
+                    for ga, gb in zip(got, want) for a, b in zip(ga, gb)), default=0.0)
+    emit({"phase": "small_reference", "words": len(texts_b),
+          "boxes_equal": boxes_equal, "texts_equal": same_text,
+          "max_conf_err": conf_err})
+    if not (boxes_equal and len(texts_a) == len(texts_b) and len(texts_b) > 0):
+        raise AssertionError("card and CPU disagree on the small slice's boxes")
+    if same_text != len(texts_b) or conf_err > 1e-3:
+        raise AssertionError(
+            f"card and CPU disagree on the small slice's text: {same_text}/"
+            f"{len(texts_b)} equal, max confidence error {conf_err}")
+
+
+def main() -> int:
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
+        print("chip_smoke: marie_tpu_torch/ is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, repo)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    card = phase_device()
+    k1 = phase_k1()
+    k2 = phase_k2()
+    phase_small_reference()
+    launches, engine, pages = phase_slice()
+    phase_profile(engine, pages)
+    k1["launches"] = launches["crop_resize"]
+    k2["launches"] = launches["flash_attention"]
+    emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3)})
+    print(card, flush=True)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: row[k] for k in keys} for row in (k1, k2)]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

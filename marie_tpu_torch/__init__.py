@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of marie_tpu's batched page OCR path.
+
+The JAX package (``marie_tpu``) stays the reference; this package runs the
+same slice — unpack, normalize, CRAFT, run-domain connected components,
+keep/compact, word crops, TrOCR encoder and greedy decode — on an NVIDIA
+GPU.  It imports torch, numpy and the standard library only.
+
+Importing the package builds nothing: the CUDA kernels under ``csrc/`` are
+compiled with ``nvcc`` the first time a wrapper launches one
+(:mod:`marie_tpu_torch.ops.kernels._build`).
+"""
+
+__all__ = ["PipelineOcrEngine"]
+
+
+def __getattr__(name):
+    if name == "PipelineOcrEngine":
+        from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+
+        return PipelineOcrEngine
+    raise AttributeError(f"module 'marie_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,111 @@
+"""K2 — fused attention kernel wrapper.
+
+Replaces the TPU kernel ``marie_tpu/ops/pallas/flash_attention.py``
+(``flash_attention``).  On CUDA tensors :func:`flash_attention` launches
+the hand-written kernel of ``csrc/flash_attention.cu`` (D in {32, 64, 128},
+float32 or bf16, any sequence lengths; at the encoder's 20 tokens it is
+bound by launch and latency, not bytes or flops — see the source note).
+On CPU tensors it runs the plain PyTorch version,
+:func:`attention_reference` (the JAX ``_attention_reference``).  There is
+no fallback from one to the other.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from marie_tpu_torch.ops.kernels import _build
+
+_NEG_INF = -1e30
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_reference(q, k, v, *, causal=False, kv_len=None, sm_scale=1.0):
+    """Plain softmax(q k^T * sm_scale + masks) v: q [B,H,Sq,D], k/v
+    [B,H,Skv,D]; logits, probabilities and sums in float32 for every input
+    type, as in the TPU kernel (the JAX ``_attention_reference`` rounds
+    bf16 logits to bf16; in float32 the two are the same function); output
+    in q's dtype.  Masked logits are -1e30 (a fully masked row averages v
+    uniformly)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * sm_scale
+    sq, skv = q.shape[2], k.shape[2]
+    if kv_len is not None:
+        pos = torch.arange(skv, device=q.device)
+        mask = pos[None, None, None, :] < kv_len.to(q.device)[:, None, None, None]
+        logits = torch.where(mask, logits, _NEG_INF)
+    if causal:
+        cm = (torch.arange(sq, device=q.device)[:, None]
+              >= torch.arange(skv, device=q.device)[None, :] - (skv - sq))
+        logits = torch.where(cm[None, None], logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    fn = lib.mt_flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _I, _P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_len: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused attention. q [B,H,Sq,D], k/v [B,H,Skv,D] -> [B,H,Sq,D].
+
+    kv_len: optional [B] int valid kv lengths (right-padding mask)."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, causal=causal, kv_len=kv_len,
+                                   sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k, v must share float32 or bf16")
+    if d not in (32, 64, 128):
+        raise ValueError(f"flash_attention: head width {d} not in (32, 64, 128)")
+    if k.shape != (b, h, skv, d) or v.shape != k.shape or skv == 0:
+        raise ValueError("flash_attention: k/v must be [B, H, Skv>0, D] like q")
+    for t in (k, v) + ((kv_len,) if kv_len is not None else ()):
+        if t.device != q.device:
+            raise ValueError("flash_attention: all inputs must be on one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    kvl = None
+    if kv_len is not None:
+        if kv_len.shape != (b,):
+            raise ValueError("flash_attention: kv_len must be [B]")
+        kvl = kv_len.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.mt_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kvl.data_ptr() if kvl is not None else None, out.data_ptr(),
+            b, h, sq, skv, d, _DTYPES[q.dtype], float(sm_scale), int(causal),
+            stream,
+        )
+    if b * h * sq > 0:
+        flash_attention.launches += 1
+    _build.check(lib, code, "flash_attention")
+    return out
+
+
+#: launches of the CUDA kernel (the plain CPU path does not count)
+flash_attention.launches = 0
