@@ -9,6 +9,10 @@ at import; :func:`load` builds on first use and :func:`build_all` builds
 every source at once, one ``nvcc`` process per source, all started
 together.
 
+``nvcc`` runs with ``-Xptxas -v``: :data:`PTXAS` keeps, per source built
+in this process, ptxas's lines on each kernel's registers, shared memory
+and spills.
+
 C-side contract: pointers and the stream are ``void*`` (``c_void_p``),
 ints are ``int``; each entry point returns ``cudaGetLastError()`` after
 its launch, and :func:`check` raises on a nonzero code.
@@ -30,10 +34,13 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: {source: ptxas -v lines (kernel, registers, shared memory, spills)}
+PTXAS: Dict[str, list] = {}
 
 
 def sources() -> list:
@@ -84,6 +91,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        PTXAS[name] = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                       if "ptxas info" in ln and ("Compiling" in ln or "Used" in ln)
+                       or "spill" in ln]
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

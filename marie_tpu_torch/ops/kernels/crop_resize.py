@@ -3,7 +3,9 @@
 Replaces the TPU kernel ``marie_tpu/ops/pallas/crop_resize.py``
 (``crop_resize_pallas``).  On a CUDA tensor :func:`crop_resize` launches
 the hand-written kernel of ``csrc/crop_resize.cu`` (bound by bytes: the
-float32 crop store dominates; see the source note); on a CPU tensor it
+float32 crop store dominates; one block per (crop, 8 output rows), whose
+source rows it stages in shared memory, and one thread per 4 output
+columns; see the source note); on a CPU tensor it
 runs the plain PyTorch version, :func:`crop_resize_plain`
 (``preprocess/ops.py::crop_resize_pages``).  There is no fallback from
 one to the other.
@@ -45,6 +47,9 @@ def crop_resize(
         raise ValueError(f"crop_resize: unsupported device {pages.device}")
     if pages.dtype != torch.uint8 or pages.ndim != 3:
         raise ValueError("crop_resize: pages must be a [P, H, W] uint8 tensor")
+    if not 0 < out_w <= 4096 or out_h <= 0:
+        raise ValueError(f"crop_resize: out_h must be > 0 and out_w in (0, 4096], "
+                         f"got {out_h}x{out_w}")
     n = boxes.shape[0]
     if boxes.shape != (n, 4) or page_of.shape != (n,):
         raise ValueError("crop_resize: boxes must be [N, 4] and page_of [N]")

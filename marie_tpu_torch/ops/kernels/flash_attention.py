@@ -3,11 +3,17 @@
 Replaces the TPU kernel ``marie_tpu/ops/pallas/flash_attention.py``
 (``flash_attention``).  On CUDA tensors :func:`flash_attention` launches
 the hand-written kernel of ``csrc/flash_attention.cu`` (D in {32, 64, 128},
-float32 or bf16, any sequence lengths; at the encoder's 20 tokens it is
-bound by launch and latency, not bytes or flops — see the source note).
-On CPU tensors it runs the plain PyTorch version,
-:func:`attention_reference` (the JAX ``_attention_reference``).  There is
-no fallback from one to the other.
+float32 or bf16, any sequence lengths; bf16 on tensor cores, float32 on
+a SIMT path — see the source note).  On CPU tensors it runs the plain
+PyTorch version, :func:`attention_reference` (the JAX
+``_attention_reference``).  There is no fallback from one to the other.
+
+Layout: q, k and v may be strided views (the encoder passes the
+``[B,H,S,D]`` transposes of its ``[B,S,H,D]`` projections); only the last
+dimension must be contiguous, and the kernel reads them in place.  The
+output is the ``[B,H,Sq,D]`` view of a contiguous ``[B,Sq,H,D]`` tensor,
+so ``out.transpose(1, 2).reshape(B, Sq, H * D)`` is a view, not a copy.
+Both versions return that layout.
 """
 
 import ctypes
@@ -29,7 +35,8 @@ def attention_reference(q, k, v, *, causal=False, kv_len=None, sm_scale=1.0):
     type, as in the TPU kernel (the JAX ``_attention_reference`` rounds
     bf16 logits to bf16; in float32 the two are the same function); output
     in q's dtype.  Masked logits are -1e30 (a fully masked row averages v
-    uniformly)."""
+    uniformly).  Returns the ``[B,H,Sq,D]`` view of a contiguous
+    ``[B,Sq,H,D]`` tensor, as the kernel does."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * sm_scale
     sq, skv = q.shape[2], k.shape[2]
@@ -42,16 +49,16 @@ def attention_reference(q, k, v, *, causal=False, kv_len=None, sm_scale=1.0):
               >= torch.arange(skv, device=q.device)[None, :] - (skv - sq))
         logits = torch.where(cm[None, None], logits, _NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype).contiguous().transpose(1, 2)
 
 
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.mt_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+                       _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -64,9 +71,12 @@ def flash_attention(
     causal: bool = False,
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Fused attention. q [B,H,Sq,D], k/v [B,H,Skv,D] -> [B,H,Sq,D].
+    """Fused attention. q [B,H,Sq,D], k/v [B,H,Skv,D] -> [B,H,Sq,D] (the
+    transposed view of a contiguous [B,Sq,H,D] tensor).
 
-    kv_len: optional [B] int valid kv lengths (right-padding mask)."""
+    kv_len: optional [B] int valid kv lengths (right-padding mask).  On
+    CUDA, q, k and v are read in place: each must have a contiguous last
+    dimension, and bf16 rows must start on 16-byte boundaries."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if sm_scale is None:
@@ -85,20 +95,29 @@ def flash_attention(
     for t in (k, v) + ((kv_len,) if kv_len is not None else ()):
         if t.device != q.device:
             raise ValueError("flash_attention: all inputs must be on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for t in (q, k, v):
+        if t.stride(3) != 1:
+            raise ValueError("flash_attention: the last dimension of q, k, v "
+                             "must be contiguous")
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+            raise ValueError("flash_attention: bf16 rows of q, k, v must "
+                             "start on 16-byte boundaries")
     kvl = None
     if kv_len is not None:
         if kv_len.shape != (b,):
             raise ValueError("flash_attention: kv_len must be [B]")
         kvl = kv_len.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.mt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kvl.data_ptr() if kvl is not None else None, out.data_ptr(),
-            b, h, sq, skv, d, _DTYPES[q.dtype], float(sm_scale), int(causal),
+            strides, b, h, sq, skv, d, _DTYPES[q.dtype], float(sm_scale), int(causal),
             stream,
         )
     if b * h * sq > 0:

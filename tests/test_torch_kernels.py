@@ -7,13 +7,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from marie_tpu.models.layers import SelfAttention as JaxSelfAttention
 from marie_tpu.ops.pallas.crop_resize import crop_resize_pallas
 from marie_tpu.ops.pallas.flash_attention import _attention_reference, flash_attention
 from marie_tpu.preprocess.ops import crop_resize_pages
 from marie_tpu_torch.ops.kernels import crop_resize as k1
+from marie_tpu_torch.models.layers import SelfAttention, _merge
 from marie_tpu_torch.ops.kernels import flash_attention as k2
+from marie_tpu_torch.registry.convert import from_flax
 
 
 def _crop_case(seed, p=2, h=256, w=384, n=8, max_bh=28.0):
@@ -115,6 +119,43 @@ def test_attention_plain_matches_reference(d, sq, skv, causal, ragged):
     fa = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                          kv_len=jkv, causal=causal, interpret=True)
     np.testing.assert_allclose(got, np.asarray(fa), atol=1e-5)
+
+
+def test_attention_output_layout_merges_without_a_copy():
+    """K2's layout contract, which the CPU version keeps as the kernel
+    does: on [B,H,S,D] views of [B,S,H,D] projections it returns the
+    [B,H,S,D] view of a contiguous [B,S,H,D] tensor, so ``_merge`` is a
+    reshape of the same memory."""
+    b, s, h, d = 2, 20, 3, 32
+    q, k, v = (torch.from_numpy(a).transpose(1, 2)
+               for a in _qkv((b, s, h, d), (b, s, h, d), seed=4))
+    out = k2.flash_attention(q, k, v)
+    assert out.shape == (b, h, s, d)
+    assert not out.is_contiguous() and out.transpose(1, 2).is_contiguous()
+    merged = _merge(out)
+    assert merged.shape == (b, s, h * d) and merged.data_ptr() == out.data_ptr()
+    want = k2.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal,ragged", [(False, False), (False, True), (True, False)])
+def test_self_attention_matches_flax(causal, ragged):
+    """The full-sequence SelfAttention (K2's caller: projections, K2 on
+    their transposed views, merge, output projection) against the flax
+    module with the same weights, atol 1e-5 in float32."""
+    b, s, h, dim = 3, 20, 4, 64
+    x = np.random.default_rng(11).standard_normal((b, s, dim)).astype(np.float32)
+    kv_len = np.asarray([20, 7, 13], np.int32) if ragged else None
+    jmod = JaxSelfAttention(num_heads=h, model_dim=dim)
+    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want, _ = jmod.apply(params, jnp.asarray(x), causal=causal,
+                         kv_len=None if kv_len is None else jnp.asarray(kv_len))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    mod = from_flax(tree, SelfAttention(h, dim)).eval()
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x), causal=causal,
+                  kv_len=None if kv_len is None else torch.from_numpy(kv_len))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 def test_cpu_wrappers_do_not_count_launches():
