@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``marie_tpu_torch/csrc`` with nvcc, holds each
-against its plain PyTorch version at the shapes of the main path, runs the
-page-OCR slice (``PipelineOcrEngine.extract``) on 8 numpy-drawn 1024x768
-pages at the models' full widths with random weights from a seed, checks
-the slice on a small input against the plain CPU path, traces one more
-slice run per box source with torch.profiler, and prints one JSON line
-per phase.  The last two lines are the kernel table and
+Builds the CUDA kernels from ``marie_tpu_torch/csrc`` with nvcc and holds
+each against its plain PyTorch version at the shapes of the main path
+(``k1``, ``k2``); checks the engine on a small input against the plain
+CPU path (``small_reference``) and the detector's float32 precision
+against torch's global TF32 switches (``precision``); runs the serving
+engine (``PipelineOcrEngine.extract`` over ``BoxProcessorCraft`` and
+``TrOcrProcessor``) in the JAX serving configuration at the models' full
+widths, with random weights from a seed, on 16 numpy-drawn 1024x768 pages
+(``slice``) and streams 48 pages through it (``stream``); traces one more
+slice run per box source with torch.profiler (``profile``).  It prints
+one JSON line per phase; the last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.  Every phase raises on failure; the
 script exits nonzero, with no result line, without a CUDA device or
 without the package beside it.  It imports nothing of JAX.
@@ -22,6 +26,7 @@ import sys
 import time
 
 SEED = 0
+SLICE_PAGES = 16  # one page group of the serving engine
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor bf16 / fp32 SIMT
 
@@ -167,17 +172,18 @@ def k1_source_pixels(boxes, page_of, page_shape, oh, ow):
     return int(touched.sum()), sampled
 
 
-def phase_k1():
-    """K1 at the slice's shapes: 8 pages of the 1024x768 bucket, 256
-    crops of 48x320, with boxes taller than the TPU kernel's 192-row
-    window and boxes clipped at the page edges."""
+def phase_k1(p: int = 8, n: int = 256, case: str = "batch_256"):
+    """K1 on ``p`` pages of the 1024x768 bucket and ``n`` crops of 48x320
+    (the serving slice's fused batch is 16 pages and 2,560 crops), with
+    boxes taller than the TPU kernel's 192-row window and boxes clipped at
+    the page edges."""
     import numpy as np
     import torch
 
     from marie_tpu_torch.ops.kernels.crop_resize import crop_resize, crop_resize_plain
 
     dev = torch.device("cuda")
-    p, h, w, n, oh, ow = 8, 1024, 768, 256, 48, 320
+    h, w, oh, ow = 1024, 768, 48, 320
     rng = np.random.default_rng(SEED + 1)
     pages = torch.from_numpy(draw_pages(p, h, w, SEED + 2)).to(dev)
     x0 = rng.uniform(-20, w - 40, n)
@@ -219,7 +225,7 @@ def phase_k1():
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "library_ms": None}
-    emit({"phase": "k1", "shape": [p, h, w, n, oh, ow], "limit": K1_LIMIT,
+    emit({"phase": "k1", "case": case, "shape": [p, h, w, n, oh, ow], "limit": K1_LIMIT,
           "tall_boxes": 16, "edge_boxes": 24, "copies": copies,
           "warm_ms": t_kernel["warm"], "plain_warm_ms": t_plain["warm"], **row})
     return row
@@ -243,8 +249,10 @@ def phase_k2():
     """K2 at the encoder's shape (B=256 crops, 6 heads, 20 tokens, D=64)
     in bf16 (the serving dtype) on contiguous [B,H,S,D] inputs and on the
     transposed [B,S,H,D] projections the encoder passes (the main path's
-    layout; the kernels line's row), in fp32 (TF32 off), and a causal +
-    kv_len case at D=128 with Sq != Skv.  Times are cold (see
+    layout), at the serving slice's fused batch of B=2,560 on the
+    projections (the kernels line's row) and its overflow chunk of 128,
+    in fp32 (TF32 off), and a
+    causal + kv_len case at D=128 with Sq != Skv.  Times are cold (see
     cold_device_ms) and warm; SDPA is timed on the same inputs."""
     import torch
     import torch.nn.functional as F
@@ -255,6 +263,9 @@ def phase_k2():
     cases = [
         ("encoder_bf16", (256, 6, 20, 20, 64), torch.bfloat16, False, False, False),
         ("encoder_bf16_strided", (256, 6, 20, 20, 64), torch.bfloat16, False, False, True),
+        ("encoder_bf16_serving", (2560, 6, 20, 20, 64), torch.bfloat16, False, False, True),
+        ("encoder_bf16_overflow_chunk", (128, 6, 20, 20, 64), torch.bfloat16, False, False,
+         True),
         ("encoder_fp32", (256, 6, 20, 20, 64), torch.float32, False, False, False),
         ("causal_kvlen_fp32", (8, 4, 37, 53, 128), torch.float32, True, True, False),
         ("causal_kvlen_bf16", (8, 4, 37, 53, 128), torch.bfloat16, True, True, False),
@@ -308,120 +319,271 @@ def phase_k2():
               "limit": K2_LIMITS[tag], "copies": copies, "warm_ms": t_kernel["warm"],
               "plain_warm_ms": t_plain["warm"],
               "library_warm_ms": t_lib and t_lib["warm"], **entry})
-        if name == "encoder_bf16_strided":
+        if name == "encoder_bf16_serving":
             row = entry
     return row
 
 
 def _reset_counts():
+    from marie_tpu_torch.ops.kernels import _build
     from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
     from marie_tpu_torch.ops.kernels.flash_attention import flash_attention
 
-    crop_resize.launches = 0
-    flash_attention.launches = 0
+    _build.reset_counts(crop_resize, flash_attention)
 
 
 def _read_counts():
+    """{kernel: {"all": n, path: n, ...}}: launches in all and by the
+    engine path that made them ("fused" program, "overflow" rows)."""
     from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
     from marie_tpu_torch.ops.kernels.flash_attention import flash_attention
 
-    return {"crop_resize": crop_resize.launches,
-            "flash_attention": flash_attention.launches}
+    return {fn.__name__: {"all": fn.launches, **fn.launches_by_path}
+            for fn in (crop_resize, flash_attention)}
 
 
-def _check_words(pages_words, n_pages, h, w):
+def _check_results(results, n_pages, h, w):
+    """The engine's result dicts: one per page, in page order, every word
+    box inside the page, confidences in [0, 1], every word on one line."""
     import math
 
-    if len(pages_words) != n_pages:
-        raise AssertionError(f"{len(pages_words)} page results for {n_pages} pages")
-    for words in pages_words:
-        for wd in words:
+    if len(results) != n_pages:
+        raise AssertionError(f"{len(results)} page results for {n_pages} pages")
+    for i, page in enumerate(results):
+        if page["meta"]["page"] != i or page["meta"]["imageSize"] != {"width": w, "height": h}:
+            raise AssertionError(f"page {i}: meta {page['meta']}")
+        for wd in page["words"]:
             x, y, bw, bh = wd["box"]
             if not (0 <= x and 0 <= y and bw > 0 and bh > 0
-                    and x + bw <= w + 1e-3 and y + bh <= h + 1e-3):
+                    and x + bw <= w + 1 and y + bh <= h + 1):
                 raise AssertionError(f"box out of the page: {wd['box']}")
             if not (math.isfinite(wd["confidence"]) and 0.0 <= wd["confidence"] <= 1.0):
                 raise AssertionError(f"confidence not in [0, 1]: {wd['confidence']}")
             if not isinstance(wd["text"], str):
                 raise AssertionError("text is not a string")
+        if sorted(i for ln in page["lines"] for i in ln["wordids"]) != list(
+                range(len(page["words"]))):
+            raise AssertionError(f"page {i}: lines do not partition the words")
 
 
-def heatmap_thresholds(engine, pages):
-    """(low_text, text_threshold) at the 0.6 and 0.8 quantiles of the
-    engine's CRAFT region map on these pages: with random weights the
-    default thresholds keep no component, so the production mask would
-    crop and decode nothing."""
+def serving_detector(source: str, pages, craft_tree):
+    """The JAX serving configuration's detector (``bench.py``) at full
+    width: CRAFT fast_s2d2 in bf16 with text_threshold 0.6, low_text 0.4,
+    256 components and a CC run budget of 32.  For ``source="heatmap"``
+    the thresholds are the 0.6 and 0.8 quantiles of the random-weight
+    heatmap of ``pages`` instead: with random weights the served
+    thresholds keep no component."""
     import numpy as np
-    import torch
 
-    from marie_tpu_torch.preprocess.ops import normalize_page
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.models.configs import CraftConfig
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
 
-    x = torch.from_numpy(pages).to(engine.device)
-    with torch.no_grad():
-        region = engine.craft(normalize_page(x[..., None].expand(*x.shape, 3)))[..., 0]
-    region = region.float().cpu().numpy()
-    return float(np.quantile(region, 0.6)), float(np.quantile(region, 0.8))
+    bp = BoxProcessorCraft(
+        CraftConfig.fast_s2d2(), craft_tree, text_threshold=0.6, low_text=0.4,
+        max_components=256, bucket_spec=BucketSpec(shapes=(pages.shape[1:],)),
+        box_source=source, param_dtype="bfloat16", device="cuda", cc_runs=32)
+    if source == "heatmap":
+        region = np.concatenate([bp.heatmap(pages[k:k + 8])[..., 0].cpu().numpy()
+                                 for k in range(0, len(pages), 8)])
+        bp.low_text = float(np.quantile(region, 0.6))
+        bp.text_threshold = float(np.quantile(region, 0.8))
+    return bp
+
+
+def serving_recognizer():
+    """The JAX serving configuration's recogniser at full width: TrOCR
+    fast_v3_g2_d6 in bf16 with recognition chunks of 32, 128 and 256.
+    It counts the rows its dispatch takes (``rows``): in the fused engine
+    only the overflow rows go through it."""
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.models.configs import TrOCRConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    class OverflowCountingTrOcr(TrOcrProcessor):
+        rows = 0
+
+        def recognize_dispatch(self, page_dev, boxes_xywh, scale=1.0):
+            self.rows += len(boxes_xywh)
+            return super().recognize_dispatch(page_dev, boxes_xywh, scale)
+
+    cfg = TrOCRConfig.fast_v3_g2_d6()
+    return OverflowCountingTrOcr(cfg, init_flax_layout(cfg, SEED + 1),
+                                 param_dtype="bfloat16", batch_sizes=(32, 128, 256),
+                                 device="cuda")
+
+
+def serving_engine(bp, op):
+    """``bench.py``'s engine settings: u2 uploads, 160 recognition rows a
+    page, 16-page groups."""
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+
+    return PipelineOcrEngine(bp, op, upload_format="u2", compact_slots=160,
+                             page_fuse_batch=16)
 
 
 def phase_slice():
-    """The main path at full width: CRAFT fast_s2d2 + TrOCR fast_v3_g2_d6
-    (bf16), 8 pages of 1024x768, 32 recognition rows per page (256 in
-    all), box_source "ink" and then "heatmap" (the production mask, with
-    thresholds from quantiles of the random-weight heatmap).  Both runs
-    must keep boxes; the kernels line reads the heatmap run's launches."""
+    """The main path in the JAX serving configuration at full width
+    (``serving_detector``, ``serving_recognizer``, ``serving_engine``) on
+    16 pages of 1024x768,
+    box_source "ink" and then "heatmap".  Both runs must keep boxes; the
+    ink run must send rows through the overflow path, and each kernel
+    must launch on the fused path of both runs and on the overflow path
+    of the ink run.  The kernels line reads the heatmap run's launches."""
     import torch
 
-    from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
-    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
-    from marie_tpu_torch.preprocess.buckets import BucketSpec
+    from marie_tpu_torch.models.configs import CraftConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
 
-    n, h, w = 8, 1024, 768
+    n, h, w = SLICE_PAGES, 1024, 768
     pages = draw_pages(n, h, w, SEED + 3)
-    engine = PipelineOcrEngine(
-        CraftConfig.fast_s2d2(), TrOCRConfig.fast_v3_g2_d6(), device="cuda",
-        seed=SEED, max_components=256, page_batch=8,
-        compact_slots=32, bucket_spec=BucketSpec(shapes=((h, w),)))
-    engine.low_text, engine.text_threshold = heatmap_thresholds(engine, pages)
-    counts = {}
+    craft_tree = init_flax_layout(CraftConfig.fast_s2d2(), SEED)
+    op = serving_recognizer()
+    counts, setups = {}, {}
     for source in ("ink", "heatmap"):
-        engine.extract(pages, box_source=source)  # warm-up (cuDNN plans)
+        bp = serving_detector(source, pages, craft_tree)
+        engine = serving_engine(bp, op)
+        engine.extract(pages)  # warm-up (kernel builds, cuDNN plans)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        op.rows = 0
         _reset_counts()
         t0 = time.perf_counter()
-        words = engine.extract(pages, box_source=source)
+        results = engine.extract(pages)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[source] = _read_counts()
-        _check_words(words, n, h, w)
-        kept = sum(len(ws) for ws in words)
-        read = sum(1 for ws in words for wd in ws if wd["text"])
-        emit({"phase": "slice", "box_source": source, "pages": n,
-              "page_hw": [h, w], "kept_boxes": kept, "words_with_text": read,
-              "low_text": engine.low_text, "text_threshold": engine.text_threshold,
+        _check_results(results, n, h, w)
+        kept = sum(len(r["words"]) for r in results)
+        read = sum(1 for r in results for wd in r["words"] if wd["text"])
+        emit({"phase": "slice", "box_source": source, "pages": n, "page_hw": [h, w],
+              "craft": "fast_s2d2 bf16", "trocr": "fast_v3_g2_d6 bf16",
+              "upload_format": engine.upload_format, "compact_slots": engine.compact_slots,
+              "page_fuse_batch": engine.page_fuse_batch, "batch_sizes": op.batch_sizes,
+              "cc_runs": bp.cc_runs, "max_components": bp.max_components,
+              "low_text": bp.low_text, "text_threshold": bp.text_threshold,
+              "thresholds": ("0.6/0.8 quantiles of the random-weight heatmap"
+                             if source == "heatmap" else "served (unused by ink masks)"),
+              "kept_boxes": kept, "overflow_rows": op.rows, "words_with_text": read,
+              "lines": sum(len(r["lines"]) for r in results),
               "wall_ms_per_page": wall / n * 1e3, "launches": counts[source],
               "max_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
-        if min(counts[source].values()) <= 0:
-            raise AssertionError(f"{source}: a kernel of the path never launched: "
-                                 f"{counts[source]}")
         if kept <= 0:
             raise AssertionError(f"{source} run kept no boxes")
-    return counts["heatmap"], engine, pages
+        paths = ("fused", "overflow") if source == "ink" else ("fused",)
+        for kernel, by_path in counts[source].items():
+            for path in paths:
+                if by_path.get(path, 0) <= 0:
+                    raise AssertionError(f"{source}: {kernel} never launched on the "
+                                         f"{path} path: {by_path}")
+        if source == "ink" and op.rows <= 0:
+            raise AssertionError("the ink run sent no rows through the overflow path")
+        setups[source] = engine
+    launches = {k: v["all"] for k, v in counts["heatmap"].items()}
+    return launches, setups, pages
 
 
-def phase_profile(engine, pages):
-    """Where the slice's time goes: torch.profiler over one more extract
-    per box_source; wall time, device busy time, the ``marie.*`` stage
-    ranges and the kernels with the most device time."""
+def phase_stream(engine, pages16):
+    """48 pages (3 groups of 16) through ``extract`` with
+    ``on_result_group``: pages/s, each group's arrival on the host, and
+    whether group i's collect began before group i+1's device work ended
+    (the group's event on the card, against the host clock aligned to the
+    card by an event recorded at the start)."""
+    import numpy as np
     import torch
+
+    import marie_tpu_torch.ocr.ocr_engine as ocr_engine
+
+    pages = np.concatenate([pages16, draw_pages(32, *pages16.shape[1:], SEED + 6)])
+    collects = []  # (host ms at collect begin, the group's ready event)
+    inner = ocr_engine.fused_collect_many
+
+    def timed_collect(bp, op, handles, pms_modes):
+        collects.append(((time.perf_counter() - t0) * 1e3, handles[0].ready))
+        return inner(bp, op, handles, pms_modes)
+
+    arrivals = []
+    ocr_engine.fused_collect_many = timed_collect
+    try:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        results = engine.extract(pages, on_result_group=lambda rs, s: arrivals.append(
+            (s, len(rs), (time.perf_counter() - t0) * 1e3)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ocr_engine.fused_collect_many = inner
+    _check_results(results, len(pages), *pages.shape[1:])
+    device_end = [start.elapsed_time(ev) for _, ev in collects]
+    overlap = [collects[i][0] < device_end[i + 1] for i in range(len(collects) - 1)]
+    emit({"phase": "stream", "pages": len(pages), "groups": [[s, n] for s, n, _ in arrivals],
+          "pages_per_s": len(pages) / wall, "wall_ms": wall * 1e3,
+          "arrival_ms": [t for _, _, t in arrivals],
+          "collect_begin_ms": [t for t, _ in collects],
+          "device_end_ms": device_end,
+          "collect_began_before_next_group_ended": overlap})
+    if [s for s, _, _ in arrivals] != [0, 16, 32] or [n for _, n, _ in arrivals] != [16] * 3:
+        raise AssertionError(f"groups arrived as {arrivals}")
+
+
+def phase_precision():
+    """A default BoxProcessorCraft (float32, allow_tf32=False) on the
+    card: its heatmap with torch's global TF32 switches on equals the one
+    with them off (limit 0: both forwards run in full float32, so cuDNN
+    picks the same algorithms), and the switches read as set afterwards.
+    A processor with allow_tf32=True shows what TF32 would change."""
+    import torch
+
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.utils.device import _precision_flags
+
+    read, write, n = _precision_flags()
+    start = read()
+    pages = draw_pages(4, 1024, 768, SEED + 7)
+    bp = BoxProcessorCraft(device="cuda")
+    bp_tf32 = BoxProcessorCraft(device="cuda", allow_tf32=True)
+    try:
+        write(("ieee",) * n)
+        off = bp.heatmap(pages)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        flags_on = read()
+        on = bp.heatmap(pages)
+        tf32 = bp_tf32.heatmap(pages)
+        torch.cuda.synchronize()
+        after = read()
+        legacy = [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]
+    finally:
+        write(start)
+    err = float((on - off).abs().max())
+    emit({"phase": "precision", "pages": len(pages), "flags_set": flags_on,
+          "flags_after": after, "legacy_after": legacy, "max_abs_err": err, "limit": 0.0,
+          "tf32_max_abs_diff": float((tf32 - off).abs().max())})
+    if after != flags_on or legacy != [True, True]:
+        raise AssertionError(f"the engine left the flags changed: {flags_on} -> {after}")
+    if err > 0.0:
+        raise AssertionError(f"the default CRAFT depends on the global TF32 flags: {err}")
+
+
+def phase_profile(setups, pages):
+    """Where the serving slice's time goes: torch.profiler over one more
+    extract per box_source, on every thread; wall time, device busy time,
+    the ``marie.*`` stage ranges (counts and times summed over threads)
+    and the kernels with the most device time."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for source in ("ink", "heatmap"):
+    for source, engine in setups.items():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # all threads: the page program runs on the engine's upload worker
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
             t0 = time.perf_counter()
-            engine.extract(pages, box_source=source)
+            engine.extract(pages)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
@@ -447,40 +609,57 @@ def phase_profile(engine, pages):
                               for e in top]})
 
 
+def _results_equal(got, want, conf_atol=1e-3):
+    """(equal apart from confidences, max confidence difference)."""
+    def strip(results):
+        return [dict(r, words=[dict(w, confidence=None) for w in r["words"]],
+                     lines=[dict(ln, confidence=None) for ln in r["lines"]])
+                for r in results]
+
+    def confs(results):
+        return [x["confidence"] for r in results for x in r["words"] + r["lines"]]
+
+    err = max((abs(a - b) for a, b in zip(confs(got), confs(want))), default=0.0)
+    return strip(got) == strip(want), err
+
+
 def phase_small_reference():
-    """The slice on a small input on the card against the plain CPU path
-    (tiny configs, float32, TF32 off): same boxes, same texts."""
-    import numpy as np
+    """The engine on a small input on the card against the plain CPU path
+    (tiny configs, float32; the processors hold full float32 themselves):
+    equal result dicts (words, boxes, lines, line boxes, texts;
+    confidences within 1e-3), with a row budget that the pages overflow."""
     import torch
 
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
     from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
     from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
     from marie_tpu_torch.preprocess.buckets import BucketSpec
+    from marie_tpu_torch.registry.convert import init_flax_layout
 
     pages = draw_pages(2, 256, 384, SEED + 4)
-    kw = dict(seed=SEED + 5, min_area=4, page_batch=2, compact_slots=32,
-              trocr_dtype=torch.float32, bucket_spec=BucketSpec(shapes=((256, 384),)))
-    ref = PipelineOcrEngine(CraftConfig.tiny(), TrOCRConfig.tiny(), device="cpu", **kw)
-    card = PipelineOcrEngine(CraftConfig.tiny(), TrOCRConfig.tiny(), device="cuda", **kw)
-    want = ref.extract(pages, box_source="ink")
-    got = card.extract(pages, box_source="ink")
-    boxes_equal = all(
-        np.array_equal(np.asarray([wd["box"] for wd in a]), np.asarray([wd["box"] for wd in b]))
-        for a, b in zip(got, want))
-    texts_a = [wd["text"] for ws in got for wd in ws]
-    texts_b = [wd["text"] for ws in want for wd in ws]
-    same_text = sum(a == b for a, b in zip(texts_a, texts_b))
-    conf_err = max((abs(a["confidence"] - b["confidence"])
-                    for ga, gb in zip(got, want) for a, b in zip(ga, gb)), default=0.0)
-    emit({"phase": "small_reference", "words": len(texts_b),
-          "boxes_equal": boxes_equal, "texts_equal": same_text,
-          "max_conf_err": conf_err})
-    if not (boxes_equal and len(texts_a) == len(texts_b) and len(texts_b) > 0):
-        raise AssertionError("card and CPU disagree on the small slice's boxes")
-    if same_text != len(texts_b) or conf_err > 1e-3:
-        raise AssertionError(
-            f"card and CPU disagree on the small slice's text: {same_text}/"
-            f"{len(texts_b)} equal, max confidence error {conf_err}")
+    craft = init_flax_layout(CraftConfig.tiny(), SEED + 5)
+    trocr = init_flax_layout(TrOCRConfig.tiny(), SEED + 6)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bp = BoxProcessorCraft(CraftConfig.tiny(), craft, box_source="ink", min_area=4,
+                               max_components=64, bucket_spec=BucketSpec(shapes=((256, 384),)),
+                               device=dev)
+        op = TrOcrProcessor(TrOCRConfig.tiny(), trocr, batch_sizes=(8, 32), device=dev)
+        _reset_counts()
+        out[dev] = PipelineOcrEngine(bp, op, page_fuse_batch=2, compact_slots=8).extract(pages)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+    equal, conf_err = _results_equal(out["cuda"], out["cpu"])
+    words = sum(len(r["words"]) for r in out["cpu"])
+    emit({"phase": "small_reference", "words": words, "row_budget": 16,
+          "lines": sum(len(r["lines"]) for r in out["cpu"]),
+          "results_equal": equal, "max_conf_err": conf_err, "launches": launches})
+    if not (equal and words > 16 and conf_err <= 1e-3):
+        raise AssertionError(f"card and CPU disagree on the small slice: equal {equal}, "
+                             f"{words} words, max confidence error {conf_err}")
+    if launches["crop_resize"].get("overflow", 0) <= 0:
+        raise AssertionError(f"no overflow rows on the card: {launches}")
 
 
 def main() -> int:
@@ -498,11 +677,15 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     card = phase_device()
-    k1 = phase_k1()
+    phase_k1()
+    phase_k1(1, 128, "overflow_chunk")
+    k1 = phase_k1(SLICE_PAGES, SLICE_PAGES * 160, "serving")
     k2 = phase_k2()
     phase_small_reference()
-    launches, engine, pages = phase_slice()
-    phase_profile(engine, pages)
+    phase_precision()
+    launches, setups, pages = phase_slice()
+    phase_stream(setups["heatmap"], pages)
+    phase_profile(setups, pages)
     k1["launches"] = launches["crop_resize"]
     k2["launches"] = launches["flash_attention"]
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3)})

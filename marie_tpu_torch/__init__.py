@@ -1,9 +1,12 @@
-"""PyTorch/CUDA port of marie_tpu's batched page OCR path.
+"""PyTorch/CUDA port of marie_tpu's page OCR.
 
-The JAX package (``marie_tpu``) stays the reference; this package runs the
-same slice — unpack, normalize, CRAFT, run-domain connected components,
-keep/compact, word crops, TrOCR encoder and greedy decode — on an NVIDIA
-GPU.  It imports torch, numpy and the standard library only.
+The JAX package (``marie_tpu``) stays the reference; this package runs its
+serving engine on an NVIDIA GPU: ``PipelineOcrEngine`` over a
+``BoxProcessorCraft`` (page prep, CRAFT, run-domain connected components)
+and a ``TrOcrProcessor`` (word crops, TrOCR encoder and greedy decode),
+with packed uploads, the fused page-group program streamed on a worker
+thread, line organisation and the JAX package's result schema.  It imports
+torch, numpy and the standard library only.
 
 Importing the package builds nothing: the CUDA kernels under ``csrc/`` are
 compiled with ``nvcc`` the first time a wrapper launches one

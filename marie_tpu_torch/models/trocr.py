@@ -14,6 +14,7 @@ from torch.profiler import record_function
 from marie_tpu_torch.models.configs import DecoderConfig, TrOCRConfig
 from marie_tpu_torch.models.layers import DecoderLayer, layer_norm, named_layers
 from marie_tpu_torch.models.vit import ViTEncoder
+from marie_tpu_torch.utils.device import float32_precision
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 
@@ -68,6 +69,7 @@ class TrOCRModel(nn.Module):
 
 
 @torch.no_grad()
+@float32_precision(allow_tf32=False)  # float32 matmuls as the JAX reference runs them
 def greedy_decode(model: TrOCRModel, images: torch.Tensor,
                   max_steps: Optional[int] = None,
                   active: Optional[torch.Tensor] = None,

@@ -1,240 +1,181 @@
-"""PipelineOcrEngine — the port's entry point for batched page OCR.
+"""PipelineOcrEngine — the port's OCR entry point (port of
+``marie_tpu/ocr/ocr_engine.py``): a box processor (detection) and an OCR
+processor (recognition) over full pages, returning one result dict per
+page in the JAX package's schema (``words``, ``lines``, ``meta.lines``,
+``meta.lines_bboxes``, ``meta.format``; boxes xywh or xyxy).
 
-Pages are bucket-padded on the host, grouped (same bucket, at most
-``page_batch`` pages, padded to a power-of-two ladder size), uploaded as
-uint8 and run through :func:`marie_tpu_torch.ocr.fused.fused_pages_compact`.
-The collect follows ``marie_tpu/ocr/fused.py::fused_collect_many`` at word
-level: per page, the kept boxes in original-page xywh with their text and
-confidence.  Line organisation is not ported.
+SPARSE and LINE pages take the fused path of :mod:`marie_tpu_torch.ocr.fused`
+(``single_program=True``, streamed group by group) or the two-phase path
+(detect every page, then recognise every page's boxes).
+
+Left for later: the other page segmentation modes and ``regions`` (they
+cut host fragments, ROADMAP §1 item 8), a device mesh (item 16) and the
+chained classification / NER heads (item 10).
 """
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
-from marie_tpu_torch.models.tokenizer import CharTokenizer
-from marie_tpu_torch.models.trocr import greedy_decode
+from marie_tpu_torch.document.ocr_processor import assemble_page_result
+from marie_tpu_torch.enums import CoordinateFormat, PSMode
 from marie_tpu_torch.ocr.fused import (
-    _geometric_step_caps,
-    fused_pages_compact,
-    host_keep_rows,
+    UPLOAD_FORMATS,
+    fused_collect_many,
+    fused_dispatch_stream,
+    handle_page_count,
+    supports_fused_page,
 )
-from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
-from marie_tpu_torch.preprocess.buckets import BucketSpec, pad_to
-from marie_tpu_torch.registry.convert import init_flax_layout, load_model
-from marie_tpu_torch.utils.device import resolve_device
-
-Word = Dict[str, Any]
-
-
-def _as_page_list(pages) -> List[np.ndarray]:
-    """[H, W] / [H, W, 3|4] -> one page; [P, H, W] / [P, H, W, C] or a
-    list -> pages."""
-    if isinstance(pages, np.ndarray):
-        if pages.ndim == 2 or (pages.ndim == 3 and pages.shape[-1] in (3, 4)):
-            return [pages]
-        return list(pages)
-    return list(pages)
-
-
-def _to_gray(page: np.ndarray) -> np.ndarray:
-    if page.dtype != np.uint8:
-        raise ValueError(f"pages must be uint8, got {page.dtype}")
-    if page.ndim == 2:
-        return page
-    rgb = page[..., :3]
-    if not (np.array_equal(rgb[..., 0], rgb[..., 1])
-            and np.array_equal(rgb[..., 0], rgb[..., 2])):
-        raise NotImplementedError(
-            "RGB pages with distinct channels need the RGB crop path, "
-            "which is not ported; pass grayscale pages")
-    return np.ascontiguousarray(rgb[..., 0])
-
-
-def _ladder_size(n: int, cap: int) -> int:
-    """Smallest power of two >= n, capped."""
-    s = 1
-    while s < n and s < cap:
-        s *= 2
-    return min(s, cap)
 
 
 class PipelineOcrEngine:
-    """CRAFT detection + TrOCR greedy recognition over page batches.
+    """Concrete engine over a (box_processor, ocr_processor) pair, e.g.
+    :class:`~marie_tpu_torch.boxes.craft_box_processor.BoxProcessorCraft`
+    and :class:`~marie_tpu_torch.document.trocr_ocr_processor.TrOcrProcessor`.
 
-    Weights are flax-layout numpy trees (see
-    :mod:`marie_tpu_torch.registry.convert`); a missing tree is drawn from
-    ``seed`` with :func:`init_flax_layout`.  CRAFT runs in float32, TrOCR
-    in ``trocr_dtype`` (bf16, as the JAX serving processor runs it).
-    Thresholds default to ``BoxProcessorCraft``'s; ``compact_slots`` is
-    each page's share of a group's recognition rows."""
+    ``page_fuse_batch`` same-bucket pages run as one group;
+    ``compact_slots`` is each page's share of its group's recognition
+    rows; ``upload_format`` is ``"u8"`` or a packed grayscale format
+    (``"u4"``, ``"u2"``, ``"u1"``, ``"u1d"``)."""
+
+    #: ``extract`` takes ``on_result_group`` / ``group_size``
+    supports_result_stream = True
 
     def __init__(
         self,
-        craft_config: Optional[CraftConfig] = None,
-        trocr_config: Optional[TrOCRConfig] = None,
-        craft_weights: Optional[Dict[str, Any]] = None,
-        trocr_weights: Optional[Dict[str, Any]] = None,
-        *,
-        device="cuda",
-        seed: int = 0,
-        text_threshold: float = 0.7,
-        low_text: float = 0.4,
-        link_threshold: float = 0.4,
-        min_area: float = 10,
-        box_expand: float = 0.14,
-        max_components: int = 1024,
-        page_batch: int = 16,
+        box_processor,
+        ocr_processor,
+        single_program: bool = True,
+        page_fuse_batch: int = 16,
+        rec_slots: int = 256,
         compact_slots: int = 192,
-        trocr_dtype: torch.dtype = torch.bfloat16,
-        decode_steps: Optional[int] = None,
-        bucket_spec: Optional[BucketSpec] = None,
+        upload_format: str = "u8",
+        mesh=None,
+        classifier=None,
+        indexer=None,
     ):
-        self.device = resolve_device(device)
-        self.craft_config = craft_config or CraftConfig.fast_s2d2()
-        self.trocr_config = trocr_config or TrOCRConfig.fast_v3_g2_d6()
-        if craft_weights is None:
-            craft_weights = init_flax_layout(self.craft_config, seed)
-        if trocr_weights is None:
-            trocr_weights = init_flax_layout(self.trocr_config, seed + 1)
-        self.craft = load_model(self.craft_config, craft_weights, self.device)
-        self.trocr = load_model(self.trocr_config, trocr_weights, self.device,
-                                trocr_dtype)
-        self.trocr_dtype = trocr_dtype
-        self.tokenizer = CharTokenizer()
-        self.text_threshold = text_threshold
-        self.low_text = low_text
-        self.link_threshold = link_threshold
-        self.min_area = float(min_area)
-        self.box_expand = box_expand
-        self.max_components = max_components
-        self.page_batch = page_batch
+        if mesh is not None:
+            raise NotImplementedError("a device mesh is ROADMAP §1 item 16")
+        if classifier is not None or indexer is not None:
+            raise NotImplementedError("chained classification / NER heads are "
+                                      "ROADMAP §1 item 10")
+        if upload_format not in UPLOAD_FORMATS:
+            raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "
+                             f"got {upload_format!r}")
+        self.box_processor = box_processor
+        self.ocr_processor = ocr_processor
+        self.single_program = single_program
+        self.page_fuse_batch = page_fuse_batch
+        self.rec_slots = rec_slots
         self.compact_slots = compact_slots
-        self.crop_h, self.crop_w = self.trocr_config.encoder.image_size
-        if decode_steps is None:
-            max_chars = max(self.crop_w // max(self.crop_h // 2, 1), 4)
-            decode_steps = min(max_chars + 4, self.trocr_config.decoder.max_len)
-        self.decode_steps = decode_steps
-        self.buckets = bucket_spec or BucketSpec()
+        self.upload_format = upload_format
 
-    def _prep(self, page: np.ndarray):
-        gray = _to_gray(page)
-        h, w = gray.shape
-        (bh, bw), scale = self.buckets.fit_with_scale(h, w)
-        if scale < 1.0:
+    def extract(
+        self,
+        frames,
+        pms_mode: PSMode = PSMode.SPARSE,
+        coordinate_format: CoordinateFormat = CoordinateFormat.XYWH,
+        regions=None,
+        queue_id: str = "",
+        **kwargs,
+    ) -> List[Dict[str, Any]]:
+        """One result dict per page of ``frames`` (uint8 [H, W] pages,
+        [H, W, 3|4] pages with equal color channels, or a list or stack of
+        them).
+
+        ``on_result_group(results, start)`` receives each page group's
+        results as soon as they are assembled (fused path);
+        ``group_size`` overrides ``page_fuse_batch`` for this call."""
+        if regions:
+            raise NotImplementedError("region extraction is ROADMAP §1 item 8")
+        if pms_mode not in (PSMode.SPARSE, PSMode.LINE):
             raise NotImplementedError(
-                f"page {h}x{w} exceeds the largest bucket; downscaling is "
-                "not ported")
-        return pad_to(gray, bh, bw), scale, (h, w)
+                f"{pms_mode} cuts host fragments, ROADMAP §1 item 8; "
+                "SPARSE and LINE are ported")
+        frames = _as_frame_list(frames)
+        bp, op = self.box_processor, self.ocr_processor
+        if self.single_program and supports_fused_page(bp, op):
+            return self._extract_fused(frames, pms_mode, coordinate_format, **kwargs)
+        return self._extract_two_phase(frames, pms_mode, coordinate_format)
 
-    def _groups(self, preps) -> List[List[int]]:
-        groups: List[List[int]] = []
-        for i, prep in enumerate(preps):
-            g = groups[-1] if groups else None
-            if g and preps[g[0]][0].shape == prep[0].shape and len(g) < self.page_batch:
-                g.append(i)
-            else:
-                groups.append([i])
-        return groups
+    def _extract_fused(self, frames, pms_mode, coordinate_format, **kwargs):
+        """Upload | device | collect, streamed: group i's collect runs while
+        later groups upload and run."""
+        on_result_group = kwargs.get("on_result_group")
+        group_size = kwargs.get("group_size") or self.page_fuse_batch
+        results: List[Dict[str, Any]] = []
+        for handle in fused_dispatch_stream(
+            self.box_processor, self.ocr_processor, frames,
+            rec_slots=self.rec_slots, page_batch=group_size,
+            compact_slots=self.compact_slots, upload_format=self.upload_format,
+        ):
+            n = handle_page_count(handle)
+            start = len(results)
+            pages = fused_collect_many(self.box_processor, self.ocr_processor,
+                                       [handle], [pms_mode] * n)
+            for j, page in enumerate(pages):
+                results.append(self._assemble_fused_result(
+                    frames[start + j], start + j, page, coordinate_format))
+            if on_result_group is not None:
+                on_result_group(results[start:], start)
+        return results
 
-    def extract(self, pages_u8: Union[np.ndarray, Sequence[np.ndarray]],
-                box_source: str = "heatmap") -> List[List[Word]]:
-        """OCR every page: one list of words per page, each word
-        ``{"box": [x, y, w, h] (original page pixels), "text": str,
-        "confidence": float}`` in detection (slot) order."""
-        preps = [self._prep(p) for p in _as_page_list(pages_u8)]
-        out: List[List[Word]] = []
-        for group in self._groups(preps):
-            out.extend(self._run_group(preps, group, box_source))
-        return out
+    def _extract_two_phase(self, frames, pms_mode, coordinate_format):
+        """Dispatch every page's detection first, fetch all stats at once,
+        organize the boxes, dispatch every page's recognition, then fetch
+        all tokens at once."""
+        bp, op = self.box_processor, self.ocr_processor
+        handles = [bp.detect_dispatch(f) for f in frames]
+        stats_host = None
+        if len(handles) > 1:
+            stacked = {k: torch.stack([h[0][k] for h in handles]).cpu().numpy()
+                       for k in handles[0][0]}
+            stats_host = [{k: v[i] for k, v in stacked.items()}
+                          for i in range(len(handles))]
+        per_page = []
+        futures = []
+        for i, (frame, handle) in enumerate(zip(frames, handles)):
+            raw_boxes, scores = bp.detect_collect(
+                handle, stats=None if stats_host is None else stats_host[i])
+            boxes, scores, lines, line_bboxes = bp.organize_boxes(
+                raw_boxes, scores, frame.shape[:2], pms_mode)
+            per_page.append((boxes, scores, lines, line_bboxes))
+            futures.append(op.recognize_dispatch(handle[1], boxes, handle[2]))
+        words = op.recognize_collect_many(futures)
+        return [
+            self._assemble_fused_result(frame, i, (*page, page_words, None),
+                                        coordinate_format)
+            for i, (frame, page, page_words) in enumerate(zip(frames, per_page, words))
+        ]
 
-    def _run_group(self, preps, group, box_source) -> List[List[Word]]:
-        psize = _ladder_size(len(group), self.page_batch)
-        rows = group + [group[-1]] * (psize - len(group))
-        stack = torch.from_numpy(np.stack([preps[k][0] for k in rows]))
-        clip = torch.tensor(
-            [[preps[k][2][1] * preps[k][1], preps[k][2][0] * preps[k][1]]
-             for k in rows], dtype=torch.float32)
-        total_slots = psize * self.compact_slots
-        expand = self.box_expand if box_source == "heatmap" else 0.0
-        pages_dev = stack.to(self.device)
-        stats, tokens, conf, crop_rows = fused_pages_compact(
-            self.craft, self.trocr, pages_dev, clip, len(group),
-            self.text_threshold, self.low_text, self.link_threshold,
-            self.min_area, expand, self.max_components, box_source,
-            total_slots, self.crop_h, self.crop_w, self.trocr_dtype,
-            self.decode_steps)
-        with record_function("marie.collect"):
-            pages_words, overflow = self._collect(
-                preps, group, stats, tokens, conf, total_slots, box_source, expand)
-        if overflow:
-            with record_function("marie.overflow"):
-                self._recognize_overflow(pages_dev, crop_rows, overflow, pages_words)
-        return pages_words
+    def _assemble_fused_result(self, frame, index: int, page,
+                               coordinate_format: CoordinateFormat) -> Dict[str, Any]:
+        """One page tuple -> the result schema."""
+        boxes, _scores, lines, line_bboxes, words, _extra = page
+        result = assemble_page_result(
+            (frame.shape[0], frame.shape[1]), boxes, lines, words)
+        if coordinate_format == CoordinateFormat.XYXY:
+            for word in result["words"]:
+                x, y, w, h = word["box"]
+                word["box"] = [x, y, x + w, y + h]
+        result["meta"]["page"] = index
+        result["meta"]["lines"] = _tolist(lines)
+        result["meta"]["lines_bboxes"] = _tolist(line_bboxes)
+        result["meta"]["format"] = coordinate_format.name.lower()
+        return result
 
-    def _collect(self, preps, group, stats, tokens, conf, total_slots,
-                 box_source, expand):
-        """Host side of the row contract: per page, the kept boxes in
-        original-page xywh with the text of their decoded row; kept boxes
-        past ``total_slots`` are returned as overflow to recognise."""
-        stats_np = {k: v.cpu().numpy() for k, v in stats.items()}
-        texts = self.tokenizer.decode_batch(tokens.cpu().numpy())
-        conf_np = conf.cpu().numpy().astype(np.float64)
-        pages_words: List[List[Word]] = []
-        overflow = []  # (page slot, word index, compaction row)
-        row_base = 0
-        for s, k in enumerate(group):
-            stats_i = {key: v[s] for key, v in stats_np.items()}
-            keep = host_keep_rows(stats_i, box_source, self.text_threshold,
-                                  self.min_area)
-            scale, (h, w) = preps[k][1], preps[k][2]
-            stride = float(stats_i["stride"])
-            grid = stats_i["boxes"][keep]
-            boxes = grid * stride / scale
-            if expand > 0 and len(boxes):
-                bw = boxes[:, 2] - boxes[:, 0]
-                bh = boxes[:, 3] - boxes[:, 1]
-                boxes = boxes + np.stack(
-                    [-bw * expand, -bh * expand, bw * expand, bh * expand], -1)
-            boxes[:, 0] = np.clip(boxes[:, 0], 0, w)
-            boxes[:, 1] = np.clip(boxes[:, 1], 0, h)
-            boxes[:, 2] = np.clip(boxes[:, 2], 0, w)
-            boxes[:, 3] = np.clip(boxes[:, 3], 0, h)
-            words: List[Word] = []
-            for j in range(len(boxes)):
-                x0, y0, x1, y1 = (float(v) for v in boxes[j])
-                if not (x1 - x0 > 0 and y1 - y0 > 0):
-                    continue
-                row = row_base + j
-                word = {"box": [x0, y0, x1 - x0, y1 - y0], "text": "",
-                        "confidence": 0.0}
-                if row < total_slots:
-                    word["text"] = texts[row]
-                    word["confidence"] = float(conf_np[row])
-                else:
-                    overflow.append((s, len(words), row))
-                words.append(word)
-            pages_words.append(words)
-            row_base += int(keep.sum())
-        return pages_words, overflow
 
-    def _recognize_overflow(self, pages_dev, crop_rows, overflow, pages_words) -> None:
-        """Recognise the kept boxes past the group's row budget in one
-        extra crop + decode batch, with the crop boxes the page program
-        computed for them."""
-        boxes, page_of = crop_rows
-        rows = torch.tensor([o[2] for o in overflow], dtype=torch.long,
-                            device=self.device)
-        crops, eff_w = crop_resize(pages_dev, page_of[rows], boxes[rows],
-                                   self.crop_h, self.crop_w)
-        crops = crops[..., None].expand(*crops.shape, 3)
-        tokens, _, conf = greedy_decode(
-            self.trocr, crops.to(self.trocr_dtype), self.decode_steps,
-            step_caps=_geometric_step_caps(eff_w, self.crop_h, self.decode_steps))
-        texts = self.tokenizer.decode_batch(tokens.cpu().numpy())
-        for (s, j, _), text, c in zip(overflow, texts, conf.cpu().tolist()):
-            pages_words[s][j]["text"] = text
-            pages_words[s][j]["confidence"] = float(c)
+def _as_frame_list(frames) -> List[np.ndarray]:
+    """[H, W] / [H, W, 3|4] -> one page; [P, H, W] / [P, H, W, C] or a
+    list -> pages."""
+    if isinstance(frames, np.ndarray):
+        if frames.ndim == 2 or (frames.ndim == 3 and frames.shape[-1] in (3, 4)):
+            return [frames]
+    return list(frames)
+
+
+def _tolist(arr):
+    if isinstance(arr, np.ndarray):
+        return arr.tolist()
+    return list(arr)

@@ -16,8 +16,14 @@ and spills.
 C-side contract: pointers and the stream are ``void*`` (``c_void_p``),
 ints are ``int``; each entry point returns ``cudaGetLastError()`` after
 its launch, and :func:`check` raises on a nonzero code.
+
+Launch counts: each wrapper calls :func:`count_launch` where it launches
+its kernel, which adds one to the wrapper's ``launches`` and to its
+``launches_by_path`` entry for the path the calling thread is on
+(:func:`launch_path`; ``"other"`` outside one).
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,7 +32,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -41,6 +47,38 @@ _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: {source: ptxas -v lines (kernel, registers, shared memory, spills)}
 PTXAS: Dict[str, list] = {}
+
+
+_COUNT_LOCK = threading.Lock()  # the engine launches kernels from two threads
+_PATH = threading.local()
+
+
+@contextlib.contextmanager
+def launch_path(name: str) -> Iterator[None]:
+    """Count the kernel launches this thread makes inside the block
+    under ``name`` (the engine's paths: ``"fused"``, ``"overflow"``)."""
+    prev = getattr(_PATH, "name", None)
+    _PATH.name = name
+    try:
+        yield
+    finally:
+        _PATH.name = prev
+
+
+def count_launch(wrapper: Callable) -> None:
+    """One launch of ``wrapper``'s kernel."""
+    path = getattr(_PATH, "name", None) or "other"
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.launches_by_path[path] = wrapper.launches_by_path.get(path, 0) + 1
+
+
+def reset_counts(*wrappers: Callable) -> None:
+    """Set the wrappers' launch counts, in all and by path, to zero."""
+    with _COUNT_LOCK:
+        for wrapper in wrappers:
+            wrapper.launches = 0
+            wrapper.launches_by_path = {}
 
 
 def sources() -> list:

@@ -71,10 +71,11 @@ def crop_resize(
             stream,
         )
     if n > 0:
-        crop_resize.launches += 1
+        _build.count_launch(crop_resize)
     _build.check(lib, code, "crop_resize")
     return crops, eff_w
 
 
-#: launches of the CUDA kernel (the plain CPU path does not count)
-crop_resize.launches = 0
+#: launches of the CUDA kernel, in all and by path (the plain CPU path
+#: does not count; see ``_build.count_launch``)
+_build.reset_counts(crop_resize)

@@ -121,10 +121,11 @@ def flash_attention(
             stream,
         )
     if b * h * sq > 0:
-        flash_attention.launches += 1
+        _build.count_launch(flash_attention)
     _build.check(lib, code, "flash_attention")
     return out
 
 
-#: launches of the CUDA kernel (the plain CPU path does not count)
-flash_attention.launches = 0
+#: launches of the CUDA kernel, in all and by path (the plain CPU path
+#: does not count; see ``_build.count_launch``)
+_build.reset_counts(flash_attention)

@@ -106,3 +106,102 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         k1.crop_resize(torch.zeros(1, 8, 8, device=cuda_device),  # not uint8
                        torch.zeros(1, dtype=torch.int32, device=cuda_device),
                        torch.zeros(1, 4, device=cuda_device), 4, 4)
+
+
+def _ink_page(seed, h, w, n_words=20):
+    """A white page with word-shaped ink blocks."""
+    rng = np.random.default_rng(seed)
+    page = np.full((h, w), 255, np.uint8)
+    for _ in range(n_words):
+        ww, th = int(rng.integers(20, 120)), int(rng.integers(12, 24))
+        x, y = int(rng.integers(4, w - ww - 4)), int(rng.integers(4, h - th - 4))
+        page[y:y + th, x:x + ww] = int(rng.integers(0, 90))
+        page[y:y + th, x + 2:x + ww:6] = 255
+    return page
+
+
+@pytest.mark.cuda
+def test_cuda_default_craft_ignores_global_tf32(cuda_device):
+    """A default (float32, allow_tf32=False) BoxProcessorCraft gives the
+    same heatmap with the global TF32 flags on as with them off, and
+    leaves the flags as it found them."""
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.utils.device import _precision_flags
+
+    read, write, _ = _precision_flags()
+    start = read()
+    pages = np.stack([_ink_page(s, 512, 384) for s in range(2)])
+    bp = BoxProcessorCraft(device=cuda_device)
+    try:
+        write(("ieee",) * len(start))
+        off = bp.heatmap(pages)
+        write(("tf32",) * len(start))
+        on = bp.heatmap(pages)
+        assert read() == ("tf32",) * len(start)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        legacy = bp.heatmap(pages)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        write(start)
+    assert torch.equal(on, off) and torch.equal(legacy, off)
+
+
+@pytest.mark.cuda
+def test_cuda_recognize_dispatch_matches_cpu(cuda_device):
+    """TrOcrProcessor.recognize_dispatch on the card (K1 and K2) equals
+    the CPU path: a full chunk of 256 rows and one of 3 padded to 32, with
+    a box taller than the JAX Pallas crop window (224 rows)."""
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.models.configs import TrOCRConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    params = init_flax_layout(TrOCRConfig.tiny(), 3)
+    page = _ink_page(4, 1024, 768, n_words=60)
+    rng = np.random.default_rng(5)
+    n = 259
+    xywh = np.stack([rng.uniform(0, 700, n), rng.uniform(0, 980, n),
+                     rng.uniform(6, 68, n), rng.uniform(8, 44, n)], -1).round()
+    xywh[7] = (40, 100, 300, 700)  # taller than the Pallas window
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        op = TrOcrProcessor(TrOCRConfig.tiny(), params, batch_sizes=(32, 128, 256),
+                            device=dev)
+        fut = op.recognize_dispatch(torch.from_numpy(page).to(dev), xywh, 1.0)
+        assert [t.shape[0] for _, t, _ in fut] == [256, 32]
+        results.append(op.recognize_collect(fut))
+    got, want = results
+    assert [w["text"] for w in got] == [w["text"] for w in want]
+    np.testing.assert_allclose([w["confidence"] for w in got],
+                               [w["confidence"] for w in want], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_returns_groups_in_order(cuda_device):
+    """fused_dispatch_stream with max_in_flight=1 on the card yields the
+    groups in page order, each with an event that its results wait on,
+    and their collect equals the CPU run's."""
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.enums import PSMode
+    from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
+    from marie_tpu_torch.ocr import fused
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    trees = (init_flax_layout(CraftConfig.tiny(), 1), init_flax_layout(TrOCRConfig.tiny(), 2))
+    pages = [_ink_page(10 + s, 256, 384, n_words=8) for s in range(5)]
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        bp = BoxProcessorCraft(CraftConfig.tiny(), trees[0], box_source="ink",
+                               max_components=64, min_area=4, device=dev,
+                               bucket_spec=BucketSpec(shapes=((256, 384),)))
+        op = TrOcrProcessor(TrOCRConfig.tiny(), trees[1], device=dev)
+        handles = list(fused.fused_dispatch_stream(
+            bp, op, pages, page_batch=2, compact_slots=4, max_in_flight=1,
+            upload_format="u2"))
+        assert [fused.handle_page_count(h) for h in handles] == [2, 2, 1]
+        assert all((h.ready is not None) == (dev.type == "cuda") for h in handles)
+        pages_out = fused.fused_collect_many(bp, op, handles, [PSMode.SPARSE] * 5)
+        out.append([(p[0].tolist(), [w["text"] for w in p[4]]) for p in pages_out])
+    assert out[0] == out[1] and sum(len(t) for _, t in out[0]) > 0

@@ -1,5 +1,6 @@
-"""The port's page program (``fused_pages_compact``) and engine against
-the JAX package's ``_fused_pages_compact`` on two tiny pages.
+"""The port's page program (``fused_pages_compact``) against the JAX
+package's ``_fused_pages_compact``, and the port's engine against the
+JAX engine, on two tiny pages.
 
 For ``box_source="heatmap"`` the JAX CRAFT heatmap is fed to both
 post-processing halves (a stand-in detector returns it), so stats must be
@@ -16,12 +17,17 @@ import torch.nn as nn
 import jax
 import jax.numpy as jnp
 
-from marie_tpu.boxes.craft_box_processor import BoxProcessorCraft
+from marie_tpu.boxes.craft_box_processor import BoxProcessorCraft as JaxBoxProcessorCraft
+from marie_tpu.document.trocr_ocr_processor import TrOcrProcessor as JaxTrOcrProcessor
 from marie_tpu.models import configs as jcfg
 from marie_tpu.models.craft import CRAFT as JaxCRAFT
 from marie_tpu.models.tokenizer import CharTokenizer as JaxTokenizer
 from marie_tpu.models.trocr import TrOCRModel as JaxTrOCR
 from marie_tpu.ocr.fused import _fused_pages_compact, _kept_count
+from marie_tpu.ocr.ocr_engine import PipelineOcrEngine as JaxEngine
+from marie_tpu.preprocess import BucketSpec as JaxBucketSpec
+from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
 from marie_tpu_torch.models import configs as tcfg
 from marie_tpu_torch.ocr.fused import fused_pages_compact
 from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
@@ -122,7 +128,7 @@ def test_fused_pages_compact_matches_jax(setup, box_source, n_real, total_slots,
                                          packed):
     """Stats bit-exact, tokens identical; the last case uploads the pages
     packed to 4 bits and unpacks them inside the program."""
-    (stats, tokens, conf, _), (jstats, jtokens, jconf) = _run_both(
+    (stats, tokens, conf), (jstats, jtokens, jconf) = _run_both(
         setup, box_source, n_real, total_slots, packed=packed)
     for field in ("boxes", "areas", "scores", "valid", "stride"):
         g, w = stats[field].numpy(), np.asarray(jstats[field])
@@ -135,40 +141,50 @@ def test_fused_pages_compact_matches_jax(setup, box_source, n_real, total_slots,
 
 
 def test_heatmap_to_words_end_to_end(setup):
-    """Engine words (boxes, text, confidence) from a given heatmap equal
-    the words the JAX host collect makes of the JAX program's output.  The
-    engine's budget is 12 rows, so the kept rows past it go through its
-    overflow batch; the JAX program decodes every kept row at once."""
+    """Engine results from a given heatmap equal the JAX engine's (result
+    dicts; confidences within 1e-3, the schema's 3-decimal rounding).  The
+    budget is 12 rows for the 2-page group, so the kept rows past it go
+    through the processor's overflow dispatch on both sides; the rows
+    within it also equal the JAX program's decoded rows."""
     s = setup
-    engine = PipelineOcrEngine(
-        tcfg.CraftConfig.tiny(), tcfg.TrOCRConfig.tiny(), s.craft_tree, s.trocr_tree,
-        device="cpu", text_threshold=s.text_threshold, low_text=s.low_text,
-        min_area=4, max_components=64, page_batch=2, compact_slots=6,
-        trocr_dtype=torch.float32, decode_steps=STEPS,
-        bucket_spec=BucketSpec(shapes=((H, W),)))
-    engine.craft = _TorchFixedHeat(s.heat)
-    words = engine.extract(s.pages, box_source="heatmap")
+    kw = dict(text_threshold=s.text_threshold, low_text=s.low_text, min_area=4,
+              max_components=64, box_source="heatmap")
+    bp = BoxProcessorCraft(tcfg.CraftConfig.tiny(), s.craft_tree, device="cpu",
+                           bucket_spec=BucketSpec(shapes=((H, W),)), **kw)
+    bp.model = _TorchFixedHeat(s.heat)
+    op = TrOcrProcessor(tcfg.TrOCRConfig.tiny(), s.trocr_tree, decode_steps=STEPS,
+                        device="cpu")
+    got = PipelineOcrEngine(bp, op, page_fuse_batch=2, compact_slots=6).extract(
+        list(s.pages))
+    jbp = JaxBoxProcessorCraft(config=jcfg.CraftConfig.tiny(), variables={"heat": s.heat},
+                               bucket_spec=JaxBucketSpec(shapes=((H, W),)), **kw)
+    jbp.model = _JaxFixedHeat()
+    jop = JaxTrOcrProcessor(config=jcfg.TrOCRConfig.tiny(), params=s.trocr_params,
+                            decode_steps=STEPS)
+    want = JaxEngine(jbp, jop, page_fuse_batch=2, compact_slots=6).extract(list(s.pages))
+    assert len(got) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_allclose([wd.pop("confidence") for wd in g["words"]],
+                                   [wd.pop("confidence") for wd in w["words"]], atol=1e-3)
+        np.testing.assert_allclose([ln.pop("confidence") for ln in g["lines"]],
+                                   [ln.pop("confidence") for ln in w["lines"]], atol=1e-3)
+        assert g == w and len(g["words"]) > 0
 
-    (_, _, _, _), (jstats, jtokens, jconf) = _run_both(s, "heatmap", 2, 128)
-    collect = types.SimpleNamespace(box_source="heatmap",
-                                    text_threshold=s.text_threshold,
-                                    min_area=4, box_expand=0.14)
+    (_, _, _), (jstats, jtokens, _) = _run_both(s, "heatmap", 2, 128)
     texts = JaxTokenizer().decode_batch(np.asarray(jtokens))
     offset = overflow = 0
-    assert len(words) == 2
     for p in range(2):
         stats_p = {k: np.asarray(v)[p] for k, v in jstats.items()}
-        xywh, _, rows = BoxProcessorCraft.detect_collect(
-            collect, (None, None, 1.0, (H, W)), stats=stats_p, return_rows=True)
-        got = words[p]
-        assert len(got) == len(xywh) > 0
+        xywh, _, rows = jbp.detect_collect((None, None, 1.0, (H, W)), stats=stats_p,
+                                           return_rows=True)
+        boxes_int, _, _, _, order = jbp.organize_boxes(xywh, np.zeros(len(xywh)), (H, W),
+                                                       return_order=True)
+        by_box = {tuple(wd["box"]): wd["text"] for wd in got[p]["words"]}
+        for j, r in enumerate(np.asarray(rows)[order]):
+            if offset + r < 12:
+                assert by_box[tuple(boxes_int[j].tolist())] == texts[offset + r]
         overflow += sum(offset + r >= 12 for r in rows)
-        np.testing.assert_allclose(np.asarray([wd["box"] for wd in got]), xywh,
-                                   rtol=0, atol=1e-4)
-        for wd, r in zip(got, rows):
-            assert wd["text"] == texts[offset + r]
-            assert abs(wd["confidence"] - float(jconf[offset + r])) < 1e-5
-        offset += _kept_count(collect, stats_p)
+        offset += _kept_count(jbp, stats_p)
     assert 0 < overflow < offset  # both the budget and the overflow path ran
 
 
@@ -177,20 +193,21 @@ def test_engine_page_forms_and_buckets(setup):
     its bucket give the same words as the padded grayscale page; pages the
     port cannot take yet are refused, not mangled."""
     s = setup
-    engine = PipelineOcrEngine(
-        tcfg.CraftConfig.tiny(), tcfg.TrOCRConfig.tiny(), s.craft_tree, s.trocr_tree,
-        device="cpu", min_area=4, max_components=64, compact_slots=8,
-        trocr_dtype=torch.float32, decode_steps=STEPS,
-        bucket_spec=BucketSpec(shapes=((H, W), (2 * H, 2 * W))))
+    bp = BoxProcessorCraft(tcfg.CraftConfig.tiny(), s.craft_tree, min_area=4,
+                           max_components=64, box_source="ink", device="cpu",
+                           bucket_spec=BucketSpec(shapes=((H, W), (2 * H, 2 * W))))
+    op = TrOcrProcessor(tcfg.TrOCRConfig.tiny(), s.trocr_tree, decode_steps=STEPS,
+                        device="cpu")
+    engine = PipelineOcrEngine(bp, op, compact_slots=8)
     page = s.pages[0]
     small = page[: H - 8, : W - 16]
-    want = engine.extract([page], box_source="ink")
-    rgb = engine.extract(np.repeat(page[..., None], 3, -1), box_source="ink")
-    assert rgb == want and len(want[0]) > 0
+    want = engine.extract([page])
+    rgb = engine.extract(np.repeat(page[..., None], 3, -1))
+    assert rgb == want and len(want[0]["words"]) > 0
     mixed = engine.extract([small, np.pad(page, ((0, H), (0, W)), constant_values=255),
-                            page], box_source="ink")
-    assert mixed[2] == want[0]
-    for wd in mixed[0]:
+                            page])
+    assert mixed[2]["words"] == want[0]["words"] and mixed[2]["lines"] == want[0]["lines"]
+    for wd in mixed[0]["words"]:
         x, y, w, h = wd["box"]
         assert x + w <= W - 16 and y + h <= H - 8  # clipped to the real page
     with pytest.raises(NotImplementedError):
