@@ -11,9 +11,14 @@ against torch's global TF32 switches (``precision``); runs the serving
 engine (``PipelineOcrEngine.extract`` over ``BoxProcessorCraft`` and
 ``TrOcrProcessor``) in the JAX serving configuration at the models' full
 widths, with random weights from a seed, on 16 numpy-drawn 1024x768 pages
-(``slice``) and streams 48 pages through it (``stream``); traces one more
-slice run per box source with torch.profiler (``profile``).  It prints
-one JSON line per phase; the last two lines are the kernel table and
+(``slice``) and streams 48 pages through it (``stream``); checks the
+engine with chained LayoutLM heads on a small input against the CPU
+(``chain_reference``), runs it on the 16 pages with the heads at the JAX
+chain width (``chain``), and runs the LayoutLM classifier, indexer and
+splitter at LayoutLMv3-base width, card against CPU
+(``layoutlm_base``); traces one more run per box source, and of the
+chained engine, with torch.profiler (``profile``).  It prints one JSON
+line per phase; the last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.  Every phase raises on failure; the
 script exits nonzero, with no result line, without a CUDA device or
 without the package beside it.  It imports nothing of JAX.
@@ -245,33 +250,62 @@ def _attn_inputs(b, h, sq, skv, d, dtype, seed, projections):
     return make(sq), make(skv), make(skv)
 
 
+def _sdpa_mask(b, sq, skv, kv_len, causal):
+    """The boolean ``attn_mask`` [B, 1, Sq, Skv] (True: attend) that gives
+    SDPA K2's masks: keys below ``kv_len`` and, with ``causal``, the
+    bottom-right aligned causal band."""
+    import torch
+
+    keys = torch.arange(skv, device="cuda")
+    mask = torch.ones(b, 1, sq, skv, dtype=torch.bool, device="cuda")
+    if kv_len is not None:
+        mask &= (keys < kv_len[:, None, None, None])
+    if causal:
+        mask &= (torch.arange(sq, device="cuda")[:, None] >= keys[None, :] - (skv - sq))
+    return mask
+
+
+#: K2 cases: (name, (B, H, Sq, Skv, D), dtype, causal, least kv_len drawn
+#: (None: no kv_len mask), q/k/v as the projections' transposed views)
+K2_CASES = [
+    ("encoder_bf16", (256, 6, 20, 20, 64), "bf16", False, None, False),
+    ("encoder_bf16_strided", (256, 6, 20, 20, 64), "bf16", False, None, True),
+    ("encoder_bf16_serving", (2560, 6, 20, 20, 64), "bf16", False, None, True),
+    ("encoder_bf16_overflow_chunk", (128, 6, 20, 20, 64), "bf16", False, None, True),
+    ("encoder_fp32", (256, 6, 20, 20, 64), "fp32", False, None, False),
+    ("causal_kvlen_fp32", (8, 4, 37, 53, 128), "fp32", True, 1, False),
+    ("causal_kvlen_bf16", (8, 4, 37, 53, 128), "bf16", True, 1, False),
+    # the LayoutLM heads (float32, kv_len = the pages' valid tokens)
+    ("chain_heads_fp32", (16, 4, 192, 192, 64), "fp32", False, 1, True),
+    # base classifier: 512 text tokens + 196 patches, the patches always valid
+    ("layoutlm_base_cls_fp32", (16, 12, 708, 708, 64), "fp32", False, 197, True),
+    ("layoutlm_base_ner_fp32", (7, 12, 512, 512, 64), "fp32", False, 1, True),
+]
+
+
 def phase_k2():
     """K2 at the encoder's shape (B=256 crops, 6 heads, 20 tokens, D=64)
     in bf16 (the serving dtype) on contiguous [B,H,S,D] inputs and on the
     transposed [B,S,H,D] projections the encoder passes (the main path's
     layout), at the serving slice's fused batch of B=2,560 on the
     projections (the kernels line's row) and its overflow chunk of 128,
-    in fp32 (TF32 off), and a
-    causal + kv_len case at D=128 with Sq != Skv.  Times are cold (see
-    cold_device_ms) and warm; SDPA is timed on the same inputs."""
+    in fp32 (TF32 off), a causal + kv_len case at D=128 with Sq != Skv,
+    and the LayoutLM heads' float32 shapes with kv_len: the chain heads
+    (B=16 pages, 4 heads, 192 tokens) and the base-width classifier (708
+    tokens with the image patches) and indexer (7 windows of 512).  Times
+    are cold (see cold_device_ms) and warm; SDPA is timed on the same
+    inputs, with the equivalent boolean ``attn_mask`` where K2 masks."""
     import torch
     import torch.nn.functional as F
 
     from marie_tpu_torch.ops.kernels.flash_attention import attention_reference, flash_attention
 
     row = None
-    cases = [
-        ("encoder_bf16", (256, 6, 20, 20, 64), torch.bfloat16, False, False, False),
-        ("encoder_bf16_strided", (256, 6, 20, 20, 64), torch.bfloat16, False, False, True),
-        ("encoder_bf16_serving", (2560, 6, 20, 20, 64), torch.bfloat16, False, False, True),
-        ("encoder_bf16_overflow_chunk", (128, 6, 20, 20, 64), torch.bfloat16, False, False,
-         True),
-        ("encoder_fp32", (256, 6, 20, 20, 64), torch.float32, False, False, False),
-        ("causal_kvlen_fp32", (8, 4, 37, 53, 128), torch.float32, True, True, False),
-        ("causal_kvlen_bf16", (8, 4, 37, 53, 128), torch.bfloat16, True, True, False),
-    ]
-    for i, (name, (b, h, sq, skv, d), dtype, causal, ragged, proj) in enumerate(cases):
-        kv_len = (torch.randint(1, skv + 1, (b,), device="cuda",
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for i, (name, (b, h, sq, skv, d), tag, causal, kv_min, proj) in enumerate(K2_CASES):
+        dtype = dtypes[tag]
+        ragged = kv_min is not None
+        kv_len = (torch.randint(kv_min, skv + 1, (b,), device="cuda",
                                 generator=torch.Generator(device="cuda").manual_seed(SEED + 20 + i))
                   .to(torch.int32) if ragged else None)
         esz = torch.finfo(dtype).bits // 8
@@ -285,7 +319,6 @@ def phase_k2():
         want = attention_reference(q, k, v, causal=causal, kv_len=kv_len, sm_scale=scale)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         if not err <= K2_LIMITS[tag]:
             raise AssertionError(f"K2 {name} disagrees with its plain version: "
                                  f"max abs err {err} > {K2_LIMITS[tag]}")
@@ -293,18 +326,13 @@ def phase_k2():
                          copies)
         t_plain = timed(lambda c: attention_reference(
             *ins[c], causal=causal, kv_len=kv_len, sm_scale=scale), copies)
-        t_lib = None
-        if not causal and kv_len is None:
-            t_lib = timed(lambda c: F.scaled_dot_product_attention(*ins[c]), copies)
+        mask = _sdpa_mask(b, sq, skv, kv_len, causal)
+        lib_mask = mask if causal or ragged else None
+        t_lib = timed(lambda c: F.scaled_dot_product_attention(*ins[c], attn_mask=lib_mask),
+                      copies)
         del ins
         # score and PV flops of the (query, key) pairs the masks leave
-        pairs = torch.ones(b, sq, skv, dtype=torch.bool, device="cuda")
-        if ragged:
-            pairs &= torch.arange(skv, device="cuda") < kv_len[:, None, None]
-        if causal:
-            pairs &= (torch.arange(sq, device="cuda")[:, None]
-                      >= torch.arange(skv, device="cuda")[None, :] - (skv - sq))
-        flops = 4 * h * d * int(pairs.sum())
+        flops = 4 * h * d * int(mask.sum())
         bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
         bound_ops = flops / H100_FLOPS[tag] * 1e3
         entry = {"name": "flash_attention", "route": "cuda",
@@ -313,12 +341,14 @@ def phase_k2():
                  "max_abs_err": err, "ms": t_kernel["cold"], "plain_ms": t_plain["cold"],
                  "bound_ms": max(bound_bytes, bound_ops),
                  "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-                 "library_ms": t_lib and t_lib["cold"]}
+                 "library_ms": t_lib["cold"]}
         emit({"phase": "k2", "case": name, "shape": [b, h, sq, skv, d],
-              "dtype": tag, "causal": causal, "kv_len": ragged, "projections": proj,
+              "dtype": tag, "causal": causal, "kv_len": ragged,
+              "kv_len_min": kv_min, "projections": proj,
+              "library": "SDPA" + (" with attn_mask" if causal or ragged else ""),
               "limit": K2_LIMITS[tag], "copies": copies, "warm_ms": t_kernel["warm"],
-              "plain_warm_ms": t_plain["warm"],
-              "library_warm_ms": t_lib and t_lib["warm"], **entry})
+              "plain_warm_ms": t_plain["warm"], "library_warm_ms": t_lib["warm"],
+              **entry})
         if name == "encoder_bf16_serving":
             row = entry
     return row
@@ -429,7 +459,7 @@ def phase_slice():
     box_source "ink" and then "heatmap".  Both runs must keep boxes; the
     ink run must send rows through the overflow path, and each kernel
     must launch on the fused path of both runs and on the overflow path
-    of the ink run.  The kernels line reads the heatmap run's launches."""
+    of the ink run."""
     import torch
 
     from marie_tpu_torch.models.configs import CraftConfig
@@ -569,9 +599,11 @@ def phase_precision():
 
 def phase_profile(setups, pages):
     """Where the serving slice's time goes: torch.profiler over one more
-    extract per box_source, on every thread; wall time, device busy time,
-    the ``marie.*`` stage ranges (counts and times summed over threads)
-    and the kernels with the most device time."""
+    extract per engine (``slice``'s two box sources and ``chain``'s
+    heatmap engine), on every thread; wall time, device busy time, the
+    ``marie.*`` stage ranges (counts and times summed over threads;
+    ``marie.heads`` for the chained heads) and the kernels with the most
+    device time."""
     import torch
     from torch._C._profiler import _ExperimentalConfig
     from torch.autograd import DeviceType
@@ -609,18 +641,28 @@ def phase_profile(setups, pages):
                               for e in top]})
 
 
-def _results_equal(got, want, conf_atol=1e-3):
-    """(equal apart from confidences, max confidence difference)."""
+def _results_equal(got, want):
+    """(equal apart from float scores, max score difference): the scores
+    are word and line confidences, the chained heads' per-word
+    ``ner_score`` and the page's ``classification`` score."""
     def strip(results):
-        return [dict(r, words=[dict(w, confidence=None) for w in r["words"]],
+        out = []
+        for r in results:
+            r = dict(r, words=[dict(w, confidence=None, ner_score=None) for w in r["words"]],
                      lines=[dict(ln, confidence=None) for ln in r["lines"]])
-                for r in results]
+            if "classification" in r:
+                r["classification"] = dict(r["classification"], score=None)
+            out.append(r)
+        return out
 
-    def confs(results):
-        return [x["confidence"] for r in results for x in r["words"] + r["lines"]]
+    def scores(results):
+        return [x.get(k, -1.0) for r in results for x in r["words"] + r["lines"]
+                for k in ("confidence", "ner_score")] + [
+                    r["classification"]["score"] for r in results if "classification" in r]
 
-    err = max((abs(a - b) for a, b in zip(confs(got), confs(want))), default=0.0)
-    return strip(got) == strip(want), err
+    a, b = scores(got), scores(want)
+    err = max((abs(x - y) for x, y in zip(a, b)), default=0.0)
+    return strip(got) == strip(want) and len(a) == len(b), err
 
 
 def phase_small_reference():
@@ -662,6 +704,238 @@ def phase_small_reference():
         raise AssertionError(f"no overflow rows on the card: {launches}")
 
 
+def chain_heads(device, num_layers=None, seq_cap=192, vocab=8192, width=None, seed=SEED + 8):
+    """bench.py's chain heads (``from_zoo_chain``: LayoutLMConfig.synth,
+    sequence cap 192, RollingWordTokenizer ids; 3 classes and the 5
+    SYNTH_NER_LABELS) with weights drawn from ``seed``; the keywords cut
+    them to a small size."""
+    import dataclasses
+
+    from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu_torch.components.document_classifier.layoutlm_classifier import (
+        SYNTH_CLASS_LABELS,
+    )
+    from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu_torch.components.document_indexer.layoutlm_indexer import SYNTH_NER_LABELS
+    from marie_tpu_torch.components.word_tokenizer import RollingWordTokenizer
+    from marie_tpu_torch.models.configs import LayoutLMConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    heads = []
+    for k, (cls, labels, head) in enumerate((
+            (LayoutDocumentClassifier, SYNTH_CLASS_LABELS, "sequence"),
+            (LayoutDocumentIndexer, SYNTH_NER_LABELS, "token"))):
+        cfg = dataclasses.replace(LayoutLMConfig.synth(len(labels)), max_seq_len=seq_cap,
+                                  vocab_size=vocab)
+        if width is not None:
+            cfg = dataclasses.replace(cfg, hidden_dim=width, num_heads=width // 32,
+                                      mlp_dim=2 * width, num_layers=num_layers)
+        heads.append(cls(labels=labels, config=cfg, params=init_flax_layout(cfg, seed + k, head),
+                         tokenizer=RollingWordTokenizer(vocab), device=device))
+    return heads
+
+
+def phase_chain_reference():
+    """The chained engine on a small input on the card against the plain
+    CPU path (tiny CRAFT and TrOCR as in ``small_reference``, two-layer
+    heads of width 64 with a sequence cap of 8, below the pages' word
+    counts): equal result dicts (words, lines, classification label ids,
+    every word's NER label id; scores within 1e-3), with rows past the
+    budget and words past the cap."""
+    import torch
+
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    pages = draw_pages(2, 256, 384, SEED + 4)
+    craft = init_flax_layout(CraftConfig.tiny(), SEED + 5)
+    trocr = init_flax_layout(TrOCRConfig.tiny(), SEED + 6)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        bp = BoxProcessorCraft(CraftConfig.tiny(), craft, box_source="ink", min_area=4,
+                               max_components=64, bucket_spec=BucketSpec(shapes=((256, 384),)),
+                               device=dev)
+        op = TrOcrProcessor(TrOCRConfig.tiny(), trocr, batch_sizes=(8, 32), device=dev)
+        cls, ner = chain_heads(dev, num_layers=2, seq_cap=8, vocab=512, width=64)
+        _reset_counts()
+        out[dev] = PipelineOcrEngine(bp, op, page_fuse_batch=2, compact_slots=8,
+                                     classifier=cls, indexer=ner).extract(pages)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+    equal, err = _results_equal(out["cuda"], out["cpu"])
+    words = sum(len(r["words"]) for r in out["cpu"])
+    labelled = sum(1 for r in out["cpu"] for w in r["words"] if "ner_label" in w)
+    emit({"phase": "chain_reference", "words": words, "row_budget": 16, "seq_cap": 8,
+          "ner_labelled_words": labelled, "results_equal": equal, "max_score_err": err,
+          "limit": 1e-3, "launches": launches})
+    if not (equal and words > 16 and err <= 1e-3):
+        raise AssertionError(f"card and CPU disagree on the small chain: equal {equal}, "
+                             f"{words} words, max score error {err}")
+    if not 0 < labelled < words or launches["flash_attention"].get("heads", 0) != 2 * 2:
+        raise AssertionError(f"no words past the cap or no heads on the card: {labelled} "
+                             f"of {words} labelled, launches {launches}")
+
+
+def phase_chain(setups, pages):
+    """The chained engine (the processors and settings of ``slice``'s
+    engines plus the seeded chain heads of ``chain_heads``: classify + NER
+    in each group's program) on the slice's 16 pages, box_source "ink"
+    then "heatmap":
+    ms/page, classified pages, NER-labelled words, K1/K2 launches by
+    path.  Every page must be classified and K2 must launch 8 times (4
+    layers x 2 heads) on the "heads" path of the one 16-page group.
+    Returns (the heatmap run's launches, the engines, the heatmap run's
+    results)."""
+    import torch
+
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+
+    n, h, w = pages.shape
+    cls, ner = chain_heads("cuda")
+    engines, launches, results = {}, None, None
+    for source in ("ink", "heatmap"):
+        base = setups[source]
+        engine = PipelineOcrEngine(base.box_processor, base.ocr_processor,
+                                   upload_format=base.upload_format,
+                                   compact_slots=base.compact_slots,
+                                   page_fuse_batch=base.page_fuse_batch,
+                                   classifier=cls, indexer=ner)
+        engine.extract(pages)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = engine.extract(pages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        _check_results(results, n, h, w)
+        words = sum(len(r["words"]) for r in results)
+        classified = sum(1 for r in results if "classification" in r)
+        labelled = sum(1 for r in results for wd in r["words"] if "ner_label" in wd)
+        emit({"phase": "chain", "box_source": source, "pages": n,
+              "heads": "LayoutLMConfig.synth(3|5), max_seq_len 192, seeded",
+              "wall_ms_per_page": wall / n * 1e3, "classified_pages": classified,
+              "ner_labelled_words": labelled, "words": words,
+              "labels": sorted({r["classification"]["label"] for r in results}),
+              "launches": launches})
+        if classified != n:
+            raise AssertionError(f"{source}: {classified} of {n} pages classified")
+        if launches["flash_attention"].get("heads", 0) != 8:
+            raise AssertionError(f"{source}: K2 launched {launches['flash_attention']} "
+                                 "times, not 8 on the heads path of one group")
+        if labelled <= 0:
+            raise AssertionError(f"{source}: no word got an NER label")
+        engines[source] = engine
+    return launches, engines, results
+
+
+def _seeded_page(n_words: int, seed: int):
+    """A PageInput of ``n_words`` words drawn from a small vocabulary, in
+    rows of 30 on a 768x1024 page."""
+    import numpy as np
+
+    from marie_tpu_torch.components.base import PageInput
+
+    vocab = ["invoice", "total", "due", "date", "amount", "claim", "no.", "paid", "member",
+             "12/01/2023", "$45.00", "555-123-4567", "Main", "St", "Springfield", "IL"]
+    rng = np.random.default_rng(seed)
+    words = [vocab[int(i)] for i in rng.integers(0, len(vocab), n_words)]
+    boxes = [[float(20 + 24 * (i % 30)), float(10 + 25 * (i // 30)), 22.0, 16.0]
+             for i in range(n_words)]
+    return PageInput(words, boxes, page_size=(768, 1024))
+
+
+def _ms_per_call(fn, reps: int = 3):
+    """(median host ms of ``fn()`` to a synchronised card, its last result)."""
+    import torch
+
+    fn()
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+LAYOUT_LIMIT = 1e-3  # card vs CPU logits, float32 through 12 layers at width 768
+
+
+def phase_layoutlm_base(pages, chain_results):
+    """The document components at LayoutLMv3-base width (768 wide, 12
+    layers of 12 heads, 512 tokens, seeded weights): the classifier
+    (``base(3)``, with the 224x224 image branch: 708 tokens) on the 16
+    pages' OCR words, boxes and images from ``chain``, the indexer
+    (``base(5)``) on one page of 1,200 seeded words (7 windows of 512 at
+    stride 128), and the splitter over the classifier's weights and
+    labels.  ms per call; K2 launches 12 times per forward; the card's
+    logits against the CPU's on 2 pages each (limit LAYOUT_LIMIT)."""
+    import torch
+
+    from marie_tpu_torch.components.base import PageInput
+    from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu_torch.components.document_splitter import LayoutDocumentSplitter
+    from marie_tpu_torch.models.configs import LayoutLMConfig
+    from marie_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    labels, ner_labels = ("invoice", "correspondence", "claim"), ("O", "B-KEY", "I-KEY",
+                                                                  "B-VALUE", "I-VALUE")
+    cls_cfg, ner_cfg = LayoutLMConfig.base(3), LayoutLMConfig.base(5)
+    t0 = time.perf_counter()
+    cls_tree = init_flax_layout(cls_cfg, SEED + 10, "sequence")
+    ner_tree = init_flax_layout(ner_cfg, SEED + 11, "token")
+    docs = [PageInput.from_ocr_result(r, image=p) for r, p in zip(chain_results, pages)]
+    long_page = _seeded_page(1200, SEED + 12)
+    # batches of 2 (the CPU check) and 16 (the pages)
+    cls = LayoutDocumentClassifier(labels, cls_cfg, cls_tree, batch_sizes=(2, 16),
+                                   device="cuda")
+    ner = LayoutDocumentIndexer(ner_labels, ner_cfg, ner_tree, device="cuda")
+    splitter = LayoutDocumentSplitter(labels, labels[0], cls_cfg, cls_tree, device="cuda")
+
+    row = {"phase": "layoutlm_base", "width": [768, 12, 12, 3072], "pages": len(docs),
+           "long_page_words": 1200, "limit": LAYOUT_LIMIT,
+           "setup_s": time.perf_counter() - t0}
+    for name, fn in (("predict", lambda: cls.predict(docs)),
+                     ("index", lambda: ner.index([long_page])),
+                     ("split", lambda: splitter.split(docs))):
+        row[f"{name}_ms"], out = _ms_per_call(fn)
+        _reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        k2 = flash_attention.launches_by_path.get("heads", 0)
+        row[f"{name}_k2_launches"] = k2
+        if k2 != 12:
+            raise AssertionError(f"{name}: K2 launched {k2} times on the heads path, not 12")
+        row[f"{name}_out"] = (len(out[0]["entities"]) if name == "index"
+                              else [p["label"] for p in out])
+    if row["split_out"] != row["predict_out"]:
+        raise AssertionError("the splitter and the classifier disagree on the same weights")
+    row["documents"] = len(LayoutDocumentSplitter.to_documents(splitter.split(docs)))
+
+    # card against CPU: classifier on 2 pages, indexer on a chain page and
+    # a 600-word page (2 windows)
+    t0 = time.perf_counter()
+    cls_cpu = LayoutDocumentClassifier(labels, cls_cfg, cls_tree, batch_sizes=(2, 16),
+                                       device="cpu")
+    ner_cpu = LayoutDocumentIndexer(ner_labels, ner_cfg, ner_tree, device="cpu")
+    errs = [float((cls.logits(docs[:2]).cpu() - cls_cpu.logits(docs[:2])).abs().max())]
+    for page in (docs[0], _seeded_page(600, SEED + 13)):
+        errs.append(float((ner.logits(page).cpu() - ner_cpu.logits(page)).abs().max()))
+    row.update(max_abs_err_cls=errs[0], max_abs_err_ner=errs[1:],
+               cpu_check_s=time.perf_counter() - t0)
+    emit(row)
+    if not max(errs) <= LAYOUT_LIMIT:
+        raise AssertionError(f"card and CPU logits differ by {errs} > {LAYOUT_LIMIT}")
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -676,19 +950,32 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    card = phase_device()
-    phase_k1()
-    phase_k1(1, 128, "overflow_chunk")
-    k1 = phase_k1(SLICE_PAGES, SLICE_PAGES * 160, "serving")
-    k2 = phase_k2()
-    phase_small_reference()
-    phase_precision()
-    launches, setups, pages = phase_slice()
-    phase_stream(setups["heatmap"], pages)
-    phase_profile(setups, pages)
-    k1["launches"] = launches["crop_resize"]
-    k2["launches"] = launches["flash_attention"]
-    emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3)})
+    phase_s = {}
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(phase_s.get(name, 0.0) + time.perf_counter() - t, 3)
+        return out
+
+    card = run("device", phase_device)
+    run("k1", phase_k1)
+    run("k1", phase_k1, 1, 128, "overflow_chunk")
+    k1 = run("k1", phase_k1, SLICE_PAGES, SLICE_PAGES * 160, "serving")
+    k2 = run("k2", phase_k2)
+    run("small_reference", phase_small_reference)
+    run("chain_reference", phase_chain_reference)
+    run("precision", phase_precision)
+    _, setups, pages = run("slice", phase_slice)
+    run("stream", phase_stream, setups["heatmap"], pages)
+    launches, chain_engines, chain_results = run("chain", phase_chain, setups, pages)
+    run("layoutlm_base", phase_layoutlm_base, pages, chain_results)
+    run("profile", phase_profile, {**setups, "chain_heatmap": chain_engines["heatmap"]},
+        pages)
+    # the chained heatmap run drives the OCR program and the heads
+    k1["launches"] = launches["crop_resize"]["all"]
+    k2["launches"] = launches["flash_attention"]["all"]
+    emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

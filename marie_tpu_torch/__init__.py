@@ -5,7 +5,9 @@ serving engine on an NVIDIA GPU: ``PipelineOcrEngine`` over a
 ``BoxProcessorCraft`` (page prep, CRAFT, run-domain connected components)
 and a ``TrOcrProcessor`` (word crops, TrOCR encoder and greedy decode),
 with packed uploads, the fused page-group program streamed on a worker
-thread, line organisation and the JAX package's result schema.  It imports
+thread, line organisation and the JAX package's result schema; the
+LayoutLM classification and NER heads chained into that program, and the
+document classifier, indexer and splitter on their own.  It imports
 torch, numpy and the standard library only.
 
 Importing the package builds nothing: the CUDA kernels under ``csrc/`` are

@@ -1,6 +1,7 @@
 """Model size configs — the presets of ``marie_tpu/models/configs.py``
-that the port runs: CRAFT ``fast_s2d2``, TrOCR ``fast_v3_g2_d6`` and the
-``tiny`` CPU-test presets of both.  Field names and defaults are the JAX
+that the port runs: CRAFT ``fast_s2d2``, TrOCR ``fast_v3_g2_d6``, the
+LayoutLM ``base``, ``synth`` and ``tiny`` presets, and the ``tiny``
+CPU-test presets of the first two.  Field names and defaults are the JAX
 package's, so a config means the same model on both sides."""
 
 import dataclasses
@@ -128,3 +129,60 @@ class CraftConfig:
     @staticmethod
     def tiny() -> "CraftConfig":
         return CraftConfig(base_channels=8)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutLMConfig:
+    """LayoutLMv3-style multimodal encoder of the document heads."""
+
+    vocab_size: int = 50265
+    hidden_dim: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    max_seq_len: int = 512
+    max_2d_pos: int = 1024  # coordinate buckets
+    image_size: Tuple[int, int] = (224, 224)
+    patch_size: int = 16
+    use_image: bool = True
+    num_labels: int = 2
+    dropout: float = 0.0
+
+    @property
+    def n_patches(self) -> int:
+        return (self.image_size[0] // self.patch_size) * (self.image_size[1] // self.patch_size)
+
+    @staticmethod
+    def base(num_labels: int = 2) -> "LayoutLMConfig":
+        """LayoutLMv3-base width: 768 wide, 12 layers of 12 heads, 3,072
+        MLP, 512 tokens, a 224x224 image in 196 patches."""
+        return LayoutLMConfig(num_labels=num_labels)
+
+    @staticmethod
+    def synth(num_labels: int) -> "LayoutLMConfig":
+        """The synthetic-trained head config of the JAX package
+        (``train/layout.py``)."""
+        return LayoutLMConfig(
+            vocab_size=8192,
+            hidden_dim=256,
+            num_layers=4,
+            num_heads=4,
+            mlp_dim=1024,
+            max_seq_len=128,
+            use_image=False,
+            num_labels=num_labels,
+        )
+
+    @staticmethod
+    def tiny(num_labels: int = 2) -> "LayoutLMConfig":
+        return LayoutLMConfig(
+            vocab_size=128,
+            hidden_dim=64,
+            num_layers=2,
+            num_heads=2,
+            mlp_dim=128,
+            max_seq_len=64,
+            image_size=(32, 32),
+            use_image=True,
+            num_labels=num_labels,
+        )

@@ -107,7 +107,7 @@ def keep_predicate(stats: Dict[str, torch.Tensor], box_source: str,
 
 
 @torch.no_grad()
-def fused_pages_compact(
+def compact_program(
     craft_model: nn.Module,
     trocr_model: nn.Module,
     pages_u8: torch.Tensor,  # [P, H, W] uint8 (or packed [P, H, W*bits/8])
@@ -128,16 +128,18 @@ def fused_pages_compact(
     packed: int = 0,
     cc_runs: int = 48,
     allow_tf32: bool = False,
-) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+):
     """Page-batched OCR with GLOBAL crop compaction: the kept boxes of all
     real pages fill one cross-page crop batch of ``total_slots`` rows
     (kept first, page-major then slot-ascending); ladder-padding pages
     (index >= ``n_real``) are excluded.  Crops always go through K1.
 
-    Returns (stats, tokens [T, max_steps] int32, conf [T] float32)."""
+    Returns (stats, tokens [T, max_steps] int32, conf [T] float32, rows)
+    with what the chained heads read, rows = (keep [P, M] bool, boxes
+    [T, 4] float32 xyxy page pixels, clip [T, 2] of each row's page)."""
     pages_u8 = _unpack_bits(pages_u8, _norm_pack_bits(packed))
     if pages_u8.ndim != 3:
-        raise ValueError("fused_pages_compact takes grayscale [P, H, W] pages")
+        raise ValueError("the page program takes grayscale [P, H, W] pages")
     dev = pages_u8.device
     p = pages_u8.shape[0]
     stats = detect_core(craft_model, pages_u8, text_threshold, low_text,
@@ -172,7 +174,21 @@ def fused_pages_compact(
     tokens, _, conf = greedy_decode(
         trocr_model, crops.to(dtype), max_steps, active=sel_keep,
         step_caps=_geometric_step_caps(eff_w, out_h, max_steps))
-    return stats, tokens, conf
+    return stats, tokens, conf, (keep, b, clip)
+
+
+def fused_pages_compact(*args, **kwargs) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                                                  torch.Tensor]:
+    """:func:`compact_program` (same arguments) -> (stats, tokens, conf)."""
+    return compact_program(*args, **kwargs)[:3]
+
+
+def program_args(bp, op, total_slots: int) -> tuple:
+    """The settings of the two processors in :func:`compact_program`'s
+    argument order, from ``text_threshold`` to ``max_steps``."""
+    return (bp.text_threshold, bp.low_text, bp.link_threshold, float(bp.min_area),
+            float(bp.box_expand), bp.max_components, bp.box_source, int(total_slots),
+            op.crop_h, op.crop_w, op.compute_dtype, op.decode_steps)
 
 
 def fused_ocr_pages(
@@ -212,13 +228,11 @@ def fused_ocr_pages(
         clip_whs = np.tile(np.asarray([[w, h]], np.float32), (p, 1))
     pages = torch.as_tensor(pages).to(bp.device)
     clip_whs = torch.as_tensor(clip_whs, dtype=torch.float32).to(bp.device)
+    total_slots = p * compact_slots if total_slots is None else total_slots
     with launch_path("fused"):
         return fused_pages_compact(
             bp.model, op.model, pages, clip_whs, p if n_real is None else int(n_real),
-            bp.text_threshold, bp.low_text, bp.link_threshold,
-            float(bp.min_area), float(bp.box_expand), bp.max_components,
-            bp.box_source, p * compact_slots if total_slots is None else int(total_slots),
-            op.crop_h, op.crop_w, op.compute_dtype, op.decode_steps,
+            *program_args(bp, op, total_slots),
             packed=pack_bits, cc_runs=bp.cc_runs, allow_tf32=bp.allow_tf32)
 
 
@@ -305,7 +319,8 @@ class GroupHandle(NamedTuple):
     host tensors whose copies from the card complete at ``ready``, a
     timing event (None on the CPU); ``pages`` is the uploaded stack, packed to ``packed``
     bits (0: not packed), kept for the overflow rows' crops; ``metas`` is
-    (scale, (h, w)) per real page."""
+    (scale, (h, w)) per real page.  ``heads``: with chained heads, the
+    host tensors (cls_logits, ner_labels, ner_scores), else None."""
 
     stats: Dict[str, torch.Tensor]
     tokens: torch.Tensor
@@ -315,6 +330,7 @@ class GroupHandle(NamedTuple):
     metas: List[Tuple[float, Tuple[int, int]]]
     total_slots: int
     ready: Optional[Any]
+    heads: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 class _UploadWorkers:
@@ -373,11 +389,15 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
     handle while later groups upload and run.  The collect waits on the
     handle's event only, not on the later groups' work, which the same
     stream carries.  ``max_in_flight`` bounds the handles dispatched but
-    not yet taken; an error on the worker is raised in the caller."""
+    not yet taken; an error on the worker is raised in the caller.
+
+    ``chain``: a (classifier, indexer) pair whose heads run in each
+    group's program (:func:`marie_tpu_torch.ocr.fused_chain.fused_ocr_chain`);
+    their outputs ride on the handle."""
+    from marie_tpu_torch.ocr.fused_chain import fused_ocr_chain
+
     if mesh is not None:
         raise NotImplementedError("a device mesh is ROADMAP §1 item 16")
-    if chain is not None:
-        raise NotImplementedError("chained heads are ROADMAP §1 item 10")
     if upload_format not in UPLOAD_FORMATS:
         raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "
                          f"got {upload_format!r}")
@@ -397,9 +417,16 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
                 pages, clip, psize, packed = _upload_group(
                     preps, group, page_batch, upload_format, device)
                 total_slots = psize * compact_slots
-                stats, tokens, conf = fused_ocr_pages(
-                    bp, op, pages, clip, n_real=len(group),
-                    total_slots=total_slots, packed=packed)
+                heads = None
+                if chain is None:
+                    stats, tokens, conf = fused_ocr_pages(
+                        bp, op, pages, clip, n_real=len(group),
+                        total_slots=total_slots, packed=packed)
+                else:
+                    stats, tokens, conf, *heads = fused_ocr_chain(
+                        bp, op, *chain, pages, clip, n_real=len(group),
+                        total_slots=total_slots, packed=packed)
+                    heads = tuple(_to_host(t) for t in heads)
                 stats = {k: _to_host(v) for k, v in stats.items()}
                 tokens, conf = _to_host(tokens), _to_host(conf)
                 ready = None
@@ -409,7 +436,7 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
                 metas = [(preps[k][1], preps[k][2]) for k in group]
                 slots.acquire()
                 q.put(("ok", GroupHandle(stats, tokens, conf, pages, packed,
-                                         metas, total_slots, ready)))
+                                         metas, total_slots, ready, heads)))
         except BaseException as exc:  # noqa: BLE001 — raised in the caller
             q.put(("err", exc))
 
@@ -446,15 +473,19 @@ def handle_page_count(handle: GroupHandle) -> int:
 def fused_collect_many(
     box_processor, ocr_processor, handles: List[GroupHandle], pms_modes
 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
-                List[Dict[str, Any]], None]]:
+                List[Dict[str, Any]], Optional[Dict[str, Any]]]]:
     """Collect dispatched groups on the host.
 
     Returns per page: (boxes_int xywh organized, scores, lines,
-    line_bboxes, word dicts aligned to the organized boxes, None — the
-    JAX package's slot for chained heads).  Kept boxes past a group's
-    row budget are recognised here through ``recognize_dispatch`` on the
-    page as uploaded (unpacked on the device), with the organized integer
-    boxes, as the JAX engine does."""
+    line_bboxes, word dicts aligned to the organized boxes, extra).  Kept
+    boxes past a group's row budget are recognised here through
+    ``recognize_dispatch`` on the page as uploaded (unpacked on the
+    device), with the organized integer boxes, as the JAX engine does.
+
+    With chained heads, each word of a page-local kept row below the
+    sequence cap gets ``ner_label_id`` / ``ner_score``, and extra is
+    ``{"classification": {"label_id", "score"}}`` from a float32 softmax
+    of the page's logits; else extra is None."""
     bp, op = box_processor, ocr_processor
     out = []
     page_i = 0
@@ -465,6 +496,7 @@ def fused_collect_many(
             stats_host = {k: v.numpy() for k, v in handle.stats.items()}
             flat_texts = op.tokenizer.decode_batch(handle.tokens.numpy())
             conf_list = np.asarray(handle.conf.numpy(), np.float64).tolist()
+            heads = None if handle.heads is None else [t.numpy() for t in handle.heads]
         row_base = 0
         for s, (scale, (h, w)) in enumerate(handle.metas):
             stats_i = {k: v[s] for k, v in stats_host.items()}
@@ -490,10 +522,27 @@ def fused_collect_many(
                     fut = op.recognize_dispatch(page, tail, scale)
                     for j, wd in zip(overflow, op.recognize_collect(fut)):
                         words[j] = wd
-            out.append((boxes_int, scores_o, lines, line_bboxes, words, None))
+            extra = None
+            if heads is not None:
+                extra = _attach_heads(words, rows, order, *(t[s] for t in heads))
+            out.append((boxes_int, scores_o, lines, line_bboxes, words, extra))
             row_base += _kept_count(bp, stats_i)
             page_i += 1
     return out
+
+
+def _attach_heads(words, rows, order, cls_logits, ner_labels, ner_scores) -> Dict[str, Any]:
+    """Per-word NER labels by page-local kept row (rows past the sequence
+    cap get none) and the page's classification."""
+    for j in range(len(words)):
+        r = int(rows[order[j]])
+        if r < len(ner_labels):
+            words[j]["ner_label_id"] = int(ner_labels[r])
+            words[j]["ner_score"] = float(ner_scores[r])
+    logits = np.asarray(cls_logits, np.float32)
+    probs = np.exp(logits - logits.max())
+    probs /= probs.sum()
+    return {"classification": {"label_id": int(logits.argmax()), "score": float(probs.max())}}
 
 
 def _kept_count(bp, stats) -> int:

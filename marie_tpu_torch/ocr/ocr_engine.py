@@ -6,11 +6,13 @@ page in the JAX package's schema (``words``, ``lines``, ``meta.lines``,
 
 SPARSE and LINE pages take the fused path of :mod:`marie_tpu_torch.ocr.fused`
 (``single_program=True``, streamed group by group) or the two-phase path
-(detect every page, then recognise every page's boxes).
+(detect every page, then recognise every page's boxes).  With both a
+``classifier`` and an ``indexer``, the fused path runs the LayoutLM heads
+in each group's program (:mod:`marie_tpu_torch.ocr.fused_chain`) and
+adds ``classification`` to each page and ``ner_label`` to its words.
 
 Left for later: the other page segmentation modes and ``regions`` (they
-cut host fragments, ROADMAP §1 item 8), a device mesh (item 16) and the
-chained classification / NER heads (item 10).
+cut host fragments, ROADMAP §1 item 8) and a device mesh (item 16).
 """
 
 from typing import Any, Dict, List
@@ -37,7 +39,11 @@ class PipelineOcrEngine:
     ``page_fuse_batch`` same-bucket pages run as one group;
     ``compact_slots`` is each page's share of its group's recognition
     rows; ``upload_format`` is ``"u8"`` or a packed grayscale format
-    (``"u4"``, ``"u2"``, ``"u1"``, ``"u1d"``)."""
+    (``"u4"``, ``"u2"``, ``"u1"``, ``"u1d"``).  ``classifier`` and
+    ``indexer`` (both or neither, as in the JAX engine: one alone is not
+    run) are a :class:`LayoutDocumentClassifier` and a
+    :class:`LayoutDocumentIndexer` on the processors' device, trained
+    with the :class:`RollingWordTokenizer`."""
 
     #: ``extract`` takes ``on_result_group`` / ``group_size``
     supports_result_stream = True
@@ -57,9 +63,6 @@ class PipelineOcrEngine:
     ):
         if mesh is not None:
             raise NotImplementedError("a device mesh is ROADMAP §1 item 16")
-        if classifier is not None or indexer is not None:
-            raise NotImplementedError("chained classification / NER heads are "
-                                      "ROADMAP §1 item 10")
         if upload_format not in UPLOAD_FORMATS:
             raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "
                              f"got {upload_format!r}")
@@ -70,6 +73,8 @@ class PipelineOcrEngine:
         self.rec_slots = rec_slots
         self.compact_slots = compact_slots
         self.upload_format = upload_format
+        self.classifier = classifier
+        self.indexer = indexer
 
     def extract(
         self,
@@ -109,6 +114,8 @@ class PipelineOcrEngine:
             self.box_processor, self.ocr_processor, frames,
             rec_slots=self.rec_slots, page_batch=group_size,
             compact_slots=self.compact_slots, upload_format=self.upload_format,
+            chain=(None if self.classifier is None or self.indexer is None
+                   else (self.classifier, self.indexer)),
         ):
             n = handle_page_count(handle)
             start = len(results)
@@ -151,8 +158,9 @@ class PipelineOcrEngine:
 
     def _assemble_fused_result(self, frame, index: int, page,
                                coordinate_format: CoordinateFormat) -> Dict[str, Any]:
-        """One page tuple -> the result schema."""
-        boxes, _scores, lines, line_bboxes, words, _extra = page
+        """One page tuple -> the result schema (with the chained heads'
+        ``classification`` and per-word ``ner_label``)."""
+        boxes, _scores, lines, line_bboxes, words, extra = page
         result = assemble_page_result(
             (frame.shape[0], frame.shape[1]), boxes, lines, words)
         if coordinate_format == CoordinateFormat.XYXY:
@@ -163,6 +171,18 @@ class PipelineOcrEngine:
         result["meta"]["lines"] = _tolist(lines)
         result["meta"]["lines_bboxes"] = _tolist(line_bboxes)
         result["meta"]["format"] = coordinate_format.name.lower()
+        if extra is not None and "classification" in extra:
+            cls = dict(extra["classification"])
+            labels = getattr(self.classifier, "labels", None)
+            if labels and cls["label_id"] < len(labels):
+                cls["label"] = labels[cls["label_id"]]
+            result["classification"] = cls
+            ner_labels = getattr(self.indexer, "labels", None)
+            if ner_labels:
+                for word in result["words"]:
+                    lid = word.get("ner_label_id")
+                    if lid is not None and lid < len(ner_labels):
+                        word["ner_label"] = ner_labels[lid]
         return result
 
 

@@ -56,7 +56,8 @@ _PATH = threading.local()
 @contextlib.contextmanager
 def launch_path(name: str) -> Iterator[None]:
     """Count the kernel launches this thread makes inside the block
-    under ``name`` (the engine's paths: ``"fused"``, ``"overflow"``)."""
+    under ``name`` (the engine's paths: ``"fused"``, ``"overflow"``, and
+    ``"heads"`` for the LayoutLM heads, chained or on their own)."""
     prev = getattr(_PATH, "name", None)
     _PATH.name = name
     try:

@@ -21,25 +21,41 @@ tree from a seed, so a run on the card gets weights through this same
 bridge without reading any checkpoint.
 """
 
-from typing import Any, Dict, Iterator, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
+from marie_tpu_torch.models.configs import CraftConfig, LayoutLMConfig, TrOCRConfig
 
-Config = Union[CraftConfig, TrOCRConfig]
+Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig]
+#: the LayoutLM heads by name
+LAYOUT_HEADS = ("sequence", "token")
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
-def build_model(config: Config) -> nn.Module:
-    """The port's module for a config (on the current default device)."""
+def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
+    """The port's module for a config (on the current default device).
+    A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
+    classification) or ``"token"`` (NER); other configs take none."""
     from marie_tpu_torch.models.craft import CRAFT
+    from marie_tpu_torch.models.layoutlm import (
+        LayoutLMv3ForSequenceClassification,
+        LayoutLMv3ForTokenClassification,
+    )
     from marie_tpu_torch.models.trocr import TrOCRModel
 
+    if isinstance(config, LayoutLMConfig):
+        if head not in LAYOUT_HEADS:
+            raise ValueError(f"a LayoutLM head is one of {LAYOUT_HEADS}, got {head!r}")
+        if head == "sequence":
+            return LayoutLMv3ForSequenceClassification(config)
+        return LayoutLMv3ForTokenClassification(config)
+    if head is not None:
+        raise ValueError(f"{type(config).__name__} takes no head, got {head!r}")
     if isinstance(config, CraftConfig):
         return CRAFT(config)
     if isinstance(config, TrOCRConfig):
@@ -131,15 +147,16 @@ def _flax_leaves(module: nn.Module):
                 yield "batch_stats", mpath + (leaf,), (mod.num_features,), 1
 
 
-def init_flax_layout(config: Config, seed: int) -> Dict[str, Any]:
+def init_flax_layout(config: Config, seed: int, head: Optional[str] = None) -> Dict[str, Any]:
     """A flax-layout variables tree of float32 numpy arrays for ``config``,
     drawn from ``np.random.default_rng(seed)``: kernels normal with std
     1/sqrt(fan_in), biases and position embeddings normal with std 0.02,
     norm scales 1 + N(0, 0.02), BatchNorm statistics mean N(0, 0.02) and
-    var U(0.5, 1.5), token embeddings normal with std 1/sqrt(width)."""
+    var U(0.5, 1.5), embedding tables normal with std 1/sqrt(width).
+    ``head`` as in :func:`build_model`."""
     rng = np.random.default_rng(seed)
     with torch.device("meta"):
-        template = build_model(config)
+        template = build_model(config, head)
     tree: Dict[str, Any] = {}
     for coll, path, shape, fan_in in _flax_leaves(template):
         leaf = path[-1]
@@ -151,7 +168,7 @@ def init_flax_layout(config: Config, seed: int) -> Dict[str, Any]:
             arr = rng.uniform(0.5, 1.5, shape)
         elif leaf == "embedding":
             arr = rng.standard_normal(shape) / np.sqrt(shape[-1])
-        else:  # bias, mean, pos_embed, cls_token
+        else:  # bias, mean, pos_embed, cls_token, vis_pos
             arr = 0.02 * rng.standard_normal(shape)
         node = tree.setdefault(coll, {})
         for name in path[:-1]:
@@ -161,12 +178,13 @@ def init_flax_layout(config: Config, seed: int) -> Dict[str, Any]:
 
 
 def load_model(config: Config, tree: Dict[str, Any], device="cuda",
-               dtype: torch.dtype = torch.float32) -> nn.Module:
-    """Build the port's module for ``config``, load ``tree`` through
-    :func:`from_flax`, move it to ``device`` in ``dtype``; eval mode, no
-    gradients (the port serves inference only)."""
+               dtype: torch.dtype = torch.float32, head: Optional[str] = None) -> nn.Module:
+    """Build the port's module for ``config`` (and ``head``, as in
+    :func:`build_model`), load ``tree`` through :func:`from_flax`, move it
+    to ``device`` in ``dtype``; eval mode, no gradients (the port serves
+    inference only)."""
     from marie_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    model = from_flax(tree, build_model(config))
+    model = from_flax(tree, build_model(config, head))
     return model.to(device=dev, dtype=dtype).eval().requires_grad_(False)

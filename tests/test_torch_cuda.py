@@ -205,3 +205,82 @@ def test_cuda_stream_returns_groups_in_order(cuda_device):
         pages_out = fused.fused_collect_many(bp, op, handles, [PSMode.SPARSE] * 5)
         out.append([(p[0].tolist(), [w["text"] for w in p[4]]) for p in pages_out])
     assert out[0] == out[1] and sum(len(t) for _, t in out[0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,kv_min", [
+    (16, 4, 192, 1),  # the chain heads: 16 pages, synth width, cap 192
+    (16, 12, 708, 197),  # the base classifier: 512 tokens + 196 patches
+    (7, 12, 512, 1),  # the base indexer: 7 windows of 512
+])
+def test_cuda_attention_fp32_head_shapes(cuda_device, b, h, s, kv_min):
+    """K2 in float32 with kv_len at the LayoutLM heads' shapes, on the
+    projections' strided views, within 1e-4 of its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def make():
+        return torch.randn(b, s, h, 64, device=cuda_device, generator=g).transpose(1, 2)
+
+    q, k, v = make(), make(), make()
+    kv_len = torch.randint(kv_min, s + 1, (b,), device=cuda_device, generator=g).to(torch.int32)
+    before = k2.flash_attention.launches
+    got = k2.flash_attention(q, k, v, kv_len=kv_len)
+    want = k2.attention_reference(q, k, v, kv_len=kv_len, sm_scale=1.0 / 8.0)
+    torch.cuda.synchronize()
+    assert k2.flash_attention.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_chained_engine_matches_cpu(cuda_device):
+    """PipelineOcrEngine with chained heads on the card equals the CPU
+    run's result dicts (classification label ids, NER label ids; scores
+    within 1e-3), with rows past the budget and words past the cap."""
+    import dataclasses
+
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu_torch.components.word_tokenizer import RollingWordTokenizer
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.models.configs import CraftConfig, LayoutLMConfig, TrOCRConfig
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    trees = (init_flax_layout(CraftConfig.tiny(), 1), init_flax_layout(TrOCRConfig.tiny(), 2))
+    head_cfg = dataclasses.replace(LayoutLMConfig.tiny(3), use_image=False, max_seq_len=6,
+                                   vocab_size=512)
+    ner_cfg = dataclasses.replace(head_cfg, num_labels=5)
+    head_trees = (init_flax_layout(head_cfg, 3, "sequence"), init_flax_layout(ner_cfg, 4, "token"))
+    pages = [_ink_page(20 + s, 256, 384, n_words=10) for s in range(3)]
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        bp = BoxProcessorCraft(CraftConfig.tiny(), trees[0], box_source="ink",
+                               max_components=64, min_area=4, device=dev,
+                               bucket_spec=BucketSpec(shapes=((256, 384),)))
+        op = TrOcrProcessor(TrOCRConfig.tiny(), trees[1], device=dev)
+        cls = LayoutDocumentClassifier(("a", "b", "c"), head_cfg, head_trees[0],
+                                       tokenizer=RollingWordTokenizer(512), device=dev)
+        ner = LayoutDocumentIndexer(("O", "B-K", "I-K", "B-V", "I-V"), ner_cfg, head_trees[1],
+                                    tokenizer=RollingWordTokenizer(512), device=dev)
+        out.append(PipelineOcrEngine(bp, op, page_fuse_batch=2, compact_slots=6,
+                                     classifier=cls, indexer=ner).extract(pages))
+    got, want = out
+
+    def split(results):
+        plain, scores = [], []
+        for r in results:
+            scores += [r["classification"]["score"]] + [
+                x for w in r["words"] for x in (w["confidence"], w.get("ner_score", -1.0))]
+            plain.append(dict(r, classification=dict(r["classification"], score=None),
+                              words=[dict(w, confidence=None, ner_score=None)
+                                     for w in r["words"]],
+                              lines=[dict(ln, confidence=None) for ln in r["lines"]]))
+        return plain, np.asarray(scores)
+
+    (g, gs), (w, ws) = split(got), split(want)
+    assert g == w
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-3)
+    labelled = sum(1 for r in want for wd in r["words"] if "ner_label" in wd)
+    assert 0 < labelled < sum(len(r["words"]) for r in want)

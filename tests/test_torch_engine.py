@@ -30,6 +30,7 @@ from marie_tpu.models.craft import CRAFT as JaxCRAFT
 from marie_tpu.ocr.ocr_engine import PipelineOcrEngine as JaxEngine
 from marie_tpu.preprocess import BucketSpec as JaxBucketSpec
 from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
 from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
 from marie_tpu_torch.enums import CoordinateFormat, PSMode
 from marie_tpu_torch.models import configs as tcfg
@@ -291,8 +292,8 @@ def test_engine_refuses_what_is_not_ported(processors):
         engine.extract([np.full((4 * H, W), 255, np.uint8)])
     with pytest.raises(NotImplementedError, match="item 16"):
         PipelineOcrEngine(tbp, top, mesh="local")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PipelineOcrEngine(tbp, top, classifier=object(), indexer=object())
+    with pytest.raises(NotImplementedError, match="item 2"):
+        LayoutDocumentClassifier.from_zoo_chain()
     with pytest.raises(ValueError):
         PipelineOcrEngine(tbp, top, upload_format="u3")
     with pytest.raises(NotImplementedError, match="item 9"):
