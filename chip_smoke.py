@@ -33,7 +33,9 @@ import time
 SEED = 0
 SLICE_PAGES = 16  # one page group of the serving engine
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
-H100_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor bf16 / fp32 SIMT
+# dense tensor bf16; float32 outside the tensor cores (SIMT); float32
+# products as three TF32 products (3xTF32) on the dense TF32 tensor rate
+H100_FLOPS = {"bf16": 989e12, "fp32": 67e12, "3xtf32": 495e12 / 3}
 
 K1_LIMIT = 0.0  # bit-identical: the kernel does the plain version's float32 ops
 K2_LIMITS = {"fp32": 1e-4, "bf16": 2e-2}
@@ -265,8 +267,10 @@ def _sdpa_mask(b, sq, skv, kv_len, causal):
     return mask
 
 
-#: K2 cases: (name, (B, H, Sq, Skv, D), dtype, causal, least kv_len drawn
-#: (None: no kv_len mask), q/k/v as the projections' transposed views)
+#: K2 cases: (name, (B, H, Sq, Skv, D), dtype, causal, kv_len (None: no
+#: kv_len mask; an int: the least of a uniform draw up to Skv; INDEXER:
+#: the windows the indexer builds), q/k/v as the projections' views)
+INDEXER = "indexer windows"
 K2_CASES = [
     ("encoder_bf16", (256, 6, 20, 20, 64), "bf16", False, None, False),
     ("encoder_bf16_strided", (256, 6, 20, 20, 64), "bf16", False, None, True),
@@ -279,8 +283,40 @@ K2_CASES = [
     ("chain_heads_fp32", (16, 4, 192, 192, 64), "fp32", False, 1, True),
     # base classifier: 512 text tokens + 196 patches, the patches always valid
     ("layoutlm_base_cls_fp32", (16, 12, 708, 708, 64), "fp32", False, 197, True),
-    ("layoutlm_base_ner_fp32", (7, 12, 512, 512, 64), "fp32", False, 1, True),
+    ("layoutlm_base_ner_fp32", (7, 12, 512, 512, 64), "fp32", False, INDEXER, True),
 ]
+
+INDEXER_WORDS = 1200  # the long page of phase_layoutlm_base
+
+
+def _indexer_kv_len(b: int, window: int):
+    """kv_len of the windows ``LayoutDocumentIndexer.logits`` builds for a
+    page of INDEXER_WORDS words (window 512, stride 128: the last window
+    ends at the page's end, so every window is full)."""
+    import torch
+
+    from marie_tpu_torch.models.layoutlm import sliding_windows
+
+    tokens = torch.zeros(INDEXER_WORDS, dtype=torch.int32)
+    _, _, _, valid = sliding_windows(tokens, torch.zeros(INDEXER_WORDS, 4), window=window,
+                                     stride=128)
+    if valid.shape[0] != b:
+        raise AssertionError(f"{valid.shape[0]} indexer windows, not {b}")
+    return valid.sum(dim=1).to(torch.int32).cuda()
+
+
+def _attn_bound_bytes(mask, h, sq, d, esz):
+    """Bytes K2's function must move: Q read and O written in full; of K,
+    the keys some row of the batch row sees (a prefix: kv_len, or the
+    causal limit of the last row); of V the same, or all of Skv where a
+    query row sees no key (it averages V over Skv; K plays no part).
+    ``mask`` is ``_sdpa_mask``'s [B, 1, Sq, Skv]."""
+    b, _, _, skv = mask.shape
+    seen = mask[:, 0].any(dim=1)                      # [B, Skv]
+    k_rows = seen.sum(dim=1)
+    blind = ~mask[:, 0].any(dim=2).all(dim=1)         # a row that sees no key
+    v_rows = k_rows.masked_fill(blind, skv)
+    return (2 * b * h * sq * d + h * d * int(k_rows.sum() + v_rows.sum())) * esz
 
 
 def phase_k2():
@@ -292,7 +328,8 @@ def phase_k2():
     in fp32 (TF32 off), a causal + kv_len case at D=128 with Sq != Skv,
     and the LayoutLM heads' float32 shapes with kv_len: the chain heads
     (B=16 pages, 4 heads, 192 tokens) and the base-width classifier (708
-    tokens with the image patches) and indexer (7 windows of 512).  Times
+    tokens with the image patches) and indexer (the 7 full windows of 512
+    of ``phase_layoutlm_base``'s 1,200-word page).  Times
     are cold (see cold_device_ms) and warm; SDPA is timed on the same
     inputs, with the equivalent boolean ``attn_mask`` where K2 masks."""
     import torch
@@ -305,12 +342,17 @@ def phase_k2():
     for i, (name, (b, h, sq, skv, d), tag, causal, kv_min, proj) in enumerate(K2_CASES):
         dtype = dtypes[tag]
         ragged = kv_min is not None
-        kv_len = (torch.randint(kv_min, skv + 1, (b,), device="cuda",
-                                generator=torch.Generator(device="cuda").manual_seed(SEED + 20 + i))
-                  .to(torch.int32) if ragged else None)
+        if kv_min == INDEXER:
+            kv_len = _indexer_kv_len(b, skv)
+        elif ragged:
+            kv_len = torch.randint(kv_min, skv + 1, (b,), device="cuda",
+                                   generator=torch.Generator(device="cuda").manual_seed(
+                                       SEED + 20 + i)).to(torch.int32)
+        else:
+            kv_len = None
         esz = torch.finfo(dtype).bits // 8
-        nbytes = (2 * b * h * sq * d + 2 * b * h * skv * d) * esz + (b * 4 if ragged else 0)
-        copies = n_copies(nbytes)
+        kv_bytes = b * 4 if ragged else 0
+        copies = n_copies((2 * b * h * sq * d + 2 * b * h * skv * d) * esz + kv_bytes)
         ins = [_attn_inputs(b, h, sq, skv, d, dtype, SEED + 10 + i + 100 * c, proj)
                for c in range(copies)]
         q, k, v = ins[0]
@@ -327,14 +369,19 @@ def phase_k2():
         t_plain = timed(lambda c: attention_reference(
             *ins[c], causal=causal, kv_len=kv_len, sm_scale=scale), copies)
         mask = _sdpa_mask(b, sq, skv, kv_len, causal)
-        lib_mask = mask if causal or ragged else None
+        # where the masks leave every pair, SDPA computes the function unmasked
+        lib_mask = None if bool(mask.all()) else mask
         t_lib = timed(lambda c: F.scaled_dot_product_attention(*ins[c], attn_mask=lib_mask),
                       copies)
         del ins
-        # score and PV flops of the (query, key) pairs the masks leave
+        # score and PV flops of the (query, key) pairs the masks leave, at
+        # the rate of the units the kernel runs them on (float32: 3xTF32)
         flops = 4 * h * d * int(mask.sum())
+        nbytes = _attn_bound_bytes(mask, h, sq, d, esz) + kv_bytes
         bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        bound_ops = flops / H100_FLOPS[tag] * 1e3
+        bound_ops = flops / H100_FLOPS["bf16" if tag == "bf16" else "3xtf32"] * 1e3
+        simt = ({"bound_simt_ms": max(bound_bytes, flops / H100_FLOPS["fp32"] * 1e3)}
+                if tag == "fp32" else {})
         entry = {"name": "flash_attention", "route": "cuda",
                  "source": "marie_tpu_torch/csrc/flash_attention.cu",
                  "replaces": "marie_tpu/ops/pallas/flash_attention.py:112",
@@ -344,11 +391,13 @@ def phase_k2():
                  "library_ms": t_lib["cold"]}
         emit({"phase": "k2", "case": name, "shape": [b, h, sq, skv, d],
               "dtype": tag, "causal": causal, "kv_len": ragged,
-              "kv_len_min": kv_min, "projections": proj,
-              "library": "SDPA" + (" with attn_mask" if causal or ragged else ""),
+              "kv_len_min": kv_min, "kv_len_mean": (float(kv_len.float().mean())
+                                                     if ragged else None),
+              "projections": proj, "bound_bytes": nbytes,
+              "library": "SDPA" + (" with attn_mask" if lib_mask is not None else ""),
               "limit": K2_LIMITS[tag], "copies": copies, "warm_ms": t_kernel["warm"],
               "plain_warm_ms": t_plain["warm"], "library_warm_ms": t_lib["warm"],
-              **entry})
+              **entry, **simt})
         if name == "encoder_bf16_serving":
             row = entry
     return row
@@ -893,7 +942,7 @@ def phase_layoutlm_base(pages, chain_results):
     cls_tree = init_flax_layout(cls_cfg, SEED + 10, "sequence")
     ner_tree = init_flax_layout(ner_cfg, SEED + 11, "token")
     docs = [PageInput.from_ocr_result(r, image=p) for r, p in zip(chain_results, pages)]
-    long_page = _seeded_page(1200, SEED + 12)
+    long_page = _seeded_page(INDEXER_WORDS, SEED + 12)
     # batches of 2 (the CPU check) and 16 (the pages)
     cls = LayoutDocumentClassifier(labels, cls_cfg, cls_tree, batch_sizes=(2, 16),
                                    device="cuda")
@@ -901,7 +950,7 @@ def phase_layoutlm_base(pages, chain_results):
     splitter = LayoutDocumentSplitter(labels, labels[0], cls_cfg, cls_tree, device="cuda")
 
     row = {"phase": "layoutlm_base", "width": [768, 12, 12, 3072], "pages": len(docs),
-           "long_page_words": 1200, "limit": LAYOUT_LIMIT,
+           "long_page_words": INDEXER_WORDS, "limit": LAYOUT_LIMIT,
            "setup_s": time.perf_counter() - t0}
     for name, fn in (("predict", lambda: cls.predict(docs)),
                      ("index", lambda: ner.index([long_page])),

@@ -45,10 +45,45 @@
 //     per-element mask and no dead n-tile branch.  Two heads per warp,
 //     the second prefetched while the first computes, measured slower.
 //   * No block-level barrier: a warp only touches its own shared memory.
-// float32: a SIMT kernel (TF32 would break the 1e-4 float32 limit; not
-// on the main path): one block of 4 warps per (b*h, 16 query rows), K/V
-// tiles of 32 keys in shared memory as float32, lane j scores key j,
-// online softmax with warp shuffles.
+// float32 (the LayoutLM heads, D=64, kv_len masking each page's padding:
+// the chained heads at B=16 pages, 4 heads, 192 tokens; at base width the
+// classifier at B=16, 12 heads, 708 tokens and the indexer at 7 windows
+// of 512): bound by operations at the base shapes (14.7 GFLOP of products
+// in the pairs kv_len leaves, against 26 MB) and by bytes at the chain
+// shape.  The contract is float32 accuracy (1e-4 against the plain
+// version), which one TF32 product per pair misses by ~10x.
+//   * Tensor cores in 3xTF32: each operand splits into hi + lo, both TF32
+//     (hi truncated, lo the truncated remainder: hi + lo holds x to
+//     2^-20), and each product is lo*hi + hi*lo + hi*hi, accumulated in
+//     float32 by mma.sync.m16n8k8.tf32.  Integer masks split: the kernel
+//     is bound by instruction issue as much as by the tensor cores, and
+//     cvt.rna.tf32.f32 adds a NaN check to the rounding.  torch's TF32
+//     switches play no part.
+//   * Key tiles that no row of a block can see are skipped: past kv_len
+//     and, when causal, past the diagonal of the block's last row.  A
+//     block with a fully masked row (kv_len 0, or causal rows above the
+//     diagonal when Sq > Skv) walks every key, since such a row averages
+//     V over all of Skv in the plain version.  (_flash_kernel skips
+//     causal blocks and gives such rows 0.)
+//   * One block of 4 warps per (b, h, 64 query rows); each warp owns a
+//     16-row m-tile and keeps its split Q in registers (D <= 64).  Tiles
+//     of 32 keys (64 at D=32, 16 at D=128) are staged by all threads
+//     with 16-byte cp.async.cg into a two-stage ring: one barrier a tile,
+//     the next tile loading while this one computes.  Each k-step's 8
+//     columns are permuted to (2t, 2t+1 | t = 0..3), so a lane reads its
+//     B fragment of K with one 8-byte load (rows padded to D+8 floats:
+//     no bank conflict), and the score accumulator of n-tile j is the A
+//     fragment of PV's k-step j: P stays in registers, with no shuffle.
+//     V rows are padded to D+4 so the scalar reads of rows 2t, 2t+1 miss
+//     each other's banks.  The online softmax runs on the accumulator
+//     fragments with quad shuffles; the output is staged through the
+//     warp's spent Q rows and stored 16 bytes a lane.
+//   * What bounds it (measured on an H100, PERF.md): mma.sync in TF32
+//     peaks near 320 TFLOP/s there (wgmma's dense TF32 rate is 495), so
+//     3xTF32 on mma.sync does at most ~107 TFLOP/s of float32 work; the
+//     rest is issue and latency at 3 blocks an SM (168 registers at D=64).
+//     wgmma in TF32 takes its B operand K-major only, which for P V means
+//     V transposed in shared memory: left for a later change.
 //
 // Registers and shared memory (nvcc -Xptxas -v, sm_90a, printed by
 // chip_smoke.py's device phase): see PERF.md.
@@ -89,8 +124,19 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  cp_async_commit();
+  cp_async_wait<0>();
 }
 
 __device__ __forceinline__ void st_shared_zero16(uint32_t dst) {
@@ -150,22 +196,26 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
-// Stage `rows` (a multiple of 16) rows of a row-strided [*, D] operand
-// into shared memory rows of 2D+16 bytes; rows at or past `valid` are
-// zero.  One warp-wide pass copies 32 / (D/8) rows, 16 bytes a lane.
-template <int D>
-__device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src,
+// Stage `rows` rows of a row-strided [*, D] operand of T (stride in
+// elements) into shared memory rows of PITCH bytes, 16 bytes a cp.async,
+// with THREADS threads (thread `tid`); rows at or past `valid` are zero.
+// `rows` is a multiple of the THREADS / (D * sizeof(T) / 16) rows of one
+// pass, so every thread makes rows / pass copies: a count the compiler
+// knows where `rows` is a constant.  The defaults are the bf16 path's:
+// one warp, rows of 2D+16 bytes.
+template <int D, typename T = bf16, int PITCH = 2 * D + 16, int THREADS = 32>
+__device__ __forceinline__ void stage_rows(uint32_t dst, const T* src,
                                            long long stride, int rows, int valid,
-                                           int lane) {
-  constexpr int kChunks = D / 8, kPass = 32 / kChunks, kPitch = 2 * D + 16;
-  const int r = lane / kChunks;
-  dst += r * kPitch + (lane % kChunks) * 16;
-  src += r * stride + (lane % kChunks) * 8;
+                                           int tid) {
+  constexpr int kChunks = D * (int)sizeof(T) / 16, kPass = THREADS / kChunks;
+  const int r = tid / kChunks;
+  dst += r * PITCH + (tid % kChunks) * 16;
+  src += r * stride + (tid % kChunks) * (16 / (int)sizeof(T));
 #pragma unroll 4
-  for (int i = r; i < rows; i += kPass) {
-    if (i < valid) cp_async16(dst, src);
+  for (int p = 0; p < rows / kPass; ++p) {
+    if (r + p * kPass < valid) cp_async16(dst, src);
     else st_shared_zero16(dst);
-    dst += kPass * kPitch;
+    dst += kPass * PITCH;
     src += kPass * stride;
   }
 }
@@ -377,117 +427,261 @@ int launch_mma(const void* q, const void* k, const void* v, const void* kv_len,
 
 // ------------------------------------------------------------- float32 path
 
-constexpr int kBQ = 16;   // query rows per block
-constexpr int kBKV = 32;  // keys per shared-memory tile (one per lane)
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = kBQ / kWarps;
+constexpr int kWarps = 4;           // warps of a block, 16 query rows each
+constexpr int kRows = 16 * kWarps;  // query rows of a block
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
+// x -> hi + lo, both TF32 values (the low 13 bits zero): hi is x
+// truncated, x - hi is exact in float32 and lo is it truncated, so hi + lo
+// is x within 2^-20 relative.  Integer masks, since the kernel is
+// issue-bound and cvt.rna.tf32.f32 adds a NaN check to the rounding.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
+// c[16x8] += a[16x8] b[8x8], tf32 in, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int D>
+// c += a b in 3xTF32: lo*hi and hi*lo, then hi*hi; lo*lo (under 2^-20 of
+// the product) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// The A fragment of k-step s from 16 staged float32 rows of PITCH floats,
+// split into hi and lo.  The k-step's 8 columns are permuted so that lane
+// (g, t) holds columns 2t, 2t+1 of rows g, g+8: one 8-byte load a row.
+template <int PITCH>
+__device__ __forceinline__ void load_a_tf32(const float* rows, int s, int g, int t,
+                                            uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 r0 = *reinterpret_cast<const float2*>(rows + g * PITCH + 8 * s + 2 * t);
+  const float2 r1 = *reinterpret_cast<const float2*>(rows + (g + 8) * PITCH + 8 * s + 2 * t);
+  split_tf32(r0.x, hi[0], lo[0]);
+  split_tf32(r1.x, hi[1], lo[1]);
+  split_tf32(r0.y, hi[2], lo[2]);
+  split_tf32(r1.y, hi[3], lo[3]);
+}
+
+// Shared memory of one block: Q (later the output) in rows of D+8 floats,
+// then a ring of two KT-key tiles (the next loads while one computes), K
+// in rows of D+8 and V in rows of D+4 floats.
+__host__ __device__ constexpr int tf32_smem_floats(int D, int KT) {
+  return kRows * (D + 8) + 2 * KT * (2 * D + 12);
+}
+
+// One block per (b, h, kRows query rows); warp w computes rows 16w..16w+15
+// of the block against KT-key tiles of K and V that all warps share.
+// D <= 64 keeps the split Q in registers; D = 128 splits it from shared
+// memory at each k-step.
+template <int D, int KT>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int32_t* __restrict__ kv_len,
-                  float* __restrict__ o, Strides st, int H, int Sq, int Skv,
-                  float scale, int causal) {
-  constexpr int DPL = D / 32;  // output columns per lane
-  __shared__ float Qs[kBQ][D];
-  __shared__ float Ks[kBKV][D + 1];
-  __shared__ float Vs[kBKV][D];
+                  float* __restrict__ o, Strides st, int H, int Sq, int Skv, int q_blocks,
+                  float scale_log2, int causal) {
+  constexpr int kPK = D + 8;     // Q, K and output rows: 8-byte fragment loads
+  constexpr int kPV = D + 4;     // V rows: scalar loads of rows 2t, 2t+1
+  constexpr int kSteps = D / 8;  // k-steps of Q K^T, n-tiles of P V
+  constexpr int kNT = KT / 8;    // key n-tiles of a tile, k-steps of P V
+  constexpr int kStage = KT * (kPK + kPV);
+  constexpr bool kQRegs = D <= 64;
+  extern __shared__ __align__(16) float smem_f32[];
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * kBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column pair
+  const int bh = blockIdx.x / q_blocks;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (blockIdx.x % q_blocks) * kRows;
+  const int w0 = q0 + 16 * warp;  // this warp's first row
+  float* const sQ = smem_f32;
+  float* const sW = sQ + 16 * warp * kPK;  // this warp's Q rows, later its output
+  float* const sRing = sQ + kRows * kPK;
+
   const float* qg = q + b * st.qb + h * st.qh;
   const float* kg = k + b * st.kb + h * st.kh;
   const float* vg = v + b * st.vb + h * st.vh;
   float* og = o + b * st.ob + h * st.oh;
-  const int kvl = kv_len ? kv_len[b] : Skv;
-  const int shift = Skv - Sq;
 
-  for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    Qs[r][d] = (q0 + r < Sq) ? qg[(long long)(q0 + r) * st.qs + d] : 0.0f;
-  }
+  // Row qi sees keys [0, lim(qi)); keys in [lim, Skv) are masked (-1e30)
+  // and keys past Skv weigh nothing.  lim never falls as qi grows.
+  const int kvl = kv_len ? max(0, min(kv_len[b], Skv)) : Skv;
+  const int shift = Skv - Sq;  // bottom-right causal alignment
+  auto lim = [&](int qi) { return causal ? min(kvl, max(0, qi + shift + 1)) : kvl; };
+  // A fully masked row averages V over all of Skv, so a block with one
+  // walks every key; otherwise the keys at or past its last row's limit
+  // are masked for all its rows, and their tiles are skipped.
+  const int kend = lim(q0) == 0 ? Skv : lim(min(q0 + kRows, Sq) - 1);
+  const int tiles = (kend + KT - 1) / KT;
+  const int lim0 = lim(w0 + g), lim1 = lim(w0 + g + 8);
+  const int unmasked = lim(w0);  // keys below it are valid for all the warp's rows
+  const bool active = w0 < Sq;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
+  auto stage_tile = [&](int it) {
+    float* sK = sRing + (it & 1) * kStage;
+    const int t0 = it * KT;
+    stage_rows<D, float, 4 * kPK, kWarps * 32>(smem_u32(sK), kg + t0 * st.ks, st.ks, KT,
+                                               kend - t0, threadIdx.x);
+    stage_rows<D, float, 4 * kPV, kWarps * 32>(smem_u32(sK + KT * kPK), vg + t0 * st.vs,
+                                               st.vs, KT, kend - t0, threadIdx.x);
+  };
+  // one cp.async group per tile (empty past the last), Q in the first;
+  // kend >= 1, so there is a first tile
+  stage_rows<D, float, 4 * kPK, kWarps * 32>(smem_u32(sQ), qg + q0 * st.qs, st.qs, kRows,
+                                             Sq - q0, threadIdx.x);
+  stage_tile(0);
+  cp_async_commit();
+
+  uint32_t qh[kQRegs ? kSteps : 1][4], ql[kQRegs ? kSteps : 1][4];
+  float acc[kSteps][4];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = kMasked;
-    l[rr] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[rr][c] = 0.0f;
-  }
+  for (int j = 0; j < kSteps; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.0f, 0.0f};  // this lane's part; quad sum at the end
 
-  for (int t0 = 0; t0 < Skv; t0 += kBKV) {
-    __syncthreads();  // Qs written / previous tile consumed
-    for (int i = threadIdx.x; i < kBKV * D; i += blockDim.x) {
-      const int j = i / D, d = i % D;
-      const int kj = t0 + j;
-      Ks[j][d] = kj < Skv ? kg[(long long)kj * st.ks + d] : 0.0f;
-      Vs[j][d] = kj < Skv ? vg[(long long)kj * st.vs + d] : 0.0f;
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<0>();  // this thread's part of tile it has landed
+    __syncthreads();     // every thread's part has, and tile it-1 is consumed
+    if (it + 1 < tiles) stage_tile(it + 1);  // into tile it-1's stage
+    cp_async_commit();
+    if constexpr (kQRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) load_a_tf32<kPK>(sW, s, g, t, qh[s], ql[s]);
+      }
     }
-    __syncthreads();
-    const int kj = t0 + lane;
-    const int nkeys = min(kBKV, Skv - t0);
+    if (!active) continue;
+    const float* sK = sRing + (it & 1) * kStage;
+    const float* sV = sK + KT * kPK;
+    const int t0 = it * KT;
+
+    // S = Q K^T; B fragment of n-tile j: key 8j+g, columns 2t, 2t+1
+    float s[kNT][4];
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const int qi = q0 + r;
-      float s;
-      if (kj >= Skv) {
-        s = -INFINITY;
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      uint32_t ah[4], al[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ah[e] = qh[ks][e], al[e] = ql[ks][e];
       } else {
-        float dot = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot = fmaf(Qs[r][d], Ks[lane][d], dot);
-        s = dot * scale;
-        if (kj >= kvl || (causal && qi < kj - shift)) s = kMasked;
+        load_a_tf32<kPK>(sW, ks, g, t, ah, al);
       }
-      const float m_new = fmaxf(m[rr], warp_max(s));
-      const float p = expf(s - m_new);
-      const float alpha = expf(m[rr] - m_new);
-      l[rr] = l[rr] * alpha + warp_sum(p);
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[rr][c] *= alpha;
-      for (int j = 0; j < nkeys; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[rr][c] = fmaf(pj, Vs[j][lane + 32 * c], acc[rr][c]);
+      for (int j = 0; j < kNT; ++j) {
+        const float2 kb =
+            *reinterpret_cast<const float2*>(sK + (8 * j + g) * kPK + 8 * ks + 2 * t);
+        mma_3xtf32(s[j], ah, al, kb.x, kb.y);
       }
-      m[rr] = m_new;
+    }
+
+    // masks and scale (log2 domain), row max over the quad; only tiles that
+    // reach past `unmasked` (or Skv) hold a masked key
+    const bool edge = t0 + KT > unmasked;
+    float tile_max[2] = {row_max[0], row_max[1]};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kj = t0 + 8 * j + 2 * t + (e & 1);
+          if (kj >= (e < 2 ? lim0 : lim1)) x = kj < Skv ? kMasked : -INFINITY;
+        }
+        s[j][e] = x;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+      }
+    }
+    tile_max[0] = quad_max(tile_max[0]);
+    tile_max[1] = quad_max(tile_max[1]);
+    if (it > 0) {  // online rescale of what earlier tiles summed
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float alpha = fast_exp2(row_max[r] - tile_max[r]);
+        row_sum[r] *= alpha;
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j) {
+          acc[j][2 * r] *= alpha;
+          acc[j][2 * r + 1] *= alpha;
+        }
+      }
+    }
+    row_max[0] = tile_max[0];
+    row_max[1] = tile_max[1];
+
+    // O += P V.  The accumulator of n-tile j holds keys 8j+2t, 8j+2t+1 of
+    // rows g, g+8, which is the A fragment of k-step j once its columns are
+    // permuted as in load_a_tf32: P stays in registers.  B fragment: rows
+    // 8j+2t, 8j+2t+1 of V, column g of each n-tile.
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = fast_exp2(s[j][e] - row_max[e >> 1]);
+        row_sum[e >> 1] += s[j][e];
+      }
+      split_tf32(s[j][0], ph[0], pl[0]);
+      split_tf32(s[j][2], ph[1], pl[1]);
+      split_tf32(s[j][1], ph[2], pl[2]);
+      split_tf32(s[j][3], ph[3], pl[3]);
+      const float* vr = sV + (8 * j + 2 * t) * kPV + g;
+#pragma unroll
+      for (int dn = 0; dn < kSteps; ++dn) mma_3xtf32(acc[dn], ph, pl, vr[8 * dn], vr[kPV + 8 * dn]);
     }
   }
+  if (!active) return;
 
+  // normalise, stage through this warp's spent Q rows, store 16 B a lane
+  const float inv0 = 1.0f / quad_sum(row_sum[0]);
+  const float inv1 = 1.0f / quad_sum(row_sum[1]);
+  __syncwarp();  // the warp's last reads of its Q rows are done
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int qi = q0 + warp * kRowsPerWarp + rr;
-    if (qi >= Sq) continue;
-    const float inv = 1.0f / l[rr];
+  for (int j = 0; j < kSteps; ++j) {
+    *reinterpret_cast<float2*>(sW + g * kPK + 8 * j + 2 * t) =
+        make_float2(acc[j][0] * inv0, acc[j][1] * inv0);
+    *reinterpret_cast<float2*>(sW + (g + 8) * kPK + 8 * j + 2 * t) =
+        make_float2(acc[j][2] * inv1, acc[j][3] * inv1);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 4, kPass = 32 / kChunks;
+  const int r = lane / kChunks, c = (lane % kChunks) * 4;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) og[(long long)qi * st.os + lane + 32 * c] = acc[rr][c] * inv;
+  for (int i = r; i < 16; i += kPass) {
+    if (w0 + i < Sq)
+      *reinterpret_cast<float4*>(og + (long long)(w0 + i) * st.os + c) =
+          *reinterpret_cast<const float4*>(sW + i * kPK + c);
   }
 }
 
-template <int D>
-int launch_simt(const void* q, const void* k, const void* v, const void* kv_len,
+template <int D, int KT>
+int launch_tf32(const void* q, const void* k, const void* v, const void* kv_len,
                 void* o, const Strides& st, int B, int H, int Sq, int Skv,
                 float scale, int causal, cudaStream_t stream) {
-  dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_simt_kernel<D><<<grid, kWarps * 32, 0, stream>>>(
+  const int q_blocks = (Sq + kRows - 1) / kRows;
+  const long long blocks = (long long)q_blocks * B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  constexpr int smem = tf32_smem_floats(D, KT) * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tf32_kernel<D, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_tf32_kernel<D, KT><<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int32_t*)kv_len,
-      (float*)o, st, H, Sq, Skv, scale, causal);
+      (float*)o, st, H, Sq, Skv, q_blocks, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -501,7 +695,7 @@ const char* mt_error_string(int code) {
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 int64, the (batch, head,
 // row) strides in elements of q, k, v and o.  kv_len may be null (all
-// keys valid).  bf16 rows must start on 16-byte boundaries.  Returns
+// keys valid).  Rows of q, k and v must start on 16-byte boundaries.  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
 // head width or dtype the kernel does not take.
 int mt_flash_attention(const void* q, const void* k, const void* v,
@@ -514,9 +708,9 @@ int mt_flash_attention(const void* q, const void* k, const void* v,
   Strides st;
   long long* f = &st.qb;
   for (int i = 0; i < 12; ++i) f[i] = strides[i];
-  if (dtype == 0 && D == 32) return launch_simt<32>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
-  if (dtype == 0 && D == 64) return launch_simt<64>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
-  if (dtype == 0 && D == 128) return launch_simt<128>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
+  if (dtype == 0 && D == 32) return launch_tf32<32, 64>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
+  if (dtype == 0 && D == 64) return launch_tf32<64, 32>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
+  if (dtype == 0 && D == 128) return launch_tf32<128, 16>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
   if (dtype == 1 && D == 32) return launch_mma<32>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
   if (dtype == 1 && D == 64) return launch_mma<64>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
   if (dtype == 1 && D == 128) return launch_mma<128>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);

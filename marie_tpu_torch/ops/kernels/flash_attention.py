@@ -2,17 +2,19 @@
 
 Replaces the TPU kernel ``marie_tpu/ops/pallas/flash_attention.py``
 (``flash_attention``).  On CUDA tensors :func:`flash_attention` launches
-the hand-written kernel of ``csrc/flash_attention.cu`` (D in {32, 64, 128},
-float32 or bf16, any sequence lengths; bf16 on tensor cores, float32 on
-a SIMT path — see the source note).  On CPU tensors it runs the plain
-PyTorch version, :func:`attention_reference` (the JAX
+the hand-written kernel of ``csrc/flash_attention.cu`` (D in {32, 64,
+128}, float32 or bf16, any sequence lengths; both dtypes on tensor cores,
+float32 as 3xTF32 products that keep float32 accuracy whatever torch's
+TF32 switches say — see the source note).  On CPU tensors it runs the
+plain PyTorch version, :func:`attention_reference` (the JAX
 ``_attention_reference``).  There is no fallback from one to the other.
 
 Layout: q, k and v may be strided views (the encoder passes the
-``[B,H,S,D]`` transposes of its ``[B,S,H,D]`` projections); only the last
-dimension must be contiguous, and the kernel reads them in place.  The
-output is the ``[B,H,Sq,D]`` view of a contiguous ``[B,Sq,H,D]`` tensor,
-so ``out.transpose(1, 2).reshape(B, Sq, H * D)`` is a view, not a copy.
+``[B,H,S,D]`` transposes of its ``[B,S,H,D]`` projections); the last
+dimension must be contiguous and every row must start on a 16-byte
+boundary, and the kernel reads them in place.  The output is the
+``[B,H,Sq,D]`` view of a contiguous ``[B,Sq,H,D]`` tensor, so
+``out.transpose(1, 2).reshape(B, Sq, H * D)`` is a view, not a copy.
 Both versions return that layout.
 """
 
@@ -76,7 +78,7 @@ def flash_attention(
 
     kv_len: optional [B] int valid kv lengths (right-padding mask).  On
     CUDA, q, k and v are read in place: each must have a contiguous last
-    dimension, and bf16 rows must start on 16-byte boundaries."""
+    dimension, and its rows must start on 16-byte boundaries."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if sm_scale is None:
@@ -99,10 +101,10 @@ def flash_attention(
         if t.stride(3) != 1:
             raise ValueError("flash_attention: the last dimension of q, k, v "
                              "must be contiguous")
-        if t.dtype == torch.bfloat16 and (
-                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError("flash_attention: bf16 rows of q, k, v must "
-                             "start on 16-byte boundaries")
+        per_16_bytes = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(s % per_16_bytes for s in t.stride()[:3]):
+            raise ValueError("flash_attention: rows of q, k, v must start on "
+                             "16-byte boundaries")
     kvl = None
     if kv_len is not None:
         if kv_len.shape != (b,):

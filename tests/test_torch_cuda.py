@@ -102,6 +102,12 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros(1, 1, 4, 128, device=cuda_device)
     with pytest.raises(ValueError):
         k2.flash_attention(*(x[..., ::2],) * 3)  # last dimension strided
+    x = torch.zeros(1, 1, 4, 68, device=cuda_device)
+    with pytest.raises(ValueError):
+        k2.flash_attention(*(x[..., 1:65],) * 3)  # float32 rows 4 bytes off 16
+    x = torch.zeros(1, 1, 4, 66, device=cuda_device)
+    with pytest.raises(ValueError):
+        k2.flash_attention(*(x[..., :64],) * 3)  # float32 row stride of 264 bytes
     with pytest.raises(ValueError):
         k1.crop_resize(torch.zeros(1, 8, 8, device=cuda_device),  # not uint8
                        torch.zeros(1, dtype=torch.int32, device=cuda_device),
@@ -229,6 +235,49 @@ def test_cuda_attention_fp32_head_shapes(cuda_device, b, h, s, kv_min):
     torch.cuda.synchronize()
     assert k2.flash_attention.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "projections"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,skv,causal,kv_len", [
+    (708, 708, False, [1, 63, 64, 65, 708, 0]),  # around tile edges, and no key
+    (150, 70, True, None),  # causal Sq > Skv: rows 0-79 see no key
+    (150, 70, True, [70, 0, 33]),
+    (45, 708, True, [708, 64, 0, 65]),  # Sq < Skv: the diagonal cuts tiles
+])
+def test_cuda_attention_fp32_skipped_tiles(cuda_device, d, sq, skv, causal, kv_len, layout):
+    """Float32 K2 where it skips key tiles past kv_len and above the
+    causal diagonal: within 1e-4 of its plain version in one launch, and a
+    row with no valid key (kv_len 0, or causal rows above the diagonal
+    when Sq > Skv) is the uniform average of V over all of Skv."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, h = (len(kv_len) if kv_len else 2), 3
+
+    def make(s):
+        x = torch.randn(b, s, h, d, device=cuda_device, generator=g)
+        return x.transpose(1, 2) if layout == "projections" else x.transpose(1, 2).contiguous()
+
+    q, k, v = make(sq), make(skv), make(skv)
+    kvl = (torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)
+           if kv_len else None)
+    before = k2.flash_attention.launches
+    got = k2.flash_attention(q, k, v, kv_len=kvl, causal=causal)
+    want = k2.attention_reference(q, k, v, causal=causal, kv_len=kvl, sm_scale=1.0 / d ** 0.5)
+    torch.cuda.synchronize()
+    assert k2.flash_attention.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-4
+    mean_v = v.mean(dim=2, keepdim=True)  # [B, H, 1, D]
+    blind = torch.zeros(b, sq, dtype=torch.bool, device=cuda_device)
+    if kvl is not None:
+        blind |= (kvl == 0)[:, None]
+    if causal:
+        blind[:, :max(sq - skv, 0)] = True
+    assert blind.any() == (sq > skv or (kv_len is not None and 0 in kv_len))
+    for bi, rows in enumerate(blind):
+        if rows.any():
+            err = (got[bi][:, rows] - mean_v[bi]).abs().max()
+            assert float(err) <= 1e-4
 
 
 @pytest.mark.cuda
