@@ -16,8 +16,14 @@ engine with chained LayoutLM heads on a small input against the CPU
 (``chain_reference``), runs it on the 16 pages with the heads at the JAX
 chain width (``chain``), and runs the LayoutLM classifier, indexer and
 splitter at LayoutLMv3-base width, card against CPU
-(``layoutlm_base``); traces one more run per box source, and of the
-chained engine, with torch.profiler (``profile``).  It prints one JSON
+(``layoutlm_base``); builds the serving engine with the chained heads
+from the trained trees of ``torch_zoo/`` and runs the 16 shipped pages,
+against their truth and the JAX engine's golden (``trained``); runs an
+RGB page, a page over the largest bucket, a region request and the
+RAW_LINE, WORD and MULTI_LINE modes on the card against the CPU path and
+the golden (``forms``); traces one more run per box source, of the
+chained engine and of the trained engine, with torch.profiler
+(``profile``).  It prints one JSON
 line per phase; the last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.  Every phase raises on failure; the
 script exits nonzero, with no result line, without a CUDA device or
@@ -646,10 +652,11 @@ def phase_precision():
         raise AssertionError(f"the default CRAFT depends on the global TF32 flags: {err}")
 
 
-def phase_profile(setups, pages):
+def phase_profile(setups):
     """Where the serving slice's time goes: torch.profiler over one more
-    extract per engine (``slice``'s two box sources and ``chain``'s
-    heatmap engine), on every thread; wall time, device busy time, the
+    extract per engine on its pages (``setups``: {name: (engine, pages)};
+    ``slice``'s two box sources, ``chain``'s heatmap engine and the
+    ``trained`` engine), on every thread; wall time, device busy time, the
     ``marie.*`` stage ranges (counts and times summed over threads;
     ``marie.heads`` for the chained heads) and the kernels with the most
     device time."""
@@ -658,7 +665,7 @@ def phase_profile(setups, pages):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for source, engine in setups.items():
+    for source, (engine, pages) in setups.items():
         torch.cuda.synchronize()
         # all threads: the page program runs on the engine's upload worker
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -690,10 +697,26 @@ def phase_profile(setups, pages):
                               for e in top]})
 
 
+def _score_errors(got, want):
+    """Max abs difference of each kind of float score: word and line
+    ``confidence``, the chained heads' per-word ``ner_score`` and the
+    page's ``classification`` score (-1 where one side lacks it)."""
+    def scores(results, kind):
+        if kind == "classification":
+            return [r["classification"]["score"] for r in results if "classification" in r]
+        return [x.get(kind, -1.0) for r in results for x in r["words"] + r["lines"]]
+
+    out = {}
+    for kind in ("confidence", "ner_score", "classification"):
+        a, b = scores(got, kind), scores(want, kind)
+        out[kind] = (max((abs(x - y) for x, y in zip(a, b)), default=0.0)
+                     if len(a) == len(b) else float("inf"))
+    return out
+
+
 def _results_equal(got, want):
-    """(equal apart from float scores, max score difference): the scores
-    are word and line confidences, the chained heads' per-word
-    ``ner_score`` and the page's ``classification`` score."""
+    """(equal apart from float scores, max score difference; see
+    ``_score_errors``)."""
     def strip(results):
         out = []
         for r in results:
@@ -704,14 +727,7 @@ def _results_equal(got, want):
             out.append(r)
         return out
 
-    def scores(results):
-        return [x.get(k, -1.0) for r in results for x in r["words"] + r["lines"]
-                for k in ("confidence", "ner_score")] + [
-                    r["classification"]["score"] for r in results if "classification" in r]
-
-    a, b = scores(got), scores(want)
-    err = max((abs(x - y) for x, y in zip(a, b)), default=0.0)
-    return strip(got) == strip(want) and len(a) == len(b), err
+    return strip(got) == strip(want), max(_score_errors(got, want).values())
 
 
 def phase_small_reference():
@@ -985,6 +1001,196 @@ def phase_layoutlm_base(pages, chain_results):
         raise AssertionError(f"card and CPU logits differ by {errs} > {LAYOUT_LIMIT}")
 
 
+#: card vs CPU scores of the bfloat16 serving engine: one bfloat16
+#: rounding of the decoder's logits moves a word's confidence by up to
+#: ~1e-2 (the float32 engines of small_reference and chain_reference keep
+#: 1e-3, the 3-decimal rounding of confidences)
+BF16_SCORE_LIMIT = 2e-2
+
+#: agreement of a card run with the JAX engine's golden (``trained`` and
+#: ``forms``): matched golden words (IoU >= 0.5) with equal text, recall
+#: and CER against the truth (IoU >= 0.4, as bench.py) next to the golden's
+TEXT_AGREEMENT = 0.99
+RECALL_DELTA = 0.005
+CER_DELTA = 0.005
+
+
+def load_shipped():
+    """The pages, truth and golden of ``torch_zoo/`` (made with the JAX
+    package by ``scripts/export_torch_zoo.py``); missing files fail."""
+    import numpy as np
+
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+
+    with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
+        shipped = {k: data[k] for k in data.files}
+    for name in ("truth", "golden"):
+        with open(os.path.join(ZOO_DIR, f"{name}.json")) as f:
+            shipped[name] = json.load(f)
+    return shipped
+
+
+def zoo_engine(device: str):
+    """``bench.py``'s serving engine over the zoo's trained trees, with the
+    chained heads: the registry's loaders (``ocr/util.py``) with bench's
+    settings (256 components, CC run budget 32, chunks of 32/128/256, u2,
+    160 rows a page, 16-page groups).  Fails unless all four trees load."""
+    from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.ocr.util import craft_box_processor, trocr_processor
+
+    engine = PipelineOcrEngine(
+        craft_box_processor(256, cc_runs=32, device=device),
+        trocr_processor(device=device, batch_sizes=(32, 128, 256)),
+        upload_format="u2", compact_slots=160, page_fuse_batch=16,
+        classifier=LayoutDocumentClassifier.from_zoo_chain(device=device),
+        indexer=LayoutDocumentIndexer.from_zoo_chain(device=device))
+    if len(engine.trained) != 4 or not all(engine.trained.values()):
+        raise AssertionError(f"the engine is not trained: {engine.trained}")
+    return engine
+
+
+def _quality(results, truth, hw):
+    """Detection and recognition against the truth (bench.py's IoU 0.4)."""
+    from marie_tpu_torch.check import compare_results, truth_pages
+
+    report = compare_results(truth_pages(truth, [hw] * len(truth)), results,
+                             iou_threshold=0.4)
+    return {**report["detection"], "cer": report["recognition"]["cer"]}
+
+
+def _against_golden(results, golden, truth=None, hw=None):
+    """The card's agreement with the golden, its quality and the golden's
+    against the truth (when given), and the limits they met."""
+    from marie_tpu_torch.check import agreement
+
+    row = {"agreement": agreement(golden, results)}
+    ok = row["agreement"]["words"] >= TEXT_AGREEMENT and not row["agreement"]["label_pages"]
+    if truth is not None:
+        row["quality"] = _quality(results, truth, hw)
+        row["golden_quality"] = _quality(golden, truth, hw)
+        ok = ok and (abs(row["quality"]["recall"] - row["golden_quality"]["recall"])
+                     <= RECALL_DELTA)
+        ok = ok and row["quality"]["cer"] <= row["golden_quality"]["cer"] + CER_DELTA
+    row["within_limits"] = ok
+    return row
+
+
+def phase_trained(shipped):
+    """The serving engine on the trained trees (``zoo_engine``) with the
+    chained heads on the 16 shipped 1024x768 pages, twice: ms/page of the
+    second call, kept boxes, recall, precision, mean IoU and CER against
+    the truth, and agreement with the golden; fails outside the limits
+    (text agreement >= 0.99, recall within 0.005 and CER at most 0.005
+    over the golden's, equal page labels where every word agrees), or
+    unless K1 and K2 launch on the fused path and K2 8 times on the heads
+    path.  Returns (engine, launches of the second call)."""
+    import torch
+
+    engine = zoo_engine("cuda")
+    pages = list(shipped["pages"])
+    n, (h, w) = len(pages), pages[0].shape
+    t0 = time.perf_counter()
+    engine.extract(pages)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = engine.extract(pages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_results(results, n, h, w)
+    row = _against_golden(results, shipped["golden"]["pages"], shipped["truth"]["pages"],
+                          (h, w))
+    emit({"phase": "trained", "pages": n, "page_hw": [h, w], "trees": engine.trained,
+          "first_call_s": first_s, "wall_ms_per_page": wall / n * 1e3,
+          "kept_boxes": sum(len(r["words"]) for r in results),
+          "golden_boxes": sum(len(r["words"]) for r in shipped["golden"]["pages"]),
+          "labels": sorted({r["classification"]["label"] for r in results}),
+          "launches": launches, **row})
+    if not row["within_limits"]:
+        raise AssertionError(f"the trained run is outside the golden's limits: {row}")
+    if (launches["crop_resize"].get("fused", 0) <= 0
+            or launches["flash_attention"].get("fused", 0) <= 0
+            or launches["flash_attention"].get("heads", 0) != 8):
+        raise AssertionError(f"trained run launches: {launches}")
+    return engine, launches
+
+
+def _region_pages(regions):
+    """Region outputs as page-like dicts for the comparisons (a region's
+    confidence is its words' mean)."""
+    return [{"words": r["words"], "lines": [], "meta": {"id": r["id"], "text": r["text"]}}
+            for r in regions]
+
+
+def phase_forms(card_engine, shipped):
+    """The page forms and modes on the card, each against the port's CPU
+    path on the same trees (``zoo_engine("cpu")``: equal words, boxes,
+    lines and labels, scores within ``BF16_SCORE_LIMIT``) and against
+    the golden (the ``trained`` limits; recall and CER against the truth
+    where the form has one): the RGB page, the oversize page (scaled by ~0.602 into the
+    2048x1536 bucket), a region request on page 2 (RAW_LINE, WORD,
+    MULTI_LINE and SPARSE regions) and RAW_LINE, WORD and MULTI_LINE
+    requests on snippets of page 3.  K2 must launch on the fragments
+    path.  Returns the launches of the card runs, summed by path."""
+    import torch
+
+    from marie_tpu_torch.enums import PSMode
+
+    pages, golden, truth = shipped["pages"], shipped["golden"], shipped["truth"]
+    cpu_engine = zoo_engine("cpu")
+
+    def snippet(spec):
+        x, y, w, h = spec["box"]
+        return pages[spec["page"]][y:y + h, x:x + w]
+
+    cases = [
+        ("rgb", lambda e: e.extract([shipped["rgb"]]), [golden["forms"]["rgb"]],
+         [truth["rgb"]], shipped["rgb"].shape[:2]),
+        ("oversize", lambda e: e.extract([shipped["oversize"]]),
+         [golden["forms"]["oversize"]], [truth["oversize"]], shipped["oversize"].shape),
+        ("regions", lambda e: _region_pages(e.extract(
+            list(pages), regions=golden["regions"]["request"])),
+         _region_pages(golden["regions"]["result"]), None, None),
+    ] + [
+        (mode, lambda e, spec=spec, mode=mode: e.extract([snippet(spec)],
+                                                          PSMode.from_value(mode)),
+         [spec["result"]], None, None)
+        for mode, spec in golden["modes"].items()
+    ]
+    totals, failed = {}, []
+    for name, run, want, form_truth, hw in cases:
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = run(card_engine)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts()
+        for kernel, by_path in launches.items():
+            for path, count in by_path.items():
+                totals.setdefault(kernel, {}).setdefault(path, 0)
+                totals[kernel][path] += count
+        cpu = run(cpu_engine)
+        equal, score_err = _results_equal(got, cpu)
+        row = _against_golden(got, want, form_truth, hw)
+        emit({"phase": "forms", "case": name, "wall_ms": wall_ms,
+              "words": sum(len(r["words"]) for r in got),
+              "texts": [wd["text"] for r in got for wd in r["words"]][:12],
+              "card_equals_cpu": equal, "score_errors": _score_errors(got, cpu),
+              "score_limit": BF16_SCORE_LIMIT, "launches": launches, **row})
+        if not (equal and score_err <= BF16_SCORE_LIMIT and row["within_limits"]):
+            failed.append(name)
+    emit({"phase": "forms", "case": "all", "launches": totals, "failed": failed})
+    if failed:
+        raise AssertionError(f"forms outside their limits: {failed}")
+    if totals["flash_attention"].get("fragments", 0) <= 0:
+        raise AssertionError(f"K2 never launched on the fragments path: {totals}")
+    return totals
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -1019,15 +1225,24 @@ def main() -> int:
     run("stream", phase_stream, setups["heatmap"], pages)
     launches, chain_engines, chain_results = run("chain", phase_chain, setups, pages)
     run("layoutlm_base", phase_layoutlm_base, pages, chain_results)
-    run("profile", phase_profile, {**setups, "chain_heatmap": chain_engines["heatmap"]},
-        pages)
-    # the chained heatmap run drives the OCR program and the heads
-    k1["launches"] = launches["crop_resize"]["all"]
-    k2["launches"] = launches["flash_attention"]["all"]
+    shipped = run("trained", load_shipped)
+    trained_engine, trained_launches = run("trained", phase_trained, shipped)
+    forms_launches = run("forms", phase_forms, trained_engine, shipped)
+    run("profile", phase_profile,
+        {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
+         "chain_heatmap": (chain_engines["heatmap"], pages),
+         "trained": (trained_engine, shipped["pages"])})
+    # the trained engine's 16-page run is the main path (OCR program and
+    # chained heads); the forms phase adds the fragments path
+    for row, name in ((k1, "crop_resize"), (k2, "flash_attention")):
+        row["launches"] = trained_launches[name]["all"]
+        row["launches_by_path"] = {
+            **{k: v for k, v in trained_launches[name].items() if k != "all"},
+            "fragments": forms_launches[name].get("fragments", 0)}
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in (k1, k2)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

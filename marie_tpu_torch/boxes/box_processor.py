@@ -1,11 +1,11 @@
 """BoxProcessor — the word detector's base (port of
 ``marie_tpu/boxes/box_processor.py``): :meth:`BoxProcessor.organize_boxes`
-groups raw detections into lines and reading order, as the JAX package
-does, and :func:`estimate_character_width` is copied with it.
-
-Left for later (ROADMAP §1 item 8): the YAML binding of the JAX base and
-``extract_bounding_boxes``, whose fragment cutting and line projection
-serve only the non-fused path.
+groups raw detections into lines and reading order, and
+:meth:`BoxProcessor.extract_bounding_boxes` cuts a page into host
+fragments by page segmentation mode (WORD and RAW_LINE: the whole image;
+MULTI_LINE: lines of the ink projection; SPARSE and LINE: detection), as
+the JAX package does; :func:`estimate_character_width` is copied with it.
+The JAX base's YAML binding is not ported.
 """
 
 from abc import ABC, abstractmethod
@@ -30,6 +30,57 @@ class BoxProcessor(ABC):
     @abstractmethod
     def detect_words(self, image: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """[H, W] or [H, W, 3] uint8 page -> (boxes_xywh [N,4] float, scores [N])."""
+
+    def extract_bounding_boxes(self, queue_id: str, checksum: str, image: np.ndarray,
+                               psmode: PSMode = PSMode.SPARSE):
+        """(boxes [N, 4] xywh int in reading order, fragments (N cut-outs
+        of the RGB page), line numbers [N] 1-based, per-box meta
+        ``{"score"}``, line boxes [L, 4] xywh)."""
+        del queue_id, checksum
+        image = np_rgb(image)
+        h, w = image.shape[:2]
+        if psmode in (PSMode.WORD, PSMode.RAW_LINE):
+            boxes = np.array([[0, 0, w, h]], dtype=np.float64)
+            scores = np.ones((1,), np.float32)
+        elif psmode == PSMode.MULTI_LINE:
+            boxes, scores = self._lines_from_projection(image)
+        else:  # SPARSE / LINE: word detection
+            boxes, scores = self.detect_words(image)
+        boxes_int, scores, lines, line_bboxes = self.organize_boxes(
+            boxes, scores, (h, w), psmode)
+        fragments = [image[y: y + bh, x: x + bw] for x, y, bw, bh in boxes_int]
+        meta = [{"score": float(s)} for s in scores]
+        return boxes_int, fragments, lines, meta, line_bboxes
+
+    def _lines_from_projection(self, image: np.ndarray):
+        """MULTI_LINE: line boxes from the rows of the page's horizontal
+        ink projection (no word detection)."""
+        gray = image.mean(axis=-1)
+        ink = gray < max(gray.mean() * 0.7, 1.0)
+        profile = ink.sum(axis=1)
+        active = profile > max(1, int(0.002 * image.shape[1]))
+        boxes = []
+        start = None
+        for y, a in enumerate(active):
+            if a and start is None:
+                start = y
+            elif not a and start is not None:
+                boxes.append(self._line_box(ink, start, y))
+                start = None
+        if start is not None:
+            boxes.append(self._line_box(ink, start, len(active)))
+        if not boxes:
+            h, w = image.shape[:2]
+            boxes = [[0, 0, w, h]]
+        arr = np.asarray(boxes, np.float64)
+        return arr, np.ones((len(arr),), np.float32)
+
+    @staticmethod
+    def _line_box(ink: np.ndarray, y0: int, y1: int):
+        cols = np.nonzero(ink[y0:y1].any(axis=0))[0]
+        x0 = int(cols[0]) if len(cols) else 0
+        x1 = int(cols[-1]) + 1 if len(cols) else ink.shape[1]
+        return [x0, y0, x1 - x0, y1 - y0]
 
     @staticmethod
     def organize_boxes(
@@ -85,3 +136,12 @@ class BoxProcessor(ABC):
         if return_order:
             return (*out, pre[order])
         return out
+
+
+def np_rgb(image: np.ndarray) -> np.ndarray:
+    """[H, W] -> [H, W, 3]; [H, W, 4] -> its first three channels."""
+    if image.ndim == 2:
+        return np.stack([image] * 3, axis=-1)
+    if image.shape[-1] == 4:
+        return image[..., :3]
+    return image

@@ -17,11 +17,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from marie_tpu_torch.boxes.box_processor import BoxProcessor
+from marie_tpu_torch.boxes.box_processor import BoxProcessor, np_rgb
 from marie_tpu_torch.models.configs import CraftConfig
 from marie_tpu_torch.ops.connected_components import component_boxes_runs_cc
 from marie_tpu_torch.preprocess.buckets import BucketSpec, pad_to
 from marie_tpu_torch.preprocess.ops import normalize_page, otsu_binarize, to_grayscale
+from marie_tpu_torch.preprocess.resize import resize_area_u8
 from marie_tpu_torch.registry.convert import init_flax_layout, load_model
 from marie_tpu_torch.utils.device import float32_precision, resolve_device
 
@@ -106,7 +107,8 @@ def detect_core(
     del text_threshold
     if cc_stats not in CC_STATS:
         raise NotImplementedError(
-            f"cc_stats={cc_stats!r}: only {CC_STATS} is ported")
+            f"cc_stats={cc_stats!r}: only {CC_STATS} is ported; the other "
+            "variants are ROADMAP §1 item 8")
     rgb, heat = craft_heatmap(model, pages_u8, allow_tf32)
     with record_function("marie.cc"):
         mask, scores, stride = heat_masks(
@@ -119,20 +121,18 @@ def detect_core(
     return stats
 
 
-def gray_page(image: np.ndarray) -> np.ndarray:
-    """A uint8 page as the port takes it: [H, W] as it is, [H, W, 3|4]
-    with equal color channels as its first channel."""
-    if image.dtype != np.uint8:
-        raise ValueError(f"pages must be uint8, got {image.dtype}")
-    if image.ndim == 2:
-        return image
-    rgb = image[..., :3]
-    if not (np.array_equal(rgb[..., 0], rgb[..., 1])
-            and np.array_equal(rgb[..., 0], rgb[..., 2])):
-        raise NotImplementedError(
-            "RGB pages with distinct channels need the RGB crop path "
-            "(ROADMAP §1 item 7); pass grayscale pages")
-    return np.ascontiguousarray(rgb[..., 0])
+def is_grayscale(stack: np.ndarray) -> bool:
+    """Are all three channels of a [P, H, W, 3] stack equal?  (A sampled
+    check, then a full one on a hit, as the JAX package's ``fused.py::
+    _is_grayscale`` does.)"""
+    if stack.ndim != 4 or stack.shape[-1] != 3:
+        return False
+    probe = stack[..., ::16, ::16, :]
+    if not (np.array_equal(probe[..., 0], probe[..., 1])
+            and np.array_equal(probe[..., 0], probe[..., 2])):
+        return False
+    return bool(np.array_equal(stack[..., 0], stack[..., 1])
+                and np.array_equal(stack[..., 0], stack[..., 2]))
 
 
 class BoxProcessorCraft(BoxProcessor):
@@ -147,6 +147,9 @@ class BoxProcessorCraft(BoxProcessor):
     budget (the JAX ``MARIE_CC_RUNS``); ``allow_tf32``, whether float32
     convolutions may run in TF32 (the engine sets this for each forward
     and leaves the global flags as it found them)."""
+
+    #: the zoo tree the weights came from (None: passed in or seeded)
+    zoo_name: Optional[str] = None
 
     def __init__(
         self,
@@ -190,8 +193,8 @@ class BoxProcessorCraft(BoxProcessor):
         self.model = load_model(self.config, variables, self.device, dtype)
 
     def heatmap(self, pages) -> torch.Tensor:
-        """[H, W] / [B, H, W] uint8 pages (numpy or tensor) -> the CRAFT
-        heatmap [B, h, w, 2] float32 on the processor's device."""
+        """[H, W] / [B, H, W] / [B, H, W, 3] uint8 pages (numpy or
+        tensor) -> the CRAFT heatmap [B, h, w, 2] float32 on the processor's device."""
         x = torch.as_tensor(pages).to(self.device)
         if x.ndim == 2:
             x = x[None]
@@ -210,22 +213,31 @@ class BoxProcessorCraft(BoxProcessor):
         return boxes, scores, handle[1], handle[2]
 
     def prep_page(self, image: np.ndarray):
-        """Bucket-fit + pad a page for detection: (padded grayscale [bh, bw]
-        uint8, scale, (h, w))."""
-        image = gray_page(image)
+        """Bucket-fit + pad a page for detection: (padded [bh, bw] or
+        [bh, bw, 3] uint8, scale, (h, w)).  A [H, W, 4] page loses its
+        fourth channel; a page over the largest bucket is scaled down
+        with cv2's ``INTER_AREA`` arithmetic (:func:`resize_area_u8`),
+        as the JAX processor does with cv2."""
+        if image.dtype != np.uint8 or image.ndim not in (2, 3):
+            raise ValueError(f"pages are uint8 [H, W] or [H, W, 3|4], got "
+                             f"{image.dtype} {image.shape}")
+        if image.ndim == 3:
+            image = np_rgb(image)
         h, w = image.shape[:2]
         (bh, bw), scale = self.buckets.fit_with_scale(h, w)
         if scale < 1.0:
-            raise NotImplementedError(
-                f"page {h}x{w} exceeds the largest bucket; the downscale "
-                "(cv2 INTER_AREA in the JAX package) is ROADMAP §1 item 7")
+            image = resize_area_u8(image, (int(w * scale), int(h * scale)))
         return pad_to(image, bh, bw), scale, (h, w)
 
     def detect_dispatch(self, image: np.ndarray):
         """Phase 1: upload the page and launch detection; the handle
-        (device stats, device page, scale, (h, w)) is collected later."""
+        (device stats, device page, scale, (h, w)) is collected later.
+        The device page is [bh, bw] when the page's channels are equal
+        (its crops then go through K1), else [bh, bw, 3]."""
         padded, scale, (h, w) = self.prep_page(image)
-        page_dev = torch.from_numpy(padded).to(self.device)
+        if padded.ndim == 3 and is_grayscale(padded[None]):
+            padded = padded[..., 0]
+        page_dev = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
         stats = detect_core(
             self.model, page_dev[None], self.text_threshold, self.low_text,
             self.link_threshold, self.max_components, self.box_source,

@@ -7,11 +7,6 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-#: why the components' zoo loaders refuse
-ZOO_REFUSAL = ("the zoo heads are orbax checkpoints, which the port does not "
-               "read; an .npz counterpart is ROADMAP §1 item 2")
-
-
 class PageInput:
     """One page's inputs for layout models: OCR words + boxes (+ image).
 

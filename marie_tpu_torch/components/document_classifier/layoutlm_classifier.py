@@ -2,12 +2,12 @@
 ``marie_tpu/components/document_classifier/layoutlm_classifier.py``):
 pages padded to ``max_seq_len`` tokens with a length mask, batches padded
 to a few fixed sizes, and with an image branch each page's image resized
-to the config's ``image_size`` on the device.
-
-Left for later: ``from_zoo`` and ``from_zoo_chain``, which read the JAX
-package's orbax checkpoints (ROADMAP §1 item 2).
+to the config's ``image_size`` on the device.  ``from_zoo`` and
+``from_zoo_chain`` load the trained heads of ``torch_zoo/``
+(:mod:`marie_tpu_torch.registry.zoo`).
 """
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -15,12 +15,13 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from marie_tpu_torch.components.base import ZOO_REFUSAL, BaseDocumentClassifier, PageInput
-from marie_tpu_torch.components.word_tokenizer import HashWordTokenizer
+from marie_tpu_torch.components.base import BaseDocumentClassifier, PageInput
+from marie_tpu_torch.components.word_tokenizer import HashWordTokenizer, RollingWordTokenizer
 from marie_tpu_torch.models.configs import LayoutLMConfig
 from marie_tpu_torch.ops.kernels._build import launch_path
 from marie_tpu_torch.preprocess.buckets import pad_batch
 from marie_tpu_torch.registry.convert import init_flax_layout, load_model
+from marie_tpu_torch.registry.zoo import zoo_params
 from marie_tpu_torch.utils.device import float32_precision, resolve_device
 
 SYNTH_CLASS_LABELS = ("invoice", "correspondence", "claim")
@@ -48,13 +49,35 @@ class LayoutDocumentClassifier(BaseDocumentClassifier):
     ``params`` is a flax-layout numpy tree; without one the weights are
     drawn from seed 0.  Port-only keyword: ``device``."""
 
-    @classmethod
-    def from_zoo(cls, name: str = "layout-classifier-synth", labels=SYNTH_CLASS_LABELS):
-        raise NotImplementedError(f"{name}: {ZOO_REFUSAL}")
+    #: the zoo tree the weights came from (None: passed in or seeded)
+    zoo_name: Optional[str] = None
 
     @classmethod
-    def from_zoo_chain(cls, name: str = "layout-classifier-chain", labels=SYNTH_CLASS_LABELS):
-        raise NotImplementedError(f"{name}: {ZOO_REFUSAL}")
+    def from_zoo(cls, name: str = "layout-classifier-synth", labels=SYNTH_CLASS_LABELS,
+                 *, device="cuda") -> "Optional[LayoutDocumentClassifier]":
+        """The zoo's synthetic-trained classifier, or None when absent."""
+        params = zoo_params(name)
+        if params is None:
+            return None
+        head = cls(labels=labels, config=LayoutLMConfig.synth(num_labels=len(labels)),
+                   params=params, device=device)
+        head.zoo_name = name
+        return head
+
+    @classmethod
+    def from_zoo_chain(cls, name: str = "layout-classifier-chain", labels=SYNTH_CLASS_LABELS,
+                       *, device="cuda") -> "Optional[LayoutDocumentClassifier]":
+        """The head trained for the fused chain (``RollingWordTokenizer``
+        ids, sequence cap 192), or None when absent."""
+        params = zoo_params(name)
+        if params is None:
+            return None
+        config = dataclasses.replace(LayoutLMConfig.synth(num_labels=len(labels)),
+                                     max_seq_len=192)
+        head = cls(labels=labels, config=config, params=params,
+                   tokenizer=RollingWordTokenizer(config.vocab_size), device=device)
+        head.zoo_name = name
+        return head
 
     def __init__(
         self,

@@ -4,10 +4,9 @@ classification (port of
 words go through a stack of ``window``-token windows at ``stride`` (all
 windows of a page in one batch), the window logits are overlap-averaged,
 and the BIO tags are decoded into entities, validated and optionally
-grouped into composite entities by line.
-
-Left for later: ``from_zoo`` and ``from_zoo_chain``, which read the JAX
-package's orbax checkpoints (ROADMAP §1 item 2).
+grouped into composite entities by line.  ``from_zoo`` and
+``from_zoo_chain`` load the trained heads of ``torch_zoo/``
+(:mod:`marie_tpu_torch.registry.zoo`).
 """
 
 import dataclasses
@@ -18,14 +17,15 @@ import torch
 from torch.profiler import record_function
 
 from marie_tpu_torch.boxes.line_processor import line_merge
-from marie_tpu_torch.components.base import ZOO_REFUSAL, BaseDocumentIndexer, PageInput
+from marie_tpu_torch.components.base import BaseDocumentIndexer, PageInput
 from marie_tpu_torch.components.document_indexer.aggregation import group_composites
 from marie_tpu_torch.components.document_indexer.validator import get_validator
-from marie_tpu_torch.components.word_tokenizer import HashWordTokenizer
+from marie_tpu_torch.components.word_tokenizer import HashWordTokenizer, RollingWordTokenizer
 from marie_tpu_torch.models.configs import LayoutLMConfig
 from marie_tpu_torch.models.layoutlm import merge_window_logits, sliding_windows
 from marie_tpu_torch.ops.kernels._build import launch_path
 from marie_tpu_torch.registry.convert import init_flax_layout, load_model
+from marie_tpu_torch.registry.zoo import zoo_params
 from marie_tpu_torch.utils.device import float32_precision, resolve_device
 
 SYNTH_NER_LABELS = ("O", "B-KEY", "I-KEY", "B-VALUE", "I-VALUE")
@@ -36,13 +36,35 @@ class LayoutDocumentIndexer(BaseDocumentIndexer):
     flax-layout numpy tree; without one the weights are drawn from seed
     0.  Port-only keyword: ``device``."""
 
-    @classmethod
-    def from_zoo(cls, name: str = "layout-indexer-synth", labels=SYNTH_NER_LABELS):
-        raise NotImplementedError(f"{name}: {ZOO_REFUSAL}")
+    #: the zoo tree the weights came from (None: passed in or seeded)
+    zoo_name: Optional[str] = None
 
     @classmethod
-    def from_zoo_chain(cls, name: str = "layout-indexer-chain", labels=SYNTH_NER_LABELS):
-        raise NotImplementedError(f"{name}: {ZOO_REFUSAL}")
+    def from_zoo(cls, name: str = "layout-indexer-synth", labels=SYNTH_NER_LABELS,
+                 *, device="cuda") -> "Optional[LayoutDocumentIndexer]":
+        """The zoo's synthetic-trained indexer, or None when absent."""
+        params = zoo_params(name)
+        if params is None:
+            return None
+        head = cls(labels=labels, config=LayoutLMConfig.synth(num_labels=len(labels)),
+                   params=params, device=device)
+        head.zoo_name = name
+        return head
+
+    @classmethod
+    def from_zoo_chain(cls, name: str = "layout-indexer-chain", labels=SYNTH_NER_LABELS,
+                       *, device="cuda") -> "Optional[LayoutDocumentIndexer]":
+        """The head trained for the fused chain (``RollingWordTokenizer``
+        ids, sequence cap 192), or None when absent."""
+        params = zoo_params(name)
+        if params is None:
+            return None
+        config = dataclasses.replace(LayoutLMConfig.synth(num_labels=len(labels)),
+                                     max_seq_len=192)
+        head = cls(labels=labels, config=config, params=params,
+                   tokenizer=RollingWordTokenizer(config.vocab_size), device=device)
+        head.zoo_name = name
+        return head
 
     def __init__(
         self,

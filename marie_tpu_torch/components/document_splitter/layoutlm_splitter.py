@@ -1,21 +1,19 @@
 """Document splitter (port of
 ``marie_tpu/components/document_splitter/layoutlm_splitter.py``): per-page
 boundary classification with the sequence classifier; pages labelled as
-boundaries start new documents.
-
-The JAX splitter's default weights come from ``model_zoo/
-layout-splitter-synth``, an orbax checkpoint the port does not read; here
-the caller passes ``config`` (and ``params``) until ROADMAP §1 item 2
-brings an ``.npz`` counterpart.
+boundaries start new documents.  Without ``config`` and ``params`` the
+weights are the zoo's ``layout-splitter-synth`` when ``torch_zoo/`` holds
+it, else the classifier's seeded base-width ones, as in the JAX package.
 """
 
 from typing import Any, Dict, List, Optional, Sequence
 
-from marie_tpu_torch.components.base import ZOO_REFUSAL, BaseDocumentSplitter, PageInput
+from marie_tpu_torch.components.base import BaseDocumentSplitter, PageInput
 from marie_tpu_torch.components.document_classifier.layoutlm_classifier import (
     LayoutDocumentClassifier,
 )
 from marie_tpu_torch.models.configs import LayoutLMConfig
+from marie_tpu_torch.registry.zoo import zoo_params
 
 
 class LayoutDocumentSplitter(BaseDocumentSplitter):
@@ -28,12 +26,16 @@ class LayoutDocumentSplitter(BaseDocumentSplitter):
         *,
         device="cuda",
     ):
+        zoo_name = None
         if params is None and config is None:
-            raise NotImplementedError(f"layout-splitter-synth: {ZOO_REFUSAL}; "
-                                      "pass config (and params)")
+            params = zoo_params("layout-splitter-synth")
+            if params is not None:
+                zoo_name, config = ("layout-splitter-synth",
+                                    LayoutLMConfig.synth(num_labels=len(labels)))
         self.boundary_label = boundary_label
         self.classifier = LayoutDocumentClassifier(labels=labels, config=config,
                                                    params=params, device=device)
+        self.classifier.zoo_name = zoo_name
 
     def split(self, pages: Sequence[PageInput]) -> List[Dict[str, Any]]:
         out = []

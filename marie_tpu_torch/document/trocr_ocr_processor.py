@@ -1,10 +1,13 @@
 """TrOCR recogniser processor (port of
 ``marie_tpu/document/trocr_ocr_processor.py``): word boxes on a page that
-is already on the device are cropped there (K1) and decoded greedily, in
-chunks padded to a few fixed batch sizes.
+is already on the device are cropped there (K1 on a grayscale page, stock
+ops on an RGB one) and decoded greedily, in chunks padded to a few fixed
+batch sizes; host fragments are resized to the crop height with cv2's
+``INTER_LINEAR`` arithmetic (:func:`resize_linear_u8`), grouped into
+width buckets and decoded in the same chunks (launches counted on the
+``"fragments"`` path).
 
-Left for later: ``beam_size > 1`` (beam search, ROADMAP §1 item 9) and
-``recognize_from_fragments`` (host fragments resized with cv2, item 8).
+Left for later: ``beam_size > 1`` (beam search, ROADMAP §1 item 9).
 """
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -18,7 +21,10 @@ from marie_tpu_torch.models.configs import TrOCRConfig
 from marie_tpu_torch.models.tokenizer import CharTokenizer
 from marie_tpu_torch.models.trocr import greedy_decode
 from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
-from marie_tpu_torch.preprocess.buckets import pad_batch
+from marie_tpu_torch.ops.kernels._build import launch_path
+from marie_tpu_torch.preprocess.buckets import group_by_bucket, pad_batch
+from marie_tpu_torch.preprocess.ops import crop_resize_pages
+from marie_tpu_torch.preprocess.resize import resize_linear_u8
 from marie_tpu_torch.registry.convert import init_flax_layout, load_model
 from marie_tpu_torch.utils.device import resolve_device
 
@@ -27,24 +33,32 @@ from marie_tpu_torch.utils.device import resolve_device
 def _crop_and_decode(model, page_u8: torch.Tensor, boxes_xyxy: torch.Tensor,
                      out_h: int, out_w: int, dtype: torch.dtype,
                      max_steps: Optional[int]):
-    """Cut crops from the grayscale page on the device (K1, every box on
-    page 0), expand them to 3 channels and decode them greedily to
-    ``max_steps`` with no step caps -> (tokens, conf).  The JAX version
-    crops the page's three equal channels; the crops are the same."""
+    """Cut crops from the page on the device (every box on page 0) and
+    decode them greedily to ``max_steps`` with no step caps -> (tokens,
+    conf).  A grayscale [H, W] page crops through K1 and its crops are
+    expanded to 3 channels (the JAX version crops the page's three equal
+    channels: the crops are the same); an RGB [H, W, 3] page crops with
+    stock ops, as in the JAX version."""
     n = boxes_xyxy.shape[0]
+    page_of = torch.zeros(n, dtype=torch.int32, device=page_u8.device)
     with record_function("marie.crop"):
-        crops, _ = crop_resize(
-            page_u8[None], torch.zeros(n, dtype=torch.int32, device=page_u8.device),
-            boxes_xyxy, out_h, out_w)
-        crops = crops[..., None].expand(*crops.shape, 3)
+        if page_u8.ndim == 2:
+            crops, _ = crop_resize(page_u8[None], page_of, boxes_xyxy, out_h, out_w)
+            crops = crops[..., None].expand(*crops.shape, 3)
+        else:
+            crops, _ = crop_resize_pages(page_u8[None], page_of, boxes_xyxy, out_h, out_w)
     tokens, _, conf = greedy_decode(model, crops.to(dtype), max_steps)
     return tokens, conf
 
 
 class TrOcrProcessor(OcrProcessor):
-    """Greedy TrOCR over word boxes of device pages (the JAX package's
-    ``TrOcrProcessor``).  ``params`` is a flax-layout numpy tree; without
-    one the weights are drawn from seed 1.  Port-only keyword: ``device``."""
+    """Greedy TrOCR over word boxes of device pages and over host
+    fragments (the JAX package's ``TrOcrProcessor``).  ``params`` is a
+    flax-layout numpy tree; without one the weights are drawn from seed 1.
+    Port-only keyword: ``device``."""
+
+    #: the zoo tree the weights came from (None: passed in or seeded)
+    zoo_name: Optional[str] = None
 
     def __init__(
         self,
@@ -53,6 +67,7 @@ class TrOcrProcessor(OcrProcessor):
         tokenizer: Optional[CharTokenizer] = None,
         beam_size: int = 1,
         batch_sizes: Sequence[int] = (8, 32, 128),
+        width_buckets: Optional[Sequence[int]] = None,
         param_dtype: str = "float32",
         decode_steps: Optional[int] = None,
         *,
@@ -69,6 +84,10 @@ class TrOcrProcessor(OcrProcessor):
         self.beam_size = beam_size
         self.batch_sizes = tuple(batch_sizes)
         self.crop_h, self.crop_w = self.config.encoder.image_size
+        # width buckets never exceed the encoder's input width
+        wb = width_buckets or [self.crop_w // 4, self.crop_w // 2,
+                               (3 * self.crop_w) // 4, self.crop_w]
+        self.width_buckets = tuple(sorted({min(b, self.crop_w) for b in wb}))
         if decode_steps is None:
             # crops are stretched to full height; a glyph is ~0.5*h wide,
             # so the width bound caps the character count
@@ -106,14 +125,13 @@ class TrOcrProcessor(OcrProcessor):
 
     def recognize_dispatch(self, page_dev: torch.Tensor, boxes_xywh, scale: float = 1.0):
         """Launch crop + decode for all chunks of ``boxes_xywh`` (original
-        page coordinates; ``scale`` maps them onto the padded page): each
+        page coordinates; ``scale`` maps them onto the padded [H, W] or
+        [H, W, 3] device page): each
         chunk of at most ``batch_sizes[-1]`` boxes is padded to a
         configured batch size with dummy 1x1 boxes."""
         n = len(boxes_xywh)
         if n == 0:
             return []
-        if page_dev.ndim != 2:
-            raise ValueError("recognize_dispatch takes the grayscale [H, W] device page")
         xyxy = np.asarray(boxes_xywh, np.float32) * scale
         xyxy = np.stack(
             [xyxy[:, 0], xyxy[:, 1], xyxy[:, 0] + xyxy[:, 2], xyxy[:, 1] + xyxy[:, 3]],
@@ -159,7 +177,48 @@ class TrOcrProcessor(OcrProcessor):
             out_all.append(page_out)
         return out_all
 
-    def recognize_from_fragments(self, fragments):
-        raise NotImplementedError(
-            "recognition of host fragments resizes them with cv2; it is "
-            "ROADMAP §1 item 8")
+    def _prep_fragment(self, frag: np.ndarray) -> np.ndarray:
+        """uint8 fragment -> float32 [crop_h, eff_w <= crop_w, 3] in [0, 1]."""
+        if frag.dtype != np.uint8:
+            raise ValueError(f"fragments are uint8, got {frag.dtype}")
+        if frag.ndim == 2:
+            frag = np.stack([frag] * 3, -1)
+        fh, fw = frag.shape[:2]
+        if fh == 0 or fw == 0:
+            return np.full((self.crop_h, 1, 3), 1.0, np.float32)
+        scale = self.crop_h / fh
+        new_w = max(1, min(int(round(fw * scale)), self.crop_w))
+        out = resize_linear_u8(frag, (new_w, self.crop_h)).astype(np.float32)
+        if out.max() > 1.5:
+            out = out / 255.0
+        return out
+
+    def recognize_from_fragments(self, fragments: Sequence[np.ndarray]) -> List[Dict[str, Any]]:
+        """Host fragments (uint8 [h, w] or [h, w, 3] cut-outs) -> one word
+        dict each: resized to the crop height (aspect kept, at most the
+        crop width), grouped by width bucket, chunked at the largest batch
+        size and padded white to a configured one."""
+        n = len(fragments)
+        if n == 0:
+            return []
+        preps = [self._prep_fragment(f) for f in fragments]
+        groups = group_by_bucket([p.shape[1] for p in preps], self.width_buckets)
+        out: List[Any] = [None] * n  # every index is in one width group
+        max_bs = self.batch_sizes[-1]
+        for indices in groups.values():
+            # the encoder always takes the full crop width: a bucket pads
+            # the content, not the tensor
+            for start in range(0, len(indices), max_bs):
+                chunk = indices[start: start + max_bs]
+                batch = np.full((pad_batch(len(chunk), self.batch_sizes),
+                                 self.crop_h, self.crop_w, 3), 1.0, np.float32)
+                for row, idx in enumerate(chunk):
+                    batch[row, :, : preps[idx].shape[1]] = preps[idx]
+                imgs = torch.from_numpy(batch).to(self.device).to(self.compute_dtype)
+                with launch_path("fragments"):
+                    tokens, _, conf = greedy_decode(self.model, imgs, self.decode_steps)
+                texts = self.tokenizer.decode_batch(tokens.cpu().numpy())
+                conf = conf.cpu().numpy()
+                for row, idx in enumerate(chunk):
+                    out[idx] = {"text": texts[row], "confidence": float(conf[row])}
+        return out

@@ -4,6 +4,12 @@ page group — unpack -> detect -> keep/compact -> crop (K1) -> TrOCR encode
 it: host prep and packed uploads on a worker thread, the device program,
 and the host collect, streamed group by group so the three overlap.
 
+A group whose pages all have equal channels uploads them as a grayscale
+[P, H, W] stack (packed for the ``u4``/``u2``/``u1``/``u1d`` formats) and
+crops them with K1; a group of RGB pages with distinct channels uploads
+[P, H, W, 3] uint8 and crops them with stock ops, as the JAX package does
+(its Pallas crop takes grayscale stacks only).
+
 Row alignment contract (as in the JAX package): the device keeps boxes
 with ``valid & score >= floor & area >= min_area`` on real pages and
 decodes them page-major, slot-ascending; the host applies the same
@@ -23,11 +29,11 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
-from marie_tpu_torch.boxes.craft_box_processor import detect_core
+from marie_tpu_torch.boxes.craft_box_processor import detect_core, is_grayscale
 from marie_tpu_torch.models.trocr import greedy_decode
 from marie_tpu_torch.ops.kernels._build import launch_path
 from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
-from marie_tpu_torch.preprocess.ops import fma
+from marie_tpu_torch.preprocess.ops import crop_resize_pages, fma
 from marie_tpu_torch.utils.pack4 import PACKERS
 
 UPLOAD_FORMATS = ("u8",) + tuple(PACKERS)
@@ -110,7 +116,7 @@ def keep_predicate(stats: Dict[str, torch.Tensor], box_source: str,
 def compact_program(
     craft_model: nn.Module,
     trocr_model: nn.Module,
-    pages_u8: torch.Tensor,  # [P, H, W] uint8 (or packed [P, H, W*bits/8])
+    pages_u8: torch.Tensor,  # [P, H, W] / [P, H, W, 3] uint8 (or packed [P, H, W*bits/8])
     clip_whs: torch.Tensor,  # [P, 2] float32 crop clip (w, h)
     n_real: int,  # pages before ladder padding
     text_threshold: float,
@@ -132,14 +138,15 @@ def compact_program(
     """Page-batched OCR with GLOBAL crop compaction: the kept boxes of all
     real pages fill one cross-page crop batch of ``total_slots`` rows
     (kept first, page-major then slot-ascending); ladder-padding pages
-    (index >= ``n_real``) are excluded.  Crops always go through K1.
+    (index >= ``n_real``) are excluded.  Grayscale crops go through K1,
+    RGB crops through stock ops.
 
     Returns (stats, tokens [T, max_steps] int32, conf [T] float32, rows)
     with what the chained heads read, rows = (keep [P, M] bool, boxes
     [T, 4] float32 xyxy page pixels, clip [T, 2] of each row's page)."""
     pages_u8 = _unpack_bits(pages_u8, _norm_pack_bits(packed))
-    if pages_u8.ndim != 3:
-        raise ValueError("the page program takes grayscale [P, H, W] pages")
+    if pages_u8.ndim not in (3, 4):
+        raise ValueError("the page program takes [P, H, W] or [P, H, W, 3] pages")
     dev = pages_u8.device
     p = pages_u8.shape[0]
     stats = detect_core(craft_model, pages_u8, text_threshold, low_text,
@@ -169,8 +176,11 @@ def compact_program(
 
     sel_keep = flat_keep[order]
     with record_function("marie.crop"):
-        crops, eff_w = crop_resize(pages_u8, page_of, b, out_h, out_w)
-        crops = crops[..., None].expand(*crops.shape, 3)
+        if pages_u8.ndim == 3:
+            crops, eff_w = crop_resize(pages_u8, page_of, b, out_h, out_w)
+            crops = crops[..., None].expand(*crops.shape, 3)
+        else:
+            crops, eff_w = crop_resize_pages(pages_u8, page_of, b, out_h, out_w)
     tokens, _, conf = greedy_decode(
         trocr_model, crops.to(dtype), max_steps, active=sel_keep,
         step_caps=_geometric_step_caps(eff_w, out_h, max_steps))
@@ -207,8 +217,9 @@ def fused_ocr_pages(
     thresholds and decode settings of the two processors.
 
     Args:
-      pages: [P, H, W] uint8 (numpy or tensor); with ``packed`` (4, 2 or 1
-        bits) the stack :mod:`marie_tpu_torch.utils.pack4` packed.
+      pages: [P, H, W] or [P, H, W, 3] uint8 (numpy or tensor); with
+        ``packed`` (4, 2 or 1 bits) the grayscale stack
+        :mod:`marie_tpu_torch.utils.pack4` packed.
       clip_whs: [P, 2] float32 crop clip (w, h) per page; defaults to the
         full page extent.
       n_real: pages before ladder padding (defaults to P).
@@ -294,16 +305,19 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 def _upload_group(preps, group, page_batch, upload_format: str = "u8",
                   device: torch.device = torch.device("cpu")):
     """Host prep + device upload of one group (on the uploader thread):
-    ladder-pad the stack of grayscale pages, pack it for the ``u4`` /
-    ``u2`` / ``u1`` / ``u1d`` formats where the page width allows, and
-    copy it to the device.  Returns (pages, clip [P, 2], psize, packed
+    ladder-pad the stack, drop the channels of a stack whose channels are
+    all equal, pack a grayscale stack for the ``u4`` / ``u2`` / ``u1`` /
+    ``u1d`` formats where the page width allows, and copy it to the
+    device.  Returns (pages, clip [P, 2], psize, packed
     bits or 0)."""
     psize = _ladder_size(len(group), page_batch)
     rows = group + [group[-1]] * (psize - len(group))
     with record_function("marie.upload"):
         stack = np.stack([preps[k][0] for k in rows])
+        if is_grayscale(stack):
+            stack = stack[..., 0]
         packed = 0
-        if upload_format in PACKERS:
+        if upload_format in PACKERS and stack.ndim == 3:
             packer, bits = PACKERS[upload_format]
             if stack.shape[-1] % (8 // bits) == 0:
                 stack, packed = packer(stack), bits

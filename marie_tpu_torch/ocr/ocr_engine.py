@@ -10,12 +10,15 @@ SPARSE and LINE pages take the fused path of :mod:`marie_tpu_torch.ocr.fused`
 ``classifier`` and an ``indexer``, the fused path runs the LayoutLM heads
 in each group's program (:mod:`marie_tpu_torch.ocr.fused_chain`) and
 adds ``classification`` to each page and ``ner_label`` to its words.
+WORD, RAW_LINE and MULTI_LINE pages are cut into host fragments
+(``BoxProcessor.extract_bounding_boxes``) and recognised together
+(``TrOcrProcessor.recognize_from_fragments``).  ``regions`` cuts each
+region out of its page and extracts it in its own mode.
 
-Left for later: the other page segmentation modes and ``regions`` (they
-cut host fragments, ROADMAP §1 item 8) and a device mesh (item 16).
+Left for later: a device mesh (ROADMAP §1 item 16).
 """
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,6 +50,15 @@ class PipelineOcrEngine:
 
     #: ``extract`` takes ``on_result_group`` / ``group_size``
     supports_result_stream = True
+
+    @property
+    def trained(self) -> Dict[str, Optional[str]]:
+        """The zoo tree each model was loaded from, by role (None: seeded
+        weights); the heads appear when the engine chains them."""
+        parts = {"detector": self.box_processor, "recognizer": self.ocr_processor}
+        if self.classifier is not None and self.indexer is not None:
+            parts.update(classifier=self.classifier, indexer=self.indexer)
+        return {role: getattr(part, "zoo_name", None) for role, part in parts.items()}
 
     def __init__(
         self,
@@ -85,24 +97,31 @@ class PipelineOcrEngine:
         queue_id: str = "",
         **kwargs,
     ) -> List[Dict[str, Any]]:
-        """One result dict per page of ``frames`` (uint8 [H, W] pages,
-        [H, W, 3|4] pages with equal color channels, or a list or stack of
-        them).
+        """One result dict per page of ``frames`` (uint8 [H, W] or
+        [H, W, 3|4] pages of any size, or a list or stack of them); with
+        ``regions``, one dict per region (``id``, ``text``, ``confidence``,
+        ``words``).
 
         ``on_result_group(results, start)`` receives each page group's
         results as soon as they are assembled (fused path);
         ``group_size`` overrides ``page_fuse_batch`` for this call."""
-        if regions:
-            raise NotImplementedError("region extraction is ROADMAP §1 item 8")
-        if pms_mode not in (PSMode.SPARSE, PSMode.LINE):
-            raise NotImplementedError(
-                f"{pms_mode} cuts host fragments, ROADMAP §1 item 8; "
-                "SPARSE and LINE are ported")
         frames = _as_frame_list(frames)
+        if regions:
+            return self._extract_regions(frames, coordinate_format, regions, queue_id,
+                                         **kwargs)
+        return self._extract_fullpage(frames, pms_mode, coordinate_format, queue_id,
+                                      **kwargs)
+
+    def _extract_fullpage(self, frames, pms_mode, coordinate_format, queue_id, **kwargs):
+        """SPARSE and LINE: the fused path, or the two-phase one when the
+        processors do not fit it; the other modes: host fragments."""
         bp, op = self.box_processor, self.ocr_processor
-        if self.single_program and supports_fused_page(bp, op):
-            return self._extract_fused(frames, pms_mode, coordinate_format, **kwargs)
-        return self._extract_two_phase(frames, pms_mode, coordinate_format)
+        if pms_mode in (PSMode.SPARSE, PSMode.LINE):
+            if self.single_program and supports_fused_page(bp, op):
+                return self._extract_fused(frames, pms_mode, coordinate_format, **kwargs)
+            return self._extract_two_phase(frames, pms_mode, coordinate_format)
+        return self._extract_fragments(frames, pms_mode, coordinate_format, queue_id,
+                                       kwargs.get("checksum", ""))
 
     def _extract_fused(self, frames, pms_mode, coordinate_format, **kwargs):
         """Upload | device | collect, streamed: group i's collect runs while
@@ -122,7 +141,7 @@ class PipelineOcrEngine:
             pages = fused_collect_many(self.box_processor, self.ocr_processor,
                                        [handle], [pms_mode] * n)
             for j, page in enumerate(pages):
-                results.append(self._assemble_fused_result(
+                results.append(self._assemble_result(
                     frames[start + j], start + j, page, coordinate_format))
             if on_result_group is not None:
                 on_result_group(results[start:], start)
@@ -151,13 +170,56 @@ class PipelineOcrEngine:
             futures.append(op.recognize_dispatch(handle[1], boxes, handle[2]))
         words = op.recognize_collect_many(futures)
         return [
-            self._assemble_fused_result(frame, i, (*page, page_words, None),
-                                        coordinate_format)
+            self._assemble_result(frame, i, (*page, page_words, None), coordinate_format)
             for i, (frame, page, page_words) in enumerate(zip(frames, per_page, words))
         ]
 
-    def _assemble_fused_result(self, frame, index: int, page,
-                               coordinate_format: CoordinateFormat) -> Dict[str, Any]:
+    def _extract_fragments(self, frames, pms_mode, coordinate_format, queue_id, checksum):
+        """Cut every page into host fragments by mode, then recognise all
+        of them in one batched pass."""
+        per_page, fragments = [], []
+        for frame in frames:
+            boxes, frags, lines, _, line_bboxes = self.box_processor.extract_bounding_boxes(
+                queue_id, checksum, frame, pms_mode)
+            per_page.append((boxes, None, lines, line_bboxes, len(frags)))
+            fragments.extend(frags)
+        words = self.ocr_processor.recognize_from_fragments(fragments) if fragments else []
+        results, offset = [], 0
+        for i, (frame, (*page, n)) in enumerate(zip(frames, per_page)):
+            results.append(self._assemble_result(
+                frame, i, (*page, words[offset: offset + n], None), coordinate_format))
+            offset += n
+        return results
+
+    def _extract_regions(self, frames, coordinate_format, regions, queue_id, **kwargs):
+        """Each region (``id``, ``pageIndex``, ``x``, ``y``, ``w``, ``h``;
+        ``mode``, default RAW_LINE) is cut out of its page and extracted
+        in its own mode; its words' text joins with spaces and its
+        confidence is their mean, rounded to 4 places."""
+        output = []
+        for region in regions:
+            missing = {"id", "pageIndex", "x", "y", "w", "h"} - set(region)
+            if missing:
+                raise ValueError(f"Required key missing in region: {region}")
+            page_idx = int(region["pageIndex"])
+            if page_idx >= len(frames):
+                raise ValueError(f"region pageIndex {page_idx} out of range")
+            x, y, w, h = (int(region[k]) for k in ("x", "y", "w", "h"))
+            snippet = frames[page_idx][max(y, 0): y + h, max(x, 0): x + w]
+            mode = PSMode.from_value(region.get("mode", "raw_line"))
+            words = self._extract_fullpage([snippet], mode, coordinate_format, queue_id,
+                                           **kwargs)[0]["words"]
+            conf = float(np.mean([wd["confidence"] for wd in words])) if words else 0.0
+            output.append({
+                "id": region["id"],
+                "text": " ".join(wd["text"] for wd in words),
+                "confidence": round(conf, 4),
+                "words": words,
+            })
+        return output
+
+    def _assemble_result(self, frame, index: int, page,
+                         coordinate_format: CoordinateFormat) -> Dict[str, Any]:
         """One page tuple -> the result schema (with the chained heads'
         ``classification`` and per-word ``ner_label``)."""
         boxes, _scores, lines, line_bboxes, words, extra = page

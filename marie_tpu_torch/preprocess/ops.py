@@ -1,8 +1,9 @@
 """Page and crop preprocessing (port of ``marie_tpu/preprocess/ops.py``).
 
 :func:`crop_resize_pages` is the plain PyTorch version of the word-crop
-kernel (``ops/kernels/crop_resize.py``): the CPU path, and the reference
-the CUDA kernel is held against on the card.
+kernel (``ops/kernels/crop_resize.py``) on grayscale stacks: the CPU path,
+and the reference the CUDA kernel is held against on the card.  On RGB
+stacks it is the crop itself on every device, as in the JAX package.
 """
 
 from typing import Tuple
@@ -71,30 +72,32 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def crop_resize_pages(
-    pages: torch.Tensor,  # [P, H, W] uint8
+    pages: torch.Tensor,  # [P, H, W] or [P, H, W, C] uint8
     page_idx: torch.Tensor,  # [N] int32 — which page each box crops from
     boxes: torch.Tensor,  # [N, 4] xyxy float32 (page coords)
     out_h: int,
     out_w: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cut N boxes out of a grayscale page stack, resize each to
-    (out_h, out_w): aspect-preserving separable bilinear, the x step
-    widened to ``max(bh/out_h, bw/out_w)`` so wide words squeeze instead
-    of losing their tail, white (1.0) past each crop's effective width
+    """Cut N boxes out of a page stack, resize each to (out_h, out_w):
+    aspect-preserving separable bilinear, the x step widened to
+    ``max(bh/out_h, bw/out_w)`` so wide words squeeze instead of losing
+    their tail, white (1.0) past each crop's effective width
     ``eff_w = min(round(bw * out_h / bh), out_w)``.
 
-    Returns (crops [N, out_h, out_w] float32 in [0, 1], eff_w [N] int32).
-    The RGB stack of the JAX version is not on the port's path.
+    Returns (crops [N, out_h, out_w] for a [P, H, W] stack, [N, out_h,
+    out_w, C] for [P, H, W, C], float32 in [0, 1], eff_w [N] int32).  The
+    uint8 pixels turn float after the gather, as in the JAX version.
 
     Every rounding is the one XLA's CPU backend gives the JAX version, so
     the two agree bit for bit: a divide by a constant is a multiply by its
     float32 reciprocal, ``a * b + c`` is one fused multiply-add (:func:`fma`),
     and ``out_h / bh`` is a true divide.  The CUDA kernel does the same
-    operations in the same order."""
-    if pages.ndim != 3:
-        raise ValueError(f"pages must be [P, H, W] grayscale, got {tuple(pages.shape)}")
+    operations in the same order on grayscale stacks."""
+    if pages.ndim not in (3, 4):
+        raise ValueError(f"pages must be [P, H, W] or [P, H, W, C], got {tuple(pages.shape)}")
     dev = pages.device
-    h, w = pages.shape[1], pages.shape[2]
+    p, h, w = pages.shape[:3]
+    chans = pages.shape[3:]  # () or (C,)
     boxes = boxes.to(torch.float32)
     x0, y0, x1, y1 = boxes.unbind(1)
     bh = torch.clamp(y1 - y0, min=1.0)
@@ -113,18 +116,20 @@ def crop_resize_pages(
     y1i = torch.clamp(y0i + 1, max=h - 1)
     x0i = torch.floor(sx).to(torch.int64)[:, None, :]  # [N, 1, out_w]
     x1i = torch.clamp(x0i + 1, max=w - 1)
-    ly = sy[:, :, None] - y0i
-    lx = sx[:, None, :] - x0i
-    flat = pages.reshape(pages.shape[0], h * w)
-    pidx = torch.clamp(page_idx.to(torch.int64), 0, pages.shape[0] - 1)
+    tail = (None,) * len(chans)  # weights broadcast over the channels
+    ly = (sy[:, :, None] - y0i)[(...,) + tail]
+    lx = (sx[:, None, :] - x0i)[(...,) + tail]
+    flat = pages.reshape(p, h * w, *chans)
+    pidx = torch.clamp(page_idx.to(torch.int64), 0, p - 1)
+    n = len(pidx)
 
     def px(yi, xi):
-        return flat[pidx[:, None], (yi * w + xi).reshape(len(pidx), -1)].reshape(
-            len(pidx), out_h, out_w).to(torch.float32)
+        return flat[pidx[:, None], (yi * w + xi).reshape(n, -1)].reshape(
+            n, out_h, out_w, *chans).to(torch.float32)
 
     c0 = fma(px(y0i, x0i), 1.0 - ly, px(y1i, x0i) * ly)  # rows at column x0
     c1 = fma(px(y0i, x1i), 1.0 - ly, px(y1i, x1i) * ly)  # rows at column x1
     vals = fma(c0, 1.0 - lx, c1 * lx)
     pad = torch.arange(out_w, device=dev)[None, None, :] >= eff_w[:, None, None]
-    crops = torch.where(pad, 255.0, vals)
+    crops = torch.where(pad[(...,) + tail], 255.0, vals)
     return crops * (1.0 / 255.0), eff_w.to(torch.int32)

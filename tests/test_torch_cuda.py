@@ -333,3 +333,77 @@ def test_cuda_chained_engine_matches_cpu(cuda_device):
     np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-3)
     labelled = sum(1 for r in want for wd in r["words"] if "ner_label" in wd)
     assert 0 < labelled < sum(len(r["words"]) for r in want)
+
+
+@pytest.mark.cuda
+def test_cuda_fragments_path_launches_k2(cuda_device):
+    """Host fragments (WORD / RAW_LINE / MULTI_LINE, regions) decode on the
+    card with K2 counted on the "fragments" path, and equal the CPU."""
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.models.configs import TrOCRConfig
+    from marie_tpu_torch.ops.kernels import _build
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    params = init_flax_layout(TrOCRConfig.tiny(), 6)
+    page = _ink_page(7, 256, 384, n_words=12)
+    rng = np.random.default_rng(8)
+    frags = []
+    for i in range(40):
+        fh, fw = int(rng.integers(8, 60)), int(rng.integers(6, 300))
+        y, x = int(rng.integers(0, 256 - fh)), int(rng.integers(0, 384 - fw))
+        frag = page[y:y + fh, x:x + fw]
+        frags.append(np.stack([frag, frag // 2, 255 - frag], -1) if i % 4 == 0 else frag)
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        op = TrOcrProcessor(TrOCRConfig.tiny(), params, batch_sizes=(8, 32), device=dev)
+        _build.reset_counts(k2.flash_attention)
+        results.append(op.recognize_from_fragments(frags))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert k2.flash_attention.launches_by_path.get("fragments", 0) > 0
+            assert k2.flash_attention.launches == k2.flash_attention.launches_by_path["fragments"]
+    got, want = results
+    assert [w["text"] for w in got] == [w["text"] for w in want]
+    np.testing.assert_allclose([w["confidence"] for w in got],
+                               [w["confidence"] for w in want], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single_program", [True, False])
+def test_cuda_oversize_and_rgb_pages_match_cpu(cuda_device, single_program):
+    """A page over the largest bucket (scaled into it on the host) and an
+    RGB page with distinct channels (cropped with stock ops on the card),
+    card against CPU: equal result dicts, confidences within 1e-3."""
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    trees = (init_flax_layout(CraftConfig.tiny(), 3), init_flax_layout(TrOCRConfig.tiny(), 4))
+    big = _ink_page(20, 700, 384, n_words=30)  # over the 512x384 bucket: x 0.73
+    gray = _ink_page(21, 256, 384, n_words=10)
+    rgb = np.stack([gray, np.clip(gray.astype(int) + 40, 0, 255).astype(np.uint8),
+                    255 - (255 - gray) // 2], -1)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        bp = BoxProcessorCraft(CraftConfig.tiny(), trees[0], box_source="ink",
+                               max_components=64, min_area=4, device=dev,
+                               bucket_spec=BucketSpec(shapes=((256, 384), (512, 384))))
+        op = TrOcrProcessor(TrOCRConfig.tiny(), trees[1], batch_sizes=(8, 32), device=dev)
+        engine = PipelineOcrEngine(bp, op, single_program=single_program,
+                                   page_fuse_batch=2, compact_slots=6)
+        out.append(engine.extract([big, rgb, rgb]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    got, want = out
+
+    def strip(results):
+        return [dict(r, words=[dict(w, confidence=None) for w in r["words"]],
+                     lines=[dict(ln, confidence=None) for ln in r["lines"]]) for r in results]
+
+    assert strip(got) == strip(want) and sum(len(r["words"]) for r in got) > 12
+    np.testing.assert_allclose([w["confidence"] for r in got for w in r["words"]],
+                               [w["confidence"] for r in want for w in r["words"]],
+                               rtol=0, atol=1e-3)

@@ -30,7 +30,6 @@ from marie_tpu.models.craft import CRAFT as JaxCRAFT
 from marie_tpu.ocr.ocr_engine import PipelineOcrEngine as JaxEngine
 from marie_tpu.preprocess import BucketSpec as JaxBucketSpec
 from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
-from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
 from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
 from marie_tpu_torch.enums import CoordinateFormat, PSMode
 from marie_tpu_torch.models import configs as tcfg
@@ -197,7 +196,9 @@ def test_compact_budget_borrowing(processors):
 
 def test_grayscale_2d_frames_match_rgb(processors):
     """2-D grayscale frames and their RGB triplicates give the same
-    results; RGB pages with distinct channels are refused."""
+    results; an RGB page whose channels differ in one pixel runs as RGB
+    and equals the JAX engine (``tests/test_torch_forms.py`` covers RGB
+    pages further)."""
     _, (tbp, top) = processors
     gray = [_page(s) for s in range(3)]
     rgb = [np.repeat(p[..., None], 3, -1) for p in gray]
@@ -207,8 +208,9 @@ def test_grayscale_2d_frames_match_rgb(processors):
     assert engine.extract(gray) == got
     color = rgb[0].copy()
     color[0, 0] = (1, 2, 3)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engine.extract([color])
+    got, want = _extract_both(processors, [color], page_fuse_batch=2)
+    assert_same_results(got, want)
+    assert _words(got) == _words(engine.extract([gray[0]]))
 
 
 def test_detector_accepts_2d_page(processors):
@@ -281,25 +283,24 @@ def test_dispatch_stream_propagates_worker_errors(processors, monkeypatch):
 
 
 def test_engine_refuses_what_is_not_ported(processors):
+    """What the port does not take yet raises, naming its ROADMAP item:
+    a device mesh (item 16), beam search (item 9), the other CC stats
+    variants (item 8) and the ``best`` engine (items 9 and 11)."""
+    from marie_tpu_torch.boxes.craft_box_processor import detect_core
+    from marie_tpu_torch.ocr.util import get_known_ocr_engines
+
     _, (tbp, top) = processors
-    engine = PipelineOcrEngine(tbp, top)
-    for mode in (PSMode.WORD, PSMode.RAW_LINE, PSMode.MULTI_LINE):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            engine.extract([_page(0)], mode)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        engine.extract([_page(0)], regions=[{"id": 1}])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engine.extract([np.full((4 * H, W), 255, np.uint8)])
     with pytest.raises(NotImplementedError, match="item 16"):
         PipelineOcrEngine(tbp, top, mesh="local")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        LayoutDocumentClassifier.from_zoo_chain()
     with pytest.raises(ValueError):
         PipelineOcrEngine(tbp, top, upload_format="u3")
     with pytest.raises(NotImplementedError, match="item 9"):
         TrOcrProcessor(tcfg.TrOCRConfig.tiny(), beam_size=5, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
-        top.recognize_from_fragments([np.zeros((4, 4), np.uint8)])
+        detect_core(tbp.model, torch.zeros(1, H, W, dtype=torch.uint8), 0.7, 0.4, 0.4, 8,
+                    cc_stats="sort")
+    with pytest.raises(NotImplementedError, match="item 9.*item 11"):
+        get_known_ocr_engines("cpu", "best")
 
 
 class _JaxFixedHeat:

@@ -190,8 +190,10 @@ def test_heatmap_to_words_end_to_end(setup):
 
 def test_engine_page_forms_and_buckets(setup):
     """Grayscale [H, W], channel-identical RGB and a page smaller than
-    its bucket give the same words as the padded grayscale page; pages the
-    port cannot take yet are refused, not mangled."""
+    its bucket give the same words as the padded grayscale page; a page
+    over the largest bucket gives the words of its downscaled copy at
+    page coordinates, and an RGB page with distinct channels is taken as
+    RGB, both as the JAX engine gives them."""
     s = setup
     bp = BoxProcessorCraft(tcfg.CraftConfig.tiny(), s.craft_tree, min_area=4,
                            max_components=64, box_source="ink", device="cpu",
@@ -210,9 +212,19 @@ def test_engine_page_forms_and_buckets(setup):
     for wd in mixed[0]["words"]:
         x, y, w, h = wd["box"]
         assert x + w <= W - 16 and y + h <= H - 8  # clipped to the real page
-    with pytest.raises(NotImplementedError):
-        engine.extract([np.zeros((4 * H, W), np.uint8)])
+    big = np.repeat(np.repeat(page, 2, axis=0), 2, axis=1)  # 2H x 2W: fits
+    tall = np.pad(big, ((0, 2 * H), (0, 0)), constant_values=255)  # 4H x 2W: halved
+    jbp = JaxBoxProcessorCraft(
+        config=jcfg.CraftConfig.tiny(), min_area=4, max_components=64, box_source="ink",
+        variables=jax.tree_util.tree_map(jnp.asarray, s.craft_tree),
+        bucket_spec=JaxBucketSpec(shapes=((H, W), (2 * H, 2 * W))))
+    jop = JaxTrOcrProcessor(config=jcfg.TrOCRConfig.tiny(), params=s.trocr_params,
+                            decode_steps=STEPS)
     color = np.repeat(page[..., None], 3, -1)
     color[0, 0] = (1, 2, 3)
-    with pytest.raises(NotImplementedError):
-        engine.extract(color)
+    got = engine.extract([tall, color])
+    want = JaxEngine(jbp, jop, compact_slots=8).extract([tall, color])
+    assert [[(wd["text"], wd["box"]) for wd in r["words"]] for r in got] == [
+        [(wd["text"], wd["box"]) for wd in r["words"]] for r in want]
+    assert len(got[0]["words"]) > 0 and all(
+        wd["box"][1] + wd["box"][3] <= 2 * H for wd in got[0]["words"])
