@@ -21,9 +21,11 @@ from the trained trees of ``torch_zoo/`` and runs the 16 shipped pages,
 against their truth and the JAX engine's golden (``trained``); runs an
 RGB page, a page over the largest bucket, a region request and the
 RAW_LINE, WORD and MULTI_LINE modes on the card against the CPU path and
-the golden (``forms``); traces one more run per box source, of the
-chained engine and of the trained engine, with torch.profiler
-(``profile``).  It prints one JSON
+the golden (``forms``); runs the registry's ``best`` engine (CRAFT and a
+word-level vote of TrOCR beam-5 and the CRNN) on the shipped pages
+against the truth, its JAX golden and the CPU path (``best``); traces
+one more run per box source, of the chained engine, of the trained
+engine and of the ``best`` engine, with torch.profiler (``profile``).  It prints one JSON
 line per phase; the last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.  Every phase raises on failure; the
 script exits nonzero, with no result line, without a CUDA device or
@@ -185,18 +187,21 @@ def k1_source_pixels(boxes, page_of, page_shape, oh, ow):
     return int(touched.sum()), sampled
 
 
-def phase_k1(p: int = 8, n: int = 256, case: str = "batch_256"):
-    """K1 on ``p`` pages of the 1024x768 bucket and ``n`` crops of 48x320
-    (the serving slice's fused batch is 16 pages and 2,560 crops), with
-    boxes taller than the TPU kernel's 192-row window and boxes clipped at
-    the page edges."""
+def phase_k1(p: int = 8, n: int = 256, case: str = "batch_256", out_hw=(48, 320),
+             channel_mean: bool = False):
+    """K1 on ``p`` pages of the 1024x768 bucket and ``n`` crops of
+    ``out_hw`` (TrOCR's 48x320: the serving slice's fused batch is 16
+    pages and 2,560 crops; the CRNN's 32x256 with the channel mean, one
+    page and a 128-crop chunk in the ``best`` engine), with boxes taller
+    than the TPU kernel's 192-row window and boxes clipped at the page
+    edges."""
     import numpy as np
     import torch
 
     from marie_tpu_torch.ops.kernels.crop_resize import crop_resize, crop_resize_plain
 
     dev = torch.device("cuda")
-    h, w, oh, ow = 1024, 768, 48, 320
+    (h, w), (oh, ow) = (1024, 768), out_hw
     rng = np.random.default_rng(SEED + 1)
     pages = torch.from_numpy(draw_pages(p, h, w, SEED + 2)).to(dev)
     x0 = rng.uniform(-20, w - 40, n)
@@ -212,8 +217,11 @@ def phase_k1(p: int = 8, n: int = 256, case: str = "batch_256"):
     boxes_t = torch.from_numpy(boxes).to(dev)
     page_of = torch.from_numpy(rng.integers(0, p, n).astype(np.int32)).to(dev)
 
-    got, got_w = crop_resize(pages, page_of, boxes_t, oh, ow)
-    want, want_w = crop_resize_plain(pages, page_of, boxes_t, oh, ow)
+    # the keyword only where set, so that scripts/kernel_times.py can time
+    # a tree whose K1 lacks it
+    mean = {"channel_mean": True} if channel_mean else {}
+    got, got_w = crop_resize(pages, page_of, boxes_t, oh, ow, **mean)
+    want, want_w = crop_resize_plain(pages, page_of, boxes_t, oh, ow, **mean)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not (err <= K1_LIMIT and torch.equal(got_w, want_w)):
@@ -221,14 +229,15 @@ def phase_k1(p: int = 8, n: int = 256, case: str = "batch_256"):
                              f"{err}, eff_w equal {torch.equal(got_w, want_w)}")
     copies = n_copies(pages.numel() + n * oh * ow * 4)
     ins = [(pages.clone(), page_of.clone(), boxes_t.clone()) for _ in range(copies)]
-    t_kernel = timed(lambda i: crop_resize(*ins[i], oh, ow), copies)
-    t_plain = timed(lambda i: crop_resize_plain(*ins[i], oh, ow), copies)
+    t_kernel = timed(lambda i: crop_resize(*ins[i], oh, ow, **mean), copies)
+    t_plain = timed(lambda i: crop_resize_plain(*ins[i], oh, ow, **mean), copies)
     del ins
     page_bytes, sampled = k1_source_pixels(boxes, page_of.cpu().numpy(), (p, h, w), oh, ow)
     nbytes = (page_bytes + page_of.numel() * 4 + boxes_t.numel() * 4
               + n * oh * ow * 4 + n * 4)
-    # per sampled output pixel: 5 fma (2 flops each), 5 mul, 8 add/sub
-    flops = sampled * 23
+    # per sampled output pixel: 5 fma (2 flops each), 5 mul, 8 add/sub;
+    # the channel mean adds 2 fma and a mul
+    flops = sampled * (28 if channel_mean else 23)
     bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
     bound_ops = flops / H100_FLOPS["fp32"] * 1e3
     row = {"name": "crop_resize", "route": "cuda",
@@ -238,7 +247,8 @@ def phase_k1(p: int = 8, n: int = 256, case: str = "batch_256"):
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "library_ms": None}
-    emit({"phase": "k1", "case": case, "shape": [p, h, w, n, oh, ow], "limit": K1_LIMIT,
+    emit({"phase": "k1", "case": case, "shape": [p, h, w, n, oh, ow],
+          "channel_mean": channel_mean, "limit": K1_LIMIT,
           "tall_boxes": 16, "edge_boxes": 24, "copies": copies,
           "warm_ms": t_kernel["warm"], "plain_warm_ms": t_plain["warm"], **row})
     return row
@@ -655,8 +665,9 @@ def phase_precision():
 def phase_profile(setups):
     """Where the serving slice's time goes: torch.profiler over one more
     extract per engine on its pages (``setups``: {name: (engine, pages)};
-    ``slice``'s two box sources, ``chain``'s heatmap engine and the
-    ``trained`` engine), on every thread; wall time, device busy time, the
+    ``slice``'s two box sources, ``chain``'s heatmap engine, the
+    ``trained`` engine and the ``best`` engine on two pages), on every
+    thread; wall time, device busy time, the
     ``marie.*`` stage ranges (counts and times summed over threads;
     ``marie.heads`` for the chained heads) and the kernels with the most
     device time."""
@@ -1191,6 +1202,203 @@ def phase_forms(card_engine, shipped):
     return totals
 
 
+class _Candidates:
+    """A recogniser that keeps what its last collect returned: the
+    candidates of each word, per page, in detection order."""
+
+    def __init__(self, proc):
+        self.proc = proc
+        self.out = []
+
+    def __getattr__(self, name):
+        return getattr(self.proc, name)
+
+    def recognize_collect_many(self, futures_lists):
+        self.out = self.proc.recognize_collect_many(futures_lists)
+        return self.out
+
+
+def best_engine(device: str):
+    """The registry's ``best`` engine (CRAFT, TrOCR beam-5, CRNN from the
+    zoo) with its recognisers wrapped in ``_Candidates``.  Fails unless
+    every tree loads."""
+    from marie_tpu_torch.ocr.util import get_known_ocr_engines
+
+    engine = get_known_ocr_engines(device, "best")["best"]
+    trained = engine.trained
+    if not (trained["detector"] and all(trained["recognizers"])
+            and len(trained["recognizers"]) == 2):
+        raise AssertionError(f"the best engine is not trained: {trained}")
+    engine.ocr_processors = [_Candidates(p) for p in engine.ocr_processors]
+    return engine
+
+
+def _vote_compare(card, cpu, card_cands, cpu_cands):
+    """Card against CPU for the ``best`` engine: (equal apart from texts
+    and scores, the flips, other text differences, the largest score
+    difference of words with equal texts).  A flip is a word whose vote
+    went another way on the two sides while both recognisers read the
+    same texts on both, and their confidences lay at most
+    BF16_SCORE_LIMIT apart: a 1-vs-1 vote decided by confidence."""
+    from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
+
+    def strip(results):
+        return [dict(r, words=[dict(w, text=None, confidence=None) for w in r["words"]],
+                     lines=[dict(ln, text=None, confidence=None) for ln in r["lines"]])
+                for r in results]
+
+    equal = strip(card) == strip(cpu)
+    flips, other, score_err = 0, [], 0.0
+    for page, (a, b) in enumerate(zip(card_cands, cpu_cands)):
+        for j, (ca, cb) in enumerate(zip(zip(*a), zip(*b))):
+            va = VotingOcrEngine._vote(list(ca))
+            vb = VotingOcrEngine._vote(list(cb))
+            if va["text"] == vb["text"]:
+                score_err = max(score_err, abs(va["confidence"] - vb["confidence"]))
+                continue
+            same_reads = [x["text"] for x in ca] == [x["text"] for x in cb]
+            gaps = [abs(c[0]["confidence"] - c[1]["confidence"]) for c in (ca, cb)]
+            if same_reads and len(ca) == 2 and max(gaps) <= BF16_SCORE_LIMIT:
+                flips += 1
+            else:
+                other.append({"page": page, "word": j, "card": list(ca), "cpu": list(cb)})
+    return equal, flips, other, score_err
+
+
+#: card vs CPU boxes of the bf16 detector (``best``): cuDNN's bf16
+#: convolutions round unlike the CPU's (``scripts/probe_best.py`` shows
+#: heatmaps up to 0.041 apart, which move one or two of ~140 boxes a page
+#: by 2-3 px on an H100); a moved box keeps this IoU with its CPU twin
+BOX_IOU_LIMIT = 0.9
+
+
+def _detections_compare(card_pages, cpu_pages):
+    """The detector, card against CPU (``_detect_pages`` of each side):
+    (equal box counts and line numbers on every page, boxes moved, the
+    least IoU of a moved box with its CPU twin)."""
+    import numpy as np
+
+    from marie_tpu_torch.utils.overlap import compute_iou
+
+    same, moved, least_iou = True, 0, 1.0
+    for (_, a), (_, b) in zip(card_pages, cpu_pages):
+        boxes_a, boxes_b = np.asarray(a[0]), np.asarray(b[0])
+        if boxes_a.shape != boxes_b.shape or not np.array_equal(a[2], b[2]):
+            same = False
+            continue
+        for x, y in zip(boxes_a.tolist(), boxes_b.tolist()):
+            if x != y:
+                moved += 1
+                least_iou = min(least_iou, compute_iou(
+                    [x[0], x[1], x[0] + x[2], x[1] + x[3]],
+                    [y[0], y[1], y[0] + y[2], y[1] + y[3]]))
+    return same, moved, least_iou
+
+
+def phase_best(shipped):
+    """The ``best`` engine of the registry (CRAFT detection, a word-level
+    vote of TrOCR beam-5 and the CRNN, on the zoo's trees) on the 16
+    shipped pages, twice: ms/page of the second call; recall, precision,
+    mean IoU and CER against the truth for the vote and for each
+    recogniser alone; agreement with the JAX engine's golden
+    (``golden_best.json``: text >= 0.99, recall within 0.005, CER at
+    most 0.005 over the golden's); the 1-vs-1 votes decided by
+    confidence; K1 and K2 launches on the ``"best"`` path (both > 0).
+    Then the WORD request against its golden, and card against CPU on
+    two pages: the detections (equal box counts and lines; boxes the
+    bf16 detector moves are counted and keep IoU >= BOX_IOU_LIMIT), then
+    both sides' recognisers and vote on the card's detections: equal
+    result dicts apart from texts and scores, equal texts apart from
+    counted flips (``_vote_compare``), scores within BF16_SCORE_LIMIT.
+    Returns (engine, launches of the second call)."""
+    import torch
+
+    from marie_tpu_torch.enums import PSMode
+    from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+
+    with open(os.path.join(ZOO_DIR, "golden_best.json")) as f:
+        golden = json.load(f)
+    engine = best_engine("cuda")
+    pages = list(shipped["pages"])
+    n, (h, w) = len(pages), pages[0].shape
+    t0 = time.perf_counter()
+    engine.extract(pages)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = engine.extract(pages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_results(results, n, h, w)
+    trocr, crnn = (p.out for p in engine.ocr_processors)
+    by_confidence = sum(1 for a, b in zip(trocr, crnn) for x, y in zip(a, b)
+                        if x["text"] != y["text"])
+    words = sum(len(r["words"]) for r in results)
+    row = _against_golden(results, golden["pages"], shipped["truth"]["pages"], (h, w))
+    alone = {}
+    for name, proc in (("trocr_beam5", engine.ocr_processors[0].proc),
+                       ("crnn", engine.ocr_processors[1].proc)):
+        alone[name] = _quality(VotingOcrEngine(engine.box_processor, [proc]).extract(pages),
+                               shipped["truth"]["pages"], (h, w))
+    spec = golden["word"]
+    x, y, bw, bh = spec["box"]
+    word = engine.extract([pages[spec["page"]][y:y + bh, x:x + bw]], PSMode.WORD)
+    word_equal, word_err = _results_equal(word, [spec["result"]])
+
+    t0 = time.perf_counter()
+    cpu_engine = best_engine("cpu")
+    two = pages[:2]
+    card_pages = engine._detect_pages(two, PSMode.SPARSE)
+    cpu_pages = cpu_engine._detect_pages(two, PSMode.SPARSE)
+    same_lines, moved, least_iou = _detections_compare(card_pages, cpu_pages)
+    # both sides recognise the card's detections (the CPU its own copy of
+    # each page)
+    engine._detect_pages = lambda frames, mode: card_pages
+    cpu_engine._detect_pages = lambda frames, mode: [
+        (handle, page) for (handle, _), (_, page) in zip(cpu_pages, card_pages)]
+    try:
+        card = engine.extract(two)
+        card_cands = [p.out for p in engine.ocr_processors]
+        cpu = cpu_engine.extract(two)
+        cpu_cands = [p.out for p in cpu_engine.ocr_processors]
+    finally:
+        del engine._detect_pages
+    equal, flips, other, score_err = _vote_compare(card, cpu, list(zip(*card_cands)),
+                                                   list(zip(*cpu_cands)))
+    emit({"phase": "best", "pages": n, "page_hw": [h, w], "trees": engine.trained,
+          "first_call_s": first_s, "wall_ms_per_page": wall / n * 1e3, "words": words,
+          "golden_words": sum(len(r["words"]) for r in golden["pages"]),
+          "votes_by_confidence": by_confidence, "alone": alone, "launches": launches,
+          "word_request": {"equal": word_equal, "score_err": word_err,
+                           "text": [wd["text"] for wd in word[0]["words"]]},
+          "cpu_check": {"pages": len(two), "detection_lines_equal": same_lines,
+                        "detection_boxes_moved": moved, "moved_least_iou": least_iou,
+                        "box_iou_limit": BOX_IOU_LIMIT,
+                        "boxes_lines_equal": equal, "flips": flips,
+                        "other_differences": other[:5], "n_other": len(other),
+                        "score_err": score_err, "score_limit": BF16_SCORE_LIMIT,
+                        "s": time.perf_counter() - t0},
+          **row})
+    if not row["within_limits"]:
+        raise AssertionError(f"the best run is outside the golden's limits: {row}")
+    if not (word_equal and word_err <= BF16_SCORE_LIMIT):
+        raise AssertionError(f"the WORD request differs from its golden: {word}")
+    if not (same_lines and least_iou >= BOX_IOU_LIMIT):
+        raise AssertionError(f"card and CPU detections differ: lines equal {same_lines}, "
+                             f"{moved} boxes moved, least IoU {least_iou}")
+    if not (equal and not other and score_err <= BF16_SCORE_LIMIT):
+        raise AssertionError(f"card and CPU disagree beyond counted flips: equal {equal}, "
+                             f"{len(other)} other differences {other[:3]}, "
+                             f"score error {score_err}")
+    if (launches["crop_resize"].get("best", 0) <= 0
+            or launches["flash_attention"].get("best", 0) <= 0):
+        raise AssertionError(f"best run launches: {launches}")
+    return engine, launches
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -1217,6 +1425,7 @@ def main() -> int:
     run("k1", phase_k1)
     run("k1", phase_k1, 1, 128, "overflow_chunk")
     k1 = run("k1", phase_k1, SLICE_PAGES, SLICE_PAGES * 160, "serving")
+    run("k1", phase_k1, 1, 128, "crnn_chunk", (32, 256), True)
     k2 = run("k2", phase_k2)
     run("small_reference", phase_small_reference)
     run("chain_reference", phase_chain_reference)
@@ -1228,17 +1437,23 @@ def main() -> int:
     shipped = run("trained", load_shipped)
     trained_engine, trained_launches = run("trained", phase_trained, shipped)
     forms_launches = run("forms", phase_forms, trained_engine, shipped)
+    best, best_launches = run("best", phase_best, shipped)
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
-         "trained": (trained_engine, shipped["pages"])})
+         "trained": (trained_engine, shipped["pages"]),
+         # two pages: tracing the best engine's ~8,700 launches a page
+         # costs the profiler ~8 s a page
+         "best": (best, list(shipped["pages"][:2]))})
     # the trained engine's 16-page run is the main path (OCR program and
-    # chained heads); the forms phase adds the fragments path
+    # chained heads); the forms phase adds the fragments path, the best
+    # phase the voting engine's recognisers
     for row, name in ((k1, "crop_resize"), (k2, "flash_attention")):
         row["launches"] = trained_launches[name]["all"]
         row["launches_by_path"] = {
             **{k: v for k, v in trained_launches[name].items() if k != "all"},
-            "fragments": forms_launches[name].get("fragments", 0)}
+            "fragments": forms_launches[name].get("fragments", 0),
+            "best": best_launches[name].get("best", 0)}
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -36,6 +36,15 @@
 // operation, so the two agree to the bit: divides by constants are
 // multiplies by float32 reciprocals, a * b + c is one fused multiply-add,
 // out_h / bh is a true divide.
+//
+// channel_mean != 0 (the CRNN's crops; its own instance of the kernel,
+// so the other crops run the code they ran before): each pixel is the
+// mean of the crop of the page expanded to three equal channels, as
+// XLA's CPU backend fuses the JAX version's crop, scale and channel
+// mean: the scale contracts into the sum, ((v * s) fma v * s) fma v * s,
+// and the sum is multiplied by float32(1/3).  That is not v * s for
+// about a third of the pixels, so it cannot be taken from the scaled
+// crop.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,6 +88,7 @@ __device__ __forceinline__ void stage_rows(uint8_t* srows, int pitch, const int*
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+template <bool kChannelMean>
 __global__ void crop_resize_kernel(
     const uint8_t* __restrict__ pages,   // [P, H, W]
     const int32_t* __restrict__ page_of, // [N]
@@ -167,8 +177,14 @@ __global__ void crop_resize_kernel(
       const float a11 = (float)s1[ox1[j]];
       const float cx0 = __fmaf_rn(a00, oly, __fmul_rn(a10, ly));  // rows at x0
       const float cx1 = __fmaf_rn(a01, oly, __fmul_rn(a11, ly));  // rows at x1
-      const float v = __fmaf_rn(cx0, olx[j], __fmul_rn(cx1, lx[j]));
-      px[j] = pad[j] ? white : __fmul_rn(v, inv_255);
+      if constexpr (kChannelMean) {
+        const float v = pad[j] ? 255.0f : __fmaf_rn(cx0, olx[j], __fmul_rn(cx1, lx[j]));
+        const float sum = __fmaf_rn(v, inv_255, __fmaf_rn(v, inv_255, __fmul_rn(v, inv_255)));
+        px[j] = __fmul_rn(sum, (float)(1.0 / 3.0));
+      } else {
+        const float v = __fmaf_rn(cx0, olx[j], __fmul_rn(cx1, lx[j]));
+        px[j] = pad[j] ? white : __fmul_rn(v, inv_255);
+      }
     }
     float* out = crops + ((size_t)n * out_h + r0 + i) * out_w + c0;
     if (vec) {
@@ -192,18 +208,19 @@ const char* mt_error_string(int code) {
 // Launch on `stream`; returns cudaGetLastError() after the launch.
 int mt_crop_resize(const void* pages, const void* page_of, const void* boxes,
                    void* crops, void* eff_w, int N, int P, int H, int W,
-                   int out_h, int out_w, void* stream) {
+                   int out_h, int out_w, int channel_mean, void* stream) {
   if (N > 0) {
     const int threads = std::max(32, ((out_w + 3) / 4 + 31) / 32 * 32);
     const dim3 grid(N, std::max(1, (out_h + kRows - 1) / kRows));
     const int pitch = (W + 8 + 15) & ~15;  // a staged row, 16-byte aligned
     const int smem = 2 * kRows * pitch;
+    const auto kernel = channel_mean ? crop_resize_kernel<true> : crop_resize_kernel<false>;
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          crop_resize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return (int)e;
     }
-    crop_resize_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)pages, (const int32_t*)page_of, (const float*)boxes,
         (float*)crops, (int32_t*)eff_w, P, H, W, out_h, out_w, pitch);
   }

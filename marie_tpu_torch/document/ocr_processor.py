@@ -19,14 +19,41 @@ import numpy as np
 
 
 class OcrProcessor(ABC):
-    """Recogniser base.  The JAX base's fragment-level ``recognize`` and
-    ``extract_text`` wait for host fragments (ROADMAP §1 item 8)."""
+    """Recogniser base: word fragments -> words, and :meth:`recognize`,
+    which aligns a page's recognised fragments into the result schema."""
+
+    def is_available(self) -> bool:
+        return True
 
     @abstractmethod
     def recognize_from_fragments(
         self, fragments: Sequence[np.ndarray]
     ) -> List[Dict[str, Any]]:
         """List of word images -> list of {"text", "confidence"}."""
+
+    def recognize(
+        self,
+        queue_id: str,
+        checksum: str,
+        image: np.ndarray,
+        boxes: Sequence[Sequence[int]],
+        fragments: Sequence[np.ndarray],
+        lines: Sequence[int],
+        **kwargs,
+    ) -> Tuple[Dict[str, Any], np.ndarray]:
+        """Full-page recognition -> (result dict, overlay image: a white
+        [H, W, 3] page, as in the JAX package)."""
+        if not len(boxes) == len(fragments) == len(lines):
+            raise ValueError(f"{len(boxes)} boxes, {len(fragments)} fragments and "
+                             f"{len(lines)} line numbers")
+        h, w = image.shape[0], image.shape[1]
+        overlay = np.full((h, w, 3), 255, np.uint8)
+        if len(boxes) == 0:
+            return assemble_page_result((h, w), [], [], []), overlay
+        results = self.recognize_from_fragments(fragments)
+        if len(results) != len(fragments):
+            raise ValueError(f"{len(results)} results for {len(fragments)} fragments")
+        return assemble_page_result((h, w), boxes, lines, results), overlay
 
 
 def assemble_page_result(

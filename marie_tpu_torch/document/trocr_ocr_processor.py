@@ -1,13 +1,11 @@
 """TrOCR recogniser processor (port of
 ``marie_tpu/document/trocr_ocr_processor.py``): word boxes on a page that
 is already on the device are cropped there (K1 on a grayscale page, stock
-ops on an RGB one) and decoded greedily, in chunks padded to a few fixed
-batch sizes; host fragments are resized to the crop height with cv2's
-``INTER_LINEAR`` arithmetic (:func:`resize_linear_u8`), grouped into
-width buckets and decoded in the same chunks (launches counted on the
-``"fragments"`` path).
-
-Left for later: ``beam_size > 1`` (beam search, ROADMAP §1 item 9).
+ops on an RGB one) and decoded greedily or, with ``beam_size > 1``, by
+beam search, in chunks padded to a few fixed batch sizes; host fragments
+are resized to the crop height with cv2's ``INTER_LINEAR`` arithmetic
+(:func:`resize_linear_u8`), grouped into width buckets and decoded in the
+same chunks (launches counted on the ``"fragments"`` path).
 """
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -19,7 +17,7 @@ from torch.profiler import record_function
 from marie_tpu_torch.document.ocr_processor import OcrProcessor
 from marie_tpu_torch.models.configs import TrOCRConfig
 from marie_tpu_torch.models.tokenizer import CharTokenizer
-from marie_tpu_torch.models.trocr import greedy_decode
+from marie_tpu_torch.models.trocr import beam_decode, greedy_decode
 from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
 from marie_tpu_torch.ops.kernels._build import launch_path
 from marie_tpu_torch.preprocess.buckets import group_by_bucket, pad_batch
@@ -29,16 +27,25 @@ from marie_tpu_torch.registry.convert import init_flax_layout, load_model
 from marie_tpu_torch.utils.device import resolve_device
 
 
+def _decode(model, crops: torch.Tensor, beam_size: int, max_steps: Optional[int]):
+    """(tokens, lengths, confidences) of greedy decoding to ``max_steps``
+    or, with ``beam_size > 1``, of beam search (which ignores
+    ``max_steps``, as in the JAX package)."""
+    if beam_size > 1:
+        return beam_decode(model, crops, beam_size)
+    return greedy_decode(model, crops, max_steps)
+
+
 @torch.no_grad()
 def _crop_and_decode(model, page_u8: torch.Tensor, boxes_xyxy: torch.Tensor,
                      out_h: int, out_w: int, dtype: torch.dtype,
-                     max_steps: Optional[int]):
+                     max_steps: Optional[int], beam_size: int = 1):
     """Cut crops from the page on the device (every box on page 0) and
-    decode them greedily to ``max_steps`` with no step caps -> (tokens,
-    conf).  A grayscale [H, W] page crops through K1 and its crops are
-    expanded to 3 channels (the JAX version crops the page's three equal
-    channels: the crops are the same); an RGB [H, W, 3] page crops with
-    stock ops, as in the JAX version."""
+    decode them (:func:`_decode`, no step caps) -> (tokens, conf).  A
+    grayscale [H, W] page crops through K1 and its crops are expanded to
+    3 channels (the JAX version crops the page's three equal channels:
+    the crops are the same); an RGB [H, W, 3] page crops with stock ops,
+    as in the JAX version."""
     n = boxes_xyxy.shape[0]
     page_of = torch.zeros(n, dtype=torch.int32, device=page_u8.device)
     with record_function("marie.crop"):
@@ -47,15 +54,16 @@ def _crop_and_decode(model, page_u8: torch.Tensor, boxes_xyxy: torch.Tensor,
             crops = crops[..., None].expand(*crops.shape, 3)
         else:
             crops, _ = crop_resize_pages(page_u8[None], page_of, boxes_xyxy, out_h, out_w)
-    tokens, _, conf = greedy_decode(model, crops.to(dtype), max_steps)
+    tokens, _, conf = _decode(model, crops.to(dtype), beam_size, max_steps)
     return tokens, conf
 
 
 class TrOcrProcessor(OcrProcessor):
-    """Greedy TrOCR over word boxes of device pages and over host
-    fragments (the JAX package's ``TrOcrProcessor``).  ``params`` is a
-    flax-layout numpy tree; without one the weights are drawn from seed 1.
-    Port-only keyword: ``device``."""
+    """TrOCR over word boxes of device pages and over host fragments (the
+    JAX package's ``TrOcrProcessor``): greedy, or beam search with
+    ``beam_size > 1``.  ``params`` is a flax-layout numpy tree; without
+    one the weights are drawn from seed 1.  Port-only keyword:
+    ``device``."""
 
     #: the zoo tree the weights came from (None: passed in or seeded)
     zoo_name: Optional[str] = None
@@ -73,9 +81,8 @@ class TrOcrProcessor(OcrProcessor):
         *,
         device="cuda",
     ):
-        if beam_size != 1:
-            raise NotImplementedError(
-                "beam_size > 1 needs beam search, ROADMAP §1 item 9")
+        if beam_size < 1:
+            raise ValueError(f"beam_size must be >= 1, got {beam_size}")
         if param_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"param_dtype must be float32 or bfloat16, got {param_dtype!r}")
         self.device = resolve_device(device)
@@ -109,11 +116,11 @@ class TrOcrProcessor(OcrProcessor):
                 page = torch.zeros(page_hw, dtype=torch.uint8, device=self.device)
                 boxes = torch.tensor([[0.0, 0.0, 8.0, 8.0]], device=self.device).repeat(bs, 1)
                 _crop_and_decode(self.model, page, boxes, self.crop_h, self.crop_w,
-                                 self.compute_dtype, self.decode_steps)
+                                 self.compute_dtype, self.decode_steps, self.beam_size)
             else:
                 imgs = torch.zeros(bs, self.crop_h, self.crop_w, 3,
                                    dtype=self.compute_dtype, device=self.device)
-                greedy_decode(self.model, imgs)
+                _decode(self.model, imgs, self.beam_size, None)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -147,7 +154,8 @@ class TrOcrProcessor(OcrProcessor):
             padded[: len(chunk)] = chunk
             tokens, conf = _crop_and_decode(
                 self.model, page_dev, torch.from_numpy(padded).to(page_dev.device),
-                self.crop_h, self.crop_w, self.compute_dtype, self.decode_steps)
+                self.crop_h, self.crop_w, self.compute_dtype, self.decode_steps,
+                self.beam_size)
             futures.append((len(chunk), tokens, conf))
         return futures
 
@@ -216,7 +224,8 @@ class TrOcrProcessor(OcrProcessor):
                     batch[row, :, : preps[idx].shape[1]] = preps[idx]
                 imgs = torch.from_numpy(batch).to(self.device).to(self.compute_dtype)
                 with launch_path("fragments"):
-                    tokens, _, conf = greedy_decode(self.model, imgs, self.decode_steps)
+                    tokens, _, conf = _decode(self.model, imgs, self.beam_size,
+                                              self.decode_steps)
                 texts = self.tokenizer.decode_batch(tokens.cpu().numpy())
                 conf = conf.cpu().numpy()
                 for row, idx in enumerate(chunk):

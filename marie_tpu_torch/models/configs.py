@@ -1,7 +1,7 @@
 """Model size configs — the presets of ``marie_tpu/models/configs.py``
 that the port runs: CRAFT ``fast_s2d2``, TrOCR ``fast_v3_g2_d6``, the
-LayoutLM ``base``, ``synth`` and ``tiny`` presets, and the ``tiny``
-CPU-test presets of the first two.  Field names and defaults are the JAX
+LayoutLM ``base``, ``synth`` and ``tiny`` presets, the CRNN, and the
+``tiny`` CPU-test presets of CRAFT, TrOCR and the CRNN.  Field names and defaults are the JAX
 package's, so a config means the same model on both sides."""
 
 import dataclasses
@@ -129,6 +129,21 @@ class CraftConfig:
     @staticmethod
     def tiny() -> "CraftConfig":
         return CraftConfig(base_channels=8)
+
+
+@dataclasses.dataclass(frozen=True)
+class CRNNConfig:
+    """CTC recogniser (the trained ``crnn-synth`` is the default)."""
+
+    num_classes: int = 96  # charset + blank
+    input_height: int = 32
+    feature_dim: int = 256
+    hidden_dim: int = 256
+    backbone: str = "resnet"  # vgg | resnet
+
+    @staticmethod
+    def tiny() -> "CRNNConfig":
+        return CRNNConfig(feature_dim=32, hidden_dim=32, backbone="vgg")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,8 @@
-"""Character tokenizer (copy of ``marie_tpu/models/tokenizer.py``'s
-:class:`CharTokenizer`): printable-ASCII charset with fixed special ids
-bos=0, eos=1, pad=2, unk=3, matching :class:`DecoderConfig`."""
+"""Character tokenizers (copies of ``marie_tpu/models/tokenizer.py``'s
+:class:`CharTokenizer` and :class:`CTCCharTokenizer`): printable-ASCII
+charset with fixed special ids bos=0, eos=1, pad=2, unk=3, matching
+:class:`DecoderConfig`; for the CTC head, blank=0 and the characters
+from 1."""
 
 import string
 from typing import List, Sequence
@@ -69,6 +71,47 @@ class CharTokenizer:
         ids = ids.astype(np.int64, copy=False)
         after_eos = np.cumsum(ids == EOS_ID, axis=1) > 0
         valid = (~after_eos) & (ids >= _SPECIALS) & (ids < self.vocab_size)
+        lut = np.zeros(self.vocab_size, np.uint8)
+        for ch, i in self._c2i.items():
+            lut[i] = ord(ch)
+        codes = lut[np.where(valid, ids, 0)]
+        return [
+            codes[r][valid[r]].tobytes().decode("ascii")
+            for r in range(ids.shape[0])
+        ]
+
+
+class CTCCharTokenizer(CharTokenizer):
+    """Charset mapping for the CTC head: blank=0, chars start at 1."""
+
+    def __init__(self, charset: str = DEFAULT_CHARSET):
+        self.charset = charset
+        self._c2i = {c: i + 1 for i, c in enumerate(charset)}
+        self._i2c = {i + 1: c for i, c in enumerate(charset)}
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.charset) + 1
+
+    @property
+    def blank_id(self) -> int:
+        return 0
+
+    def encode(self, text: str) -> List[int]:  # type: ignore[override]
+        return [self._c2i[c] for c in text if c in self._c2i]
+
+    def decode(self, ids: Sequence[int]) -> str:  # type: ignore[override]
+        return "".join(self._i2c.get(int(i), "") for i in ids if int(i) > 0)
+
+    def decode_batch(self, token_matrix) -> List[str]:  # type: ignore[override]
+        """CTC id layout has no EOS/specials — keep every id > 0."""
+        ids = np.asarray(token_matrix)
+        if ids.ndim == 1:
+            ids = ids[None]
+        if ids.size == 0:
+            return ["" for _ in range(ids.shape[0])]
+        ids = ids.astype(np.int64, copy=False)
+        valid = (ids > 0) & (ids < self.vocab_size)
         lut = np.zeros(self.vocab_size, np.uint8)
         for ch, i in self._c2i.items():
             lut[i] = ord(ch)

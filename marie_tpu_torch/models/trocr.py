@@ -1,9 +1,10 @@
 """TrOCR recogniser (port of ``marie_tpu/models/trocr.py``): ViT encoder,
 transformer decoder with prefilled cross K/V and per-layer self caches,
-and :func:`greedy_decode`.
+:func:`greedy_decode` and :func:`beam_decode`.
 
-The JAX decode is a ``lax.while_loop`` in one compiled program; here it is
-a Python loop that checks once per step whether every row is done."""
+Each JAX decode is a ``lax.while_loop`` in one compiled program; here
+each is a Python loop that checks once per step whether every row is
+done."""
 
 from typing import List, Optional, Tuple
 
@@ -124,3 +125,79 @@ def greedy_decode(model: TrOCRModel, images: torch.Tensor,
     emitted = (toks != c.pad_id).sum(dim=1).to(torch.int32)
     conf = torch.exp(logp_sum / torch.clamp(steps, min=1))
     return toks, emitted, conf.to(torch.float32)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries of each row of
+    ``x``, in descending order, equal values by ascending index, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order among
+    equal values)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+@torch.no_grad()
+@float32_precision(allow_tf32=False)
+def beam_decode(model: TrOCRModel, images: torch.Tensor, beam_size: int = 5,
+                len_penalty: float = 1.0):
+    """Batched beam search of [B, H, W, C] crops with fairseq's semantics
+    (length-normalised scores), to ``decoder.max_len`` steps.
+
+    Only beam 0 is live at the start; a finished beam may emit only PAD,
+    its score unchanged; each step keeps the best ``beam_size`` of the
+    beams' candidates (ties to the lower beam, then token) and carries the
+    tokens, lengths and self caches with them.  The loop exits once every
+    beam of every row has emitted EOS.
+
+    Returns (tokens [B, max_len] int32: the best hypothesis, pad-filled,
+    lengths [B] int32, confidences [B] float32 = exp(score / (length +
+    1) ** len_penalty))."""
+    c = model.cfg.decoder
+    dev = images.device
+    b, k, v = images.shape[0], beam_size, c.vocab_size
+    with record_function("marie.encode"):
+        enc = model.encode(images)
+        # tiled to the beams: row r's beams are rows r*k .. r*k + k-1
+        cross = [(ck.repeat_interleave(k, 0), cv.repeat_interleave(k, 0))
+                 for ck, cv in model.prefill(enc)]
+    dh = c.hidden_dim // c.num_heads
+    caches = [
+        (torch.zeros(b * k, c.num_heads, c.max_len, dh, dtype=enc.dtype, device=dev),
+         torch.zeros(b * k, c.num_heads, c.max_len, dh, dtype=enc.dtype, device=dev))
+        for _ in range(c.num_layers)
+    ]
+    tokens = torch.full((b, k, c.max_len), c.pad_id, dtype=torch.int32, device=dev)
+    cur = torch.full((b * k,), c.bos_id, dtype=torch.int64, device=dev)
+    scores = torch.full((b, k), -1e30, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    fin = torch.zeros(b, k, dtype=torch.bool, device=dev)
+    lens = torch.zeros(b, k, dtype=torch.int32, device=dev)
+    pad_row = torch.full((v,), -1e30, dtype=torch.float32, device=dev)
+    pad_row[c.pad_id] = 0.0
+    first_beam = torch.arange(b, device=dev)[:, None] * k
+    pos = 0
+    with record_function("marie.decode"):
+        while pos < c.max_len and not bool(fin.all()):
+            logits = model.decode_step(cur, pos, cross, None, caches)
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1).view(b, k, v)
+            logp = torch.where(fin[:, :, None], pad_row, logp)
+            new_scores, idx = _top_k((scores[:, :, None] + logp).view(b, k * v), k)
+            beam_idx = idx // v
+            tok = idx % v
+            tokens = tokens.gather(1, beam_idx[:, :, None].expand(b, k, c.max_len))
+            fin = fin.gather(1, beam_idx)
+            lens = lens.gather(1, beam_idx)
+            rows = (first_beam + beam_idx).view(-1)
+            caches = [(ck.index_select(0, rows), cv.index_select(0, rows)) for ck, cv in caches]
+            is_eos = tok == c.eos_id
+            tokens[:, :, pos] = torch.where(fin | is_eos, c.pad_id, tok).to(torch.int32)
+            lens = torch.where(fin, lens, lens + (~is_eos).to(torch.int32))
+            fin = fin | is_eos
+            scores = new_scores
+            cur = tok.view(-1)
+            pos += 1
+    final = scores / torch.clamp(lens + 1, min=1).to(torch.float32) ** len_penalty
+    best = torch.argmax(final, dim=1)  # the first maximum, as jnp.argmax
+    pick = torch.arange(b, device=dev)
+    return (tokens[pick, best], lens[pick, best],
+            torch.exp(final[pick, best]).to(torch.float32))

@@ -147,11 +147,12 @@ class PipelineOcrEngine:
                 on_result_group(results[start:], start)
         return results
 
-    def _extract_two_phase(self, frames, pms_mode, coordinate_format):
-        """Dispatch every page's detection first, fetch all stats at once,
-        organize the boxes, dispatch every page's recognition, then fetch
-        all tokens at once."""
-        bp, op = self.box_processor, self.ocr_processor
+    def _detect_pages(self, frames, pms_mode):
+        """Dispatch every page's detection, fetch all stats at once and
+        organize each page's boxes: [(handle, (boxes, scores, lines,
+        line_bboxes))] per page; a handle holds the device page and its
+        scale for the recognisers' dispatch."""
+        bp = self.box_processor
         handles = [bp.detect_dispatch(f) for f in frames]
         stats_host = None
         if len(handles) > 1:
@@ -159,19 +160,25 @@ class PipelineOcrEngine:
                        for k in handles[0][0]}
             stats_host = [{k: v[i] for k, v in stacked.items()}
                           for i in range(len(handles))]
-        per_page = []
-        futures = []
+        pages = []
         for i, (frame, handle) in enumerate(zip(frames, handles)):
             raw_boxes, scores = bp.detect_collect(
                 handle, stats=None if stats_host is None else stats_host[i])
-            boxes, scores, lines, line_bboxes = bp.organize_boxes(
-                raw_boxes, scores, frame.shape[:2], pms_mode)
-            per_page.append((boxes, scores, lines, line_bboxes))
-            futures.append(op.recognize_dispatch(handle[1], boxes, handle[2]))
-        words = op.recognize_collect_many(futures)
+            pages.append((handle, bp.organize_boxes(raw_boxes, scores, frame.shape[:2],
+                                                    pms_mode)))
+        return pages
+
+    def _extract_two_phase(self, frames, pms_mode, coordinate_format):
+        """Dispatch every page's detection first, fetch all stats at once,
+        organize the boxes, dispatch every page's recognition, then fetch
+        all tokens at once."""
+        op = self.ocr_processor
+        pages = self._detect_pages(frames, pms_mode)
+        words = op.recognize_collect_many([
+            op.recognize_dispatch(handle[1], page[0], handle[2]) for handle, page in pages])
         return [
             self._assemble_result(frame, i, (*page, page_words, None), coordinate_format)
-            for i, (frame, page, page_words) in enumerate(zip(frames, per_page, words))
+            for i, (frame, (_, page), page_words) in enumerate(zip(frames, pages, words))
         ]
 
     def _extract_fragments(self, frames, pms_mode, coordinate_format, queue_id, checksum):
@@ -223,16 +230,9 @@ class PipelineOcrEngine:
         """One page tuple -> the result schema (with the chained heads'
         ``classification`` and per-word ``ner_label``)."""
         boxes, _scores, lines, line_bboxes, words, extra = page
-        result = assemble_page_result(
-            (frame.shape[0], frame.shape[1]), boxes, lines, words)
-        if coordinate_format == CoordinateFormat.XYXY:
-            for word in result["words"]:
-                x, y, w, h = word["box"]
-                word["box"] = [x, y, x + w, y + h]
-        result["meta"]["page"] = index
-        result["meta"]["lines"] = _tolist(lines)
-        result["meta"]["lines_bboxes"] = _tolist(line_bboxes)
-        result["meta"]["format"] = coordinate_format.name.lower()
+        result = finish_result(
+            assemble_page_result((frame.shape[0], frame.shape[1]), boxes, lines, words),
+            index, lines, line_bboxes, coordinate_format)
         if extra is not None and "classification" in extra:
             cls = dict(extra["classification"])
             labels = getattr(self.classifier, "labels", None)
@@ -246,6 +246,22 @@ class PipelineOcrEngine:
                     if lid is not None and lid < len(ner_labels):
                         word["ner_label"] = ner_labels[lid]
         return result
+
+
+def finish_result(result: Dict[str, Any], index: int, lines, line_bboxes,
+                  coordinate_format: CoordinateFormat) -> Dict[str, Any]:
+    """Complete an assembled page result: word boxes as xyxy when asked
+    for, and ``meta``'s ``page``, ``lines``, ``lines_bboxes`` and
+    ``format``."""
+    if coordinate_format == CoordinateFormat.XYXY:
+        for word in result["words"]:
+            x, y, w, h = word["box"]
+            word["box"] = [x, y, x + w, y + h]
+    result["meta"]["page"] = index
+    result["meta"]["lines"] = _tolist(lines)
+    result["meta"]["lines_bboxes"] = _tolist(line_bboxes)
+    result["meta"]["format"] = coordinate_format.name.lower()
+    return result
 
 
 def _as_frame_list(frames) -> List[np.ndarray]:

@@ -3,7 +3,7 @@ built over the port's zoo (``torch_zoo/``, :mod:`marie_tpu_torch.registry.zoo`),
 and :func:`meta_to_text`.
 
 The JAX registry walks ladders of checkpoints; ``torch_zoo/`` holds one
-detector and one recogniser, so the ladders are cut to those.  As in the
+detector, one TrOCR and one CRNN, so the ladders are cut to those.  As in the
 JAX package, a missing tree falls back to seeded weights (and the
 detector to ink boxes); :attr:`PipelineOcrEngine.trained` says which
 trees an engine loaded.
@@ -17,6 +17,8 @@ from marie_tpu_torch.registry.zoo import zoo_params
 #: the zoo trees of the serving detector and recogniser
 DETECTOR_TREE = "craft-s2d2-synth"
 RECOGNIZER_TREE = "trocr-fast3g2d6ov-synth"
+#: the zoo tree of the CTC recogniser the ``best`` engine votes with
+CRNN_TREE = "crnn-synth"
 
 
 def craft_box_processor(max_components: int = 384, *, device="cuda", **kwargs):
@@ -40,8 +42,9 @@ def craft_box_processor(max_components: int = 384, *, device="cuda", **kwargs):
 
 
 def trocr_processor(beam_size: int = 1, *, device="cuda", **kwargs):
-    """The trained greedy recogniser (bfloat16) when the zoo holds it,
-    seeded weights otherwise.  ``kwargs`` go to :class:`TrOcrProcessor`."""
+    """The trained TrOCR (bfloat16; greedy, or beam search with
+    ``beam_size > 1``) when the zoo holds it, seeded weights otherwise.
+    ``kwargs`` go to :class:`TrOcrProcessor`."""
     from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
     from marie_tpu_torch.models.configs import TrOCRConfig
 
@@ -49,6 +52,17 @@ def trocr_processor(beam_size: int = 1, *, device="cuda", **kwargs):
     op = TrOcrProcessor(config=TrOCRConfig.fast_v3_g2_d6(), params=params,
                         beam_size=beam_size, param_dtype="bfloat16", device=device, **kwargs)
     op.zoo_name = None if params is None else RECOGNIZER_TREE
+    return op
+
+
+def crnn_processor(*, device="cuda", **kwargs):
+    """The trained CRNN/CTC recogniser (float32) when the zoo holds it,
+    seeded weights otherwise.  ``kwargs`` go to :class:`CrnnOcrProcessor`."""
+    from marie_tpu_torch.document.crnn_ocr_processor import CrnnOcrProcessor
+
+    variables = zoo_params(CRNN_TREE)
+    op = CrnnOcrProcessor(variables=variables, device=device, **kwargs)
+    op.zoo_name = None if variables is None else CRNN_TREE
     return op
 
 
@@ -66,14 +80,14 @@ def get_known_ocr_engines(device="cuda", engine: Optional[str] = None) -> Dict[s
     * ``chained`` — default + the LayoutLM classification and NER heads
       in each page group's program (behaves as ``default`` when the zoo
       lacks either head)
-    * ``best``    — only by name: it needs beam search and CRNN (ROADMAP
-      §1 items 9 and 11) and raises ``NotImplementedError``
+    * ``best``    — CRAFT detection and a word-level vote of TrOCR beam-5
+      and the CRNN (:class:`VotingOcrEngine`)
     """
     from marie_tpu_torch.ocr.mock_ocr_engine import MockOcrEngine
     from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
 
     engines: Dict[str, object] = {}
-    for name in [engine] if engine else ["mock", "default", "chained"]:
+    for name in [engine] if engine else ["mock", "default", "best", "chained"]:
         if name == "mock":
             engines[name] = MockOcrEngine()
         elif name == "default":
@@ -92,9 +106,11 @@ def get_known_ocr_engines(device="cuda", engine: Optional[str] = None) -> Dict[s
                 indexer=LayoutDocumentIndexer.from_zoo_chain(device=device),
                 upload_format=_upload_format())
         elif name == "best":
-            raise NotImplementedError(
-                "the 'best' engine votes TrOCR beam-5 with CRNN: beam search is "
-                "ROADMAP §1 item 9, CRNN item 11")
+            from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
+
+            engines[name] = VotingOcrEngine(
+                craft_box_processor(device=device),
+                [trocr_processor(beam_size=5, device=device), crnn_processor(device=device)])
         else:
             raise ValueError(f"unknown engine {name!r}")
     return engines

@@ -27,7 +27,7 @@ def _lib():
     lib = _build.load("crop_resize")
     fn = lib.mt_crop_resize
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -38,11 +38,13 @@ def crop_resize(
     boxes: torch.Tensor,  # [N, 4] float32 xyxy
     out_h: int,
     out_w: int,
+    channel_mean: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(crops [N, out_h, out_w] float32 in [0, 1], eff_w [N] int32) — the
-    function of :func:`crop_resize_plain`."""
+    function of :func:`crop_resize_plain` (``channel_mean``: the CRNN's
+    channel mean of the crops, rounded as the JAX program rounds it)."""
     if pages.device.type == "cpu":
-        return crop_resize_plain(pages, page_of, boxes, out_h, out_w)
+        return crop_resize_plain(pages, page_of, boxes, out_h, out_w, channel_mean)
     if pages.device.type != "cuda":
         raise ValueError(f"crop_resize: unsupported device {pages.device}")
     if pages.dtype != torch.uint8 or pages.ndim != 3:
@@ -68,7 +70,7 @@ def crop_resize(
         code = lib.mt_crop_resize(
             pages.data_ptr(), page_of.data_ptr(), boxes.data_ptr(),
             crops.data_ptr(), eff_w.data_ptr(), n, p, h, w, out_h, out_w,
-            stream,
+            int(channel_mean), stream,
         )
     if n > 0:
         _build.count_launch(crop_resize)

@@ -77,6 +77,7 @@ def crop_resize_pages(
     boxes: torch.Tensor,  # [N, 4] xyxy float32 (page coords)
     out_h: int,
     out_w: int,
+    channel_mean: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cut N boxes out of a page stack, resize each to (out_h, out_w):
     aspect-preserving separable bilinear, the x step widened to
@@ -87,6 +88,12 @@ def crop_resize_pages(
     Returns (crops [N, out_h, out_w] for a [P, H, W] stack, [N, out_h,
     out_w, C] for [P, H, W, C], float32 in [0, 1], eff_w [N] int32).  The
     uint8 pixels turn float after the gather, as in the JAX version.
+    With ``channel_mean`` the crops are [N, out_h, out_w]: the mean of the
+    three channels of a [P, H, W, 3] stack, or of a [P, H, W] stack
+    expanded to three equal channels, as the JAX CRNN processor takes
+    it, rounded as XLA fuses the crop's scale into that mean: ``((v0 *
+    s) fma v1 * s) fma v2 * s``, times float32(1/3), with ``v`` a
+    channel's unscaled crop and ``s`` float32(1/255).
 
     Every rounding is the one XLA's CPU backend gives the JAX version, so
     the two agree bit for bit: a divide by a constant is a multiply by its
@@ -132,4 +139,11 @@ def crop_resize_pages(
     vals = fma(c0, 1.0 - lx, c1 * lx)
     pad = torch.arange(out_w, device=dev)[None, None, :] >= eff_w[:, None, None]
     crops = torch.where(pad[(...,) + tail], 255.0, vals)
-    return crops * (1.0 / 255.0), eff_w.to(torch.int32)
+    if not channel_mean:
+        return crops * (1.0 / 255.0), eff_w.to(torch.int32)
+    if chans not in ((), (3,)):
+        raise ValueError(f"a channel mean takes 1 or 3 channels, got {chans}")
+    v = crops.unbind(-1) if chans else (crops,) * 3
+    s = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=dev)
+    total = fma(v[2], s, fma(v[1], s, v[0] * s))
+    return total * (1.0 / 3.0), eff_w.to(torch.int32)

@@ -1,11 +1,14 @@
-"""Host image resizes that give cv2's bits, in numpy (the card has no cv2).
+"""Host image resizes and the grayscale conversion that give cv2's bits,
+in numpy (the card has no cv2).
 
 The JAX package resizes with cv2 in two places: an oversize page is
 downscaled to the largest bucket with ``INTER_AREA``
 (``marie_tpu/boxes/craft_box_processor.py:292-297``), and a host fragment
 is resized to the recogniser's height with ``INTER_LINEAR``
-(``marie_tpu/document/trocr_ocr_processor.py:223-225``).  Both functions
-here take uint8 ``[H, W]`` or ``[H, W, C]`` images and a target size
+(``marie_tpu/document/trocr_ocr_processor.py:223-225``,
+``marie_tpu/document/crnn_ocr_processor.py:143``), after
+``COLOR_RGB2GRAY`` for the CRNN (:func:`rgb2gray_u8`).  The resizes here
+take uint8 ``[H, W]`` or ``[H, W, C]`` images and a target size
 ``(width, height)`` as cv2 does, and follow cv2's arithmetic for uint8:
 
 * :func:`resize_linear_u8`: fixed-point bilinear.  Each tap weight is the
@@ -22,6 +25,9 @@ here take uint8 ``[H, W]`` or ``[H, W, C]`` images and a target size
   cell, summed in float32 in cv2's order, rounded half to even.  Growing
   either side is cv2's area-mode bilinear, which the port never asks for
   and which is refused here.
+* :func:`rgb2gray_u8`: ``(9798 R + 19235 G + 3735 B + 2^14) >> 15``, the
+  15-bit fixed point of cv2's vectorised uint8 path (cv2's 14-bit scalar
+  coefficients give the same bytes only on some inputs).
 """
 
 import math
@@ -162,3 +168,13 @@ def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     b1 = b1.reshape((dh, 1) + chan)
     out = (((b0 * r0) >> 16) + ((b1 * r1) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def rgb2gray_u8(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` of a uint8 [H, W, 3|4]
+    image (a fourth channel is ignored)."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] not in (3, 4):
+        raise ValueError(f"rgb2gray_u8 takes uint8 [H, W, 3|4], got {img.dtype} {img.shape}")
+    x = img.astype(np.int32)
+    gray = (x[..., 0] * 9798 + x[..., 1] * 19235 + x[..., 2] * 3735 + (1 << 14)) >> 15
+    return gray.astype(np.uint8)

@@ -13,7 +13,14 @@ extra):
 * Conv ``[kh, kw, I, O]`` -> ``[O, I, kh, kw]``;
 * BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
   weight, bias, running_mean, running_var;
-* LayerNorm ``scale`` -> weight; Embed ``embedding`` -> weight.
+* LayerNorm ``scale`` -> weight; Embed ``embedding`` -> weight;
+* an ``OptimizedLSTMCell`` (input kernels ``ii``/``if``/``ig``/``io``
+  ``[in, H]`` without bias, hidden kernels ``hi``/``hf``/``hg``/``ho``
+  ``[H, H]`` with bias) -> one direction of a bidirectional ``nn.LSTM``
+  (a model's ``flax_lstm_cells`` names which): the kernels concatenated
+  in torch's gate order i, f, g, o and transposed into ``weight_ih`` and
+  ``weight_hh``, the hidden biases into ``bias_hh``, and ``bias_ih``
+  zero.
 
 The bridge takes numpy: reading an orbax checkpoint is the JAX side's
 business (the tests do it).  :func:`init_flax_layout` makes a full-width
@@ -27,14 +34,16 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from marie_tpu_torch.models.configs import CraftConfig, LayoutLMConfig, TrOCRConfig
+from marie_tpu_torch.models.configs import CraftConfig, CRNNConfig, LayoutLMConfig, TrOCRConfig
 
-Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig]
+Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig]
 #: the LayoutLM heads by name
 LAYOUT_HEADS = ("sequence", "token")
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+#: an OptimizedLSTMCell's gates, in torch's order
+_LSTM_GATES = ("i", "f", "g", "o")
 
 
 def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
@@ -42,6 +51,7 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
     A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
     classification) or ``"token"`` (NER); other configs take none."""
     from marie_tpu_torch.models.craft import CRAFT
+    from marie_tpu_torch.models.crnn import CRNN
     from marie_tpu_torch.models.layoutlm import (
         LayoutLMv3ForSequenceClassification,
         LayoutLMv3ForTokenClassification,
@@ -60,6 +70,8 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         return CRAFT(config)
     if isinstance(config, TrOCRConfig):
         return TrOCRModel(config)
+    if isinstance(config, CRNNConfig):
+        return CRNN(config)
     raise TypeError(f"no port model for {type(config).__name__}")
 
 
@@ -90,6 +102,30 @@ def _convert_leaf(mod: nn.Module, coll: str, leaf: str, arr: np.ndarray):
     return name, arr
 
 
+def _lstm_state(cells: Dict[str, Dict[str, np.ndarray]],
+                lstm_cells: Dict[str, Tuple[str, str]]) -> Dict[str, np.ndarray]:
+    """The ``nn.LSTM`` parameters of flax LSTM cells ({cell: {"ii/kernel":
+    ..., "hi/bias": ...}}); a cell without all of its leaves, or with
+    others, raises as a strict load does."""
+    want = {f"{k}{g}/kernel" for k in "ih" for g in _LSTM_GATES}
+    want |= {f"h{g}/bias" for g in _LSTM_GATES}
+    sd = {}
+    for cell, (lstm, sfx) in lstm_cells.items():
+        leaves = cells.pop(cell, {})
+        if set(leaves) != want:
+            raise RuntimeError(f"Missing key(s) or unexpected key(s) in LSTM cell {cell}: "
+                               f"{sorted(want ^ set(leaves))}")
+        bias = np.concatenate([leaves[f"h{g}/bias"] for g in _LSTM_GATES])
+        for k in "ih":
+            sd[f"{lstm}.weight_{k}h_l0{sfx}"] = np.concatenate(
+                [leaves[f"{k}{g}/kernel"] for g in _LSTM_GATES], axis=1).T
+        sd[f"{lstm}.bias_hh_l0{sfx}"] = bias
+        sd[f"{lstm}.bias_ih_l0{sfx}"] = np.zeros_like(bias)
+    if cells:
+        raise RuntimeError(f"Unexpected LSTM cell(s) in the tree: {sorted(cells)}")
+    return sd
+
+
 def from_flax(tree: Dict[str, Any], module: nn.Module) -> nn.Module:
     """Load a flax-layout numpy tree into ``module`` (strict) and return it.
 
@@ -97,13 +133,21 @@ def from_flax(tree: Dict[str, Any], module: nn.Module) -> nn.Module:
     or a bare params tree; leaves are array-likes of any float dtype and
     are loaded as float32 (cast the module afterwards for bf16)."""
     sd: Dict[str, torch.Tensor] = {}
+    lstm_cells = getattr(module, "flax_lstm_cells", {})
+    cells: Dict[str, Dict[str, np.ndarray]] = {}
     for path, leaf_val in _flatten(tree):
         coll, names = _split_collection(path)
+        if names[0] in lstm_cells or names[0].startswith("OptimizedLSTMCell_"):
+            cells.setdefault(names[0], {})["/".join(names[1:])] = (
+                np.asarray(leaf_val).astype(np.float32))
+            continue
         *mod_path, leaf = names
         mod = module.get_submodule(".".join(mod_path))
         name, arr = _convert_leaf(mod, coll, leaf,
                                   np.asarray(leaf_val).astype(np.float32))
         key = ".".join(mod_path + [name])
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    for key, arr in _lstm_state(cells, lstm_cells).items():
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
     for prefix, mod in module.named_modules():
         if isinstance(mod, nn.modules.batchnorm._BatchNorm):
@@ -116,7 +160,16 @@ def from_flax(tree: Dict[str, Any], module: nn.Module) -> nn.Module:
 def _flax_leaves(module: nn.Module):
     """(collection, flax path, flax shape, fan_in) of every flax leaf the
     module's parameters and BatchNorm statistics come from."""
+    for cell, (lstm, _) in getattr(module, "flax_lstm_cells", {}).items():
+        mod = module.get_submodule(lstm)
+        for k, fan_in in (("i", mod.input_size), ("h", mod.hidden_size)):
+            for g in _LSTM_GATES:
+                yield "params", (cell, f"{k}{g}", "kernel"), (fan_in, mod.hidden_size), fan_in
+        for g in _LSTM_GATES:
+            yield "params", (cell, f"h{g}", "bias"), (mod.hidden_size,), 1
     for prefix, mod in module.named_modules():
+        if isinstance(mod, nn.LSTM):
+            continue  # its leaves are the flax cells' above
         mpath = tuple(prefix.split(".")) if prefix else ()
         for pname, p in mod.named_parameters(recurse=False):
             shape = tuple(p.shape)

@@ -8,6 +8,8 @@ the DejaVu font (the JAX package's own environment)::
 
     python scripts/export_torch_zoo.py          # the serving trees
     python scripts/export_torch_zoo.py --all    # + the -synth heads
+    python scripts/export_torch_zoo.py --best   # only crnn-synth.npz and
+                                                # golden_best.json
 
 It writes
 
@@ -55,6 +57,11 @@ SERVING_TREES = (
     ("layout-classifier-chain", None),
     ("layout-indexer-chain", None),
 )
+#: the tree the best engine adds to the serving ones
+BEST_TREES = (("crnn-synth", None),)
+#: shipped pages in golden_best.json (the JAX beam-5 decode on a CPU
+#: takes ~10 s a page)
+BEST_PAGES = 16
 OTHER_TREES = (
     ("layout-classifier-synth", None),
     ("layout-indexer-synth", None),
@@ -201,6 +208,65 @@ def serving_engine():
         indexer=head(LayoutDocumentIndexer, "layout-indexer-chain", SYNTH_NER_LABELS))
 
 
+def best_engine():
+    """The JAX ``best`` engine of ``ocr/util.py`` built from the .npz
+    trees: heatmap CRAFT (``text_threshold`` 0.6, ``low_text`` 0.4,
+    ``max_components`` 384, bfloat16) voting TrOCR beam-5 (bfloat16)
+    with the CRNN (float32)."""
+    from marie_tpu.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu.document.crnn_ocr_processor import CrnnOcrProcessor
+    from marie_tpu.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu.models.configs import CraftConfig, TrOCRConfig
+    from marie_tpu.ocr.voting_ocr_engine import VotingOcrEngine
+    from marie_tpu_torch.registry.checkpoints import load_params
+
+    def tree(name):
+        return load_params(os.path.join(ZOO, f"{name}.npz"))
+
+    box = BoxProcessorCraft(
+        config=CraftConfig.fast_s2d2(), variables=tree("craft-s2d2-synth"),
+        box_source="heatmap", text_threshold=0.6, low_text=0.4, link_threshold=0.4,
+        max_components=384, param_dtype="bfloat16")
+    trocr = TrOcrProcessor(config=TrOCRConfig.fast_v3_g2_d6(),
+                           params=tree("trocr-fast3g2d6ov-synth"), beam_size=5,
+                           param_dtype="bfloat16")
+    crnn = CrnnOcrProcessor(variables=tree("crnn-synth"))
+    return VotingOcrEngine(box_processor=box, ocr_processors=[trocr, crnn])
+
+
+def export_best() -> None:
+    """crnn-synth.npz and golden_best.json, from the shipped pages."""
+    from marie_tpu.enums import PSMode
+
+    export_trees(BEST_TREES)
+    with np.load(os.path.join(ZOO, "pages.npz")) as data:
+        stack = data["pages"]
+    with open(os.path.join(ZOO, "truth.json")) as f:
+        truths = json.load(f)["pages"]
+    spec = make_requests(truths)["modes"]["word"]
+    # the registry's CC run budget (read while the detector traces)
+    os.environ["MARIE_CC_RUNS"] = "48"
+    engine = best_engine()
+    t0 = time.time()
+    golden = {
+        "settings": {
+            "detector": "craft-s2d2-synth heatmap, text_threshold 0.6, low_text 0.4, "
+                        "max_components 384, cc_runs 48, bfloat16",
+            "recognizers": "trocr-fast3g2d6ov-synth beam 5, bfloat16, batch sizes "
+                           "8/32/128; crnn-synth float32, widths 64/128/256; "
+                           "word-level vote",
+            "engine": "VotingOcrEngine, SPARSE, one detect_dispatch per page",
+            "pages": f"the first {BEST_PAGES} of pages.npz",
+        },
+        "pages": engine.extract(list(stack[:BEST_PAGES])),
+        "word": dict(spec, result=engine.extract(
+            [_cut(stack[spec["page"]], spec["box"])], PSMode.WORD)[0]),
+    }
+    print(f"golden_best: {time.time() - t0:.1f} s", flush=True)
+    with open(os.path.join(ZOO, "golden_best.json"), "w") as f:
+        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+
+
 def _cut(page, box):
     x, y, w, h = box
     return np.ascontiguousarray(page[y:y + h, x:x + w])
@@ -218,11 +284,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--all", action="store_true",
                     help="also write the -synth classifier, indexer and splitter")
+    ap.add_argument("--best", action="store_true",
+                    help="write only crnn-synth.npz and golden_best.json")
     args = ap.parse_args()
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.best:
+        export_best()
+        return
     from bench import make_pages
     from marie_tpu.enums import PSMode
 
@@ -262,6 +333,7 @@ def main() -> None:
     for name, obj in (("truth.json", truth), ("golden.json", golden)):
         with open(os.path.join(ZOO, name), "w") as f:
             json.dump(obj, f, default=_json_default, separators=(",", ":"))
+    export_best()
     sizes = {n: os.path.getsize(os.path.join(ZOO, n)) for n in sorted(os.listdir(ZOO))}
     print(json.dumps({"bytes": sizes, "total": sum(sizes.values())}))
 

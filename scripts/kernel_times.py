@@ -10,8 +10,9 @@ in turns on one card:
     python3 scripts/kernel_times.py --tree .chip_tree/parent
 
 Builds the kernels of ``--tree``'s ``marie_tpu_torch`` (default: this
-checkout) and runs this checkout's ``chip_smoke.py`` phases ``k1`` and
-``k2`` against that package: each kernel is held against its plain
+checkout) and runs this checkout's ``chip_smoke.py`` phases ``k1`` (at
+256 crops, the 128-crop overflow chunk and the 2,560-crop serving
+batch) and ``k2`` against that package: each kernel is held against its plain
 version and timed, cold and warm, beside its plain version and SDPA.
 Prints their JSON lines tagged with the tree, after one line with the
 card, the build (with ptxas's register counts where this process built
@@ -114,6 +115,8 @@ def main() -> int:
                      "built_s": built, "ptxas": getattr(_build, "PTXAS", None),
                      "hmma": {n: sass_hmma(str(_build._lib_path(n))) for n in _build.sources()}})
     chip_smoke.phase_k1()
+    chip_smoke.phase_k1(1, 128, "overflow_chunk")
+    chip_smoke.phase_k1(chip_smoke.SLICE_PAGES, chip_smoke.SLICE_PAGES * 160, "serving")
     chip_smoke.phase_k2()
     tiny = [torch.zeros(1, device="cuda") for _ in range(4)]
     crops = (256, 48, 320)  # K1's output at the slice's shapes, float32

@@ -38,7 +38,7 @@ def _crop_case(seed, p, h, w, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [96, 1, 1062])
-@pytest.mark.parametrize("out_hw", [(48, 320), (32, 64), (48, 321), (20, 77)])
+@pytest.mark.parametrize("out_hw", [(48, 320), (32, 64), (48, 321), (20, 77), (32, 256)])
 def test_cuda_crop_kernel_matches_plain(cuda_device, out_hw, n):
     """Bit-identical (limit 0) at the slice's width, a narrow one and two
     widths that are not a multiple of 4 (the kernel's scalar stores), for
@@ -407,3 +407,121 @@ def test_cuda_oversize_and_rgb_pages_match_cpu(cuda_device, single_program):
     np.testing.assert_allclose([w["confidence"] for r in got for w in r["words"]],
                                [w["confidence"] for r in want for w in r["words"]],
                                rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 1, 300])
+@pytest.mark.parametrize("out_hw", [(32, 256), (32, 64), (20, 77)])
+def test_cuda_crop_kernel_channel_mean_matches_plain(cuda_device, out_hw, n):
+    """K1's channel mean (the CRNN's crops, 32x256 in the best engine)
+    is bit-identical to its plain version (limit 0)."""
+    pages, pidx, boxes = _crop_case(6, 2, 1024, 768, n)
+    args = (torch.from_numpy(pages).to(cuda_device), torch.from_numpy(pidx).to(cuda_device),
+            torch.from_numpy(boxes).to(cuda_device), *out_hw, True)
+    got, got_w = k1.crop_resize(*args)
+    want, want_w = k1.crop_resize_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_w, want_w)
+    assert not torch.equal(got, k1.crop_resize(*args[:-1])[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam_size", [1, 5])
+def test_cuda_beam_decode_matches_cpu(cuda_device, beam_size):
+    """TrOCR beam search on the card (K2 in the encoder) equals the CPU's
+    in float32: tokens and lengths, confidences within 1e-4."""
+    from marie_tpu_torch.models.configs import TrOCRConfig
+    from marie_tpu_torch.models.trocr import beam_decode
+    from marie_tpu_torch.registry.convert import init_flax_layout, load_model
+
+    cfg = TrOCRConfig.tiny()
+    tree = init_flax_layout(cfg, 9)
+    tree["params"]["decoder"]["lm_head"]["kernel"][:, cfg.decoder.eos_id] *= 2.0
+    crops = torch.from_numpy(np.random.default_rng(9).random(
+        (16, *cfg.encoder.image_size, 3)).astype(np.float32))
+    out = [beam_decode(load_model(cfg, tree, device=dev), crops.to(dev), beam_size)
+           for dev in (cuda_device, torch.device("cpu"))]
+    (gt, gl, gc), (wt, wl, wc) = [[x.cpu() for x in o] for o in out]
+    assert torch.equal(gt, wt) and torch.equal(gl, wl)
+    assert float((gc - wc).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["tiny", "default"])
+def test_cuda_crnn_matches_cpu(cuda_device, preset):
+    """The CRNN (cuDNN convolutions and LSTMs, float32 with TF32 off)
+    on the card against the CPU: logits within 1e-4, and the global TF32
+    switches do not move the processor's result."""
+    from marie_tpu_torch.document.crnn_ocr_processor import CrnnOcrProcessor
+    from marie_tpu_torch.models.configs import CRNNConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
+    from marie_tpu_torch.utils.device import _precision_flags, float32_precision
+
+    cfg = CRNNConfig.tiny() if preset == "tiny" else CRNNConfig()
+    tree = init_flax_layout(cfg, 4)
+    x = torch.from_numpy(np.random.default_rng(4).random((8, 32, 256, 1)).astype(np.float32))
+    procs = [CrnnOcrProcessor(cfg, tree, device=dev) for dev in (cuda_device, "cpu")]
+    with torch.no_grad(), float32_precision(allow_tf32=False):
+        got = procs[0].model(x.to(cuda_device)).cpu()
+    with torch.no_grad():
+        want = procs[1].model(x)
+    assert float((got - want).abs().max()) <= 1e-4
+    page = torch.from_numpy(_ink_page(3, 256, 384, n_words=12))
+    boxes = np.asarray([[8, 8, 120, 24], [100, 60, 200, 30], [0, 200, 384, 40]], np.float32)
+    read, write, n = _precision_flags()
+    start = read()
+    try:
+        write(("tf32",) * n)
+        on = procs[0].recognize_from_page(page.to(cuda_device), boxes)
+        write(("ieee",) * n)
+        off = procs[0].recognize_from_page(page.to(cuda_device), boxes)
+    finally:
+        write(start)
+    assert on == off
+
+
+@pytest.mark.cuda
+def test_cuda_best_engine_matches_cpu_and_launches_on_best(cuda_device):
+    """The voting engine (ink CRAFT, TrOCR beam-5, CRNN; tiny, float32)
+    on the card against the CPU: equal result dicts, confidences within
+    1e-3; K1 and K2 launch on the "best" path (WORD mode's TrOCR
+    fragments count on "fragments")."""
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.document.crnn_ocr_processor import CrnnOcrProcessor
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.enums import PSMode
+    from marie_tpu_torch.models.configs import CraftConfig, CRNNConfig, TrOCRConfig
+    from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
+    from marie_tpu_torch.ops.kernels import _build
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    trees = [init_flax_layout(c, 5 + i) for i, c in enumerate(
+        (CraftConfig.tiny(), TrOCRConfig.tiny(), CRNNConfig.tiny()))]
+    gray = _ink_page(30, 256, 384, n_words=14)
+    rgb = np.stack([gray, gray // 2, 255 - (255 - gray) // 3], -1)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        bp = BoxProcessorCraft(CraftConfig.tiny(), trees[0], box_source="ink", min_area=4,
+                               max_components=64, device=dev,
+                               bucket_spec=BucketSpec(shapes=((256, 384),)))
+        engine = VotingOcrEngine(bp, [
+            TrOcrProcessor(TrOCRConfig.tiny(), trees[1], beam_size=5, batch_sizes=(8, 32),
+                           device=dev),
+            CrnnOcrProcessor(CRNNConfig.tiny(), trees[2], batch_sizes=(8, 32), device=dev)])
+        _build.reset_counts(k1.crop_resize, k2.flash_attention)
+        out[dev.type] = (engine.extract([gray, rgb]),
+                         engine.extract([gray[20:60, 10:200]], PSMode.WORD))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert k1.crop_resize.launches_by_path.get("best", 0) > 0
+            assert k2.flash_attention.launches_by_path.get("best", 0) > 0
+    for got, want in zip(out["cuda"], out["cpu"]):
+        strip = [[dict(r, words=[dict(w, confidence=None) for w in r["words"]],
+                       lines=[dict(ln, confidence=None) for ln in r["lines"]]) for r in rs]
+                 for rs in (got, want)]
+        assert strip[0] == strip[1]
+        np.testing.assert_allclose([w["confidence"] for r in got for w in r["words"]],
+                                   [w["confidence"] for r in want for w in r["words"]],
+                                   rtol=0, atol=1e-3)
+    assert sum(len(r["words"]) for r in out["cpu"][0]) > 8

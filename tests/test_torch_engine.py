@@ -284,23 +284,30 @@ def test_dispatch_stream_propagates_worker_errors(processors, monkeypatch):
 
 def test_engine_refuses_what_is_not_ported(processors):
     """What the port does not take yet raises, naming its ROADMAP item:
-    a device mesh (item 16), beam search (item 9), the other CC stats
-    variants (item 8) and the ``best`` engine (items 9 and 11)."""
+    a device mesh (item 16) and the other CC stats variants (item 8).
+    Beam search and the ``best`` engine are ported: a beam processor
+    builds (and is kept off the fused path, as in JAX) and the registry
+    builds ``best``; a bad beam size or engine name is refused."""
     from marie_tpu_torch.boxes.craft_box_processor import detect_core
+    from marie_tpu_torch.ocr.fused import supports_fused_page
     from marie_tpu_torch.ocr.util import get_known_ocr_engines
+    from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
 
     _, (tbp, top) = processors
     with pytest.raises(NotImplementedError, match="item 16"):
         PipelineOcrEngine(tbp, top, mesh="local")
     with pytest.raises(ValueError):
         PipelineOcrEngine(tbp, top, upload_format="u3")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TrOcrProcessor(tcfg.TrOCRConfig.tiny(), beam_size=5, device="cpu")
+    beam = TrOcrProcessor(tcfg.TrOCRConfig.tiny(), beam_size=5, device="cpu")
+    assert beam.beam_size == 5 and not supports_fused_page(tbp, beam)
+    with pytest.raises(ValueError):
+        TrOcrProcessor(tcfg.TrOCRConfig.tiny(), beam_size=0, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         detect_core(tbp.model, torch.zeros(1, H, W, dtype=torch.uint8), 0.7, 0.4, 0.4, 8,
                     cc_stats="sort")
-    with pytest.raises(NotImplementedError, match="item 9.*item 11"):
-        get_known_ocr_engines("cpu", "best")
+    assert isinstance(get_known_ocr_engines("cpu", "best")["best"], VotingOcrEngine)
+    with pytest.raises(ValueError):
+        get_known_ocr_engines("cpu", "worst")
 
 
 class _JaxFixedHeat:

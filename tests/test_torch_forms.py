@@ -321,5 +321,5 @@ def test_mock_engine_meta_to_text_and_check_match_jax(tmp_path):
     cand[0]["words"][2]["box"] = [0, 0, 3, 3]
     assert compare_results(results, cand) == jax_compare(results, cand)
     assert get_known_ocr_engines("cpu", "mock")["mock"].extract(pages) == JaxMock().extract(pages)
-    with pytest.raises(NotImplementedError, match="item 9.*item 11"):
-        get_known_ocr_engines("cpu", "best")
+    with pytest.raises(ValueError):
+        get_known_ocr_engines("cpu", "worst")
