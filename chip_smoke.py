@@ -23,7 +23,11 @@ RGB page, a page over the largest bucket, a region request and the
 RAW_LINE, WORD and MULTI_LINE modes on the card against the CPU path and
 the golden (``forms``); runs the registry's ``best`` engine (CRAFT and a
 word-level vote of TrOCR beam-5 and the CRNN) on the shipped pages
-against the truth, its JAX golden and the CPU path (``best``); traces
+against the truth, its JAX golden and the CPU path (``best``); runs the
+classification pipeline (OCR, classify, split, with its OCR cache) at
+LayoutLMv3-base width on the shipped pages against its JAX golden, cold
+and cached, and the layout embeddings against the CPU and JAX
+(``classify``); traces
 one more run per box source, of the chained engine, of the trained
 engine and of the ``best`` engine, with torch.profiler (``profile``).  It prints one JSON
 line per phase; the last two lines are the kernel table and
@@ -287,6 +291,7 @@ def _sdpa_mask(b, sq, skv, kv_len, causal):
 #: kv_len mask; an int: the least of a uniform draw up to Skv; INDEXER:
 #: the windows the indexer builds), q/k/v as the projections' views)
 INDEXER = "indexer windows"
+EMBEDDINGS = "page word counts"
 K2_CASES = [
     ("encoder_bf16", (256, 6, 20, 20, 64), "bf16", False, None, False),
     ("encoder_bf16_strided", (256, 6, 20, 20, 64), "bf16", False, None, True),
@@ -300,6 +305,9 @@ K2_CASES = [
     # base classifier: 512 text tokens + 196 patches, the patches always valid
     ("layoutlm_base_cls_fp32", (16, 12, 708, 708, 64), "fp32", False, 197, True),
     ("layoutlm_base_ner_fp32", (7, 12, 512, 512, 64), "fp32", False, INDEXER, True),
+    # LayoutEmbeddingsModel at base width on the 16 shipped pages' texts
+    # (text only, padded to 512 tokens; kv_len = each page's word count)
+    ("embeddings_fp32", (16, 12, 512, 512, 64), "fp32", False, EMBEDDINGS, True),
 ]
 
 INDEXER_WORDS = 1200  # the long page of phase_layoutlm_base
@@ -319,6 +327,22 @@ def _indexer_kv_len(b: int, window: int):
     if valid.shape[0] != b:
         raise AssertionError(f"{valid.shape[0]} indexer windows, not {b}")
     return valid.sum(dim=1).to(torch.int32).cuda()
+
+
+def _page_word_counts(b: int, cap: int):
+    """kv_len of the embeddings' batch: the word counts of the first ``b``
+    shipped pages in the golden (the texts ``phase_classify`` embeds),
+    capped at ``cap`` tokens."""
+    import torch
+
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+
+    with open(os.path.join(ZOO_DIR, "golden.json")) as f:
+        pages = json.load(f)["pages"][:b]
+    if len(pages) != b:
+        raise AssertionError(f"{len(pages)} golden pages, not {b}")
+    return torch.tensor([min(len(p["words"]), cap) for p in pages], dtype=torch.int32,
+                        device="cuda")
 
 
 def _attn_bound_bytes(mask, h, sq, d, esz):
@@ -345,7 +369,9 @@ def phase_k2():
     and the LayoutLM heads' float32 shapes with kv_len: the chain heads
     (B=16 pages, 4 heads, 192 tokens) and the base-width classifier (708
     tokens with the image patches) and indexer (the 7 full windows of 512
-    of ``phase_layoutlm_base``'s 1,200-word page).  Times
+    of ``phase_layoutlm_base``'s 1,200-word page), and the base-width
+    layout embeddings of the 16 shipped pages' texts (512 tokens, kv_len
+    the pages' word counts).  Times
     are cold (see cold_device_ms) and warm; SDPA is timed on the same
     inputs, with the equivalent boolean ``attn_mask`` where K2 masks."""
     import torch
@@ -360,6 +386,8 @@ def phase_k2():
         ragged = kv_min is not None
         if kv_min == INDEXER:
             kv_len = _indexer_kv_len(b, skv)
+        elif kv_min == EMBEDDINGS:
+            kv_len = _page_word_counts(b, skv)
         elif ragged:
             kv_len = torch.randint(kv_min, skv + 1, (b,), device="cuda",
                                    generator=torch.Generator(device="cuda").manual_seed(
@@ -1010,6 +1038,7 @@ def phase_layoutlm_base(pages, chain_results):
     emit(row)
     if not max(errs) <= LAYOUT_LIMIT:
         raise AssertionError(f"card and CPU logits differ by {errs} > {LAYOUT_LIMIT}")
+    return cls_tree
 
 
 #: card vs CPU scores of the bfloat16 serving engine: one bfloat16
@@ -1041,18 +1070,21 @@ def load_shipped():
     return shipped
 
 
-def zoo_engine(device: str):
+def zoo_engine(device: str, cpu_bf16_rounding: str = "xla"):
     """``bench.py``'s serving engine over the zoo's trained trees, with the
     chained heads: the registry's loaders (``ocr/util.py``) with bench's
     settings (256 components, CC run budget 32, chunks of 32/128/256, u2,
-    160 rows a page, 16-page groups).  Fails unless all four trees load."""
+    160 rows a page, 16-page groups).  On the CPU the bf16 detector rounds
+    as ``cpu_bf16_rounding`` says: as XLA's CPU (the golden's), or as
+    torch's modules (the card's).  Fails unless all four trees load."""
     from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
     from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
     from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
     from marie_tpu_torch.ocr.util import craft_box_processor, trocr_processor
 
     engine = PipelineOcrEngine(
-        craft_box_processor(256, cc_runs=32, device=device),
+        craft_box_processor(256, cc_runs=32, device=device,
+                            cpu_bf16_rounding=cpu_bf16_rounding),
         trocr_processor(device=device, batch_sizes=(32, 128, 256)),
         upload_format="u2", compact_slots=160, page_fuse_batch=16,
         classifier=LayoutDocumentClassifier.from_zoo_chain(device=device),
@@ -1077,7 +1109,11 @@ def _against_golden(results, golden, truth=None, hw=None):
     from marie_tpu_torch.check import agreement
 
     row = {"agreement": agreement(golden, results)}
-    ok = row["agreement"]["words"] >= TEXT_AGREEMENT and not row["agreement"]["label_pages"]
+    # equal page labels where every word agrees, equal NER labels on the
+    # pages whose boxes all equal the golden's (the heads see the same
+    # words there); the NER share over all pages is reported
+    ok = (row["agreement"]["words"] >= TEXT_AGREEMENT and not row["agreement"]["label_pages"]
+          and not row["agreement"]["ner_pages"])
     if truth is not None:
         row["quality"] = _quality(results, truth, hw)
         row["golden_quality"] = _quality(golden, truth, hw)
@@ -1139,7 +1175,8 @@ def _region_pages(regions):
 
 def phase_forms(card_engine, shipped):
     """The page forms and modes on the card, each against the port's CPU
-    path on the same trees (``zoo_engine("cpu")``: equal words, boxes,
+    path on the same trees, rounding where the card rounds
+    (``zoo_engine("cpu", "torch")``: equal words, boxes,
     lines and labels, scores within ``BF16_SCORE_LIMIT``) and against
     the golden (the ``trained`` limits; recall and CER against the truth
     where the form has one): the RGB page, the oversize page (scaled by ~0.602 into the
@@ -1152,7 +1189,7 @@ def phase_forms(card_engine, shipped):
     from marie_tpu_torch.enums import PSMode
 
     pages, golden, truth = shipped["pages"], shipped["golden"], shipped["truth"]
-    cpu_engine = zoo_engine("cpu")
+    cpu_engine = zoo_engine("cpu", cpu_bf16_rounding="torch")
 
     def snippet(spec):
         x, y, w, h = spec["box"]
@@ -1218,13 +1255,15 @@ class _Candidates:
         return self.out
 
 
-def best_engine(device: str):
+def best_engine(device: str, cpu_bf16_rounding: str = "xla"):
     """The registry's ``best`` engine (CRAFT, TrOCR beam-5, CRNN from the
-    zoo) with its recognisers wrapped in ``_Candidates``.  Fails unless
-    every tree loads."""
+    zoo) with its recognisers wrapped in ``_Candidates``; on the CPU its
+    bf16 detector rounds as ``cpu_bf16_rounding`` says (see
+    ``zoo_engine``).  Fails unless every tree loads."""
     from marie_tpu_torch.ocr.util import get_known_ocr_engines
 
     engine = get_known_ocr_engines(device, "best")["best"]
+    engine.box_processor.model.set_cpu_bf16_rounding(cpu_bf16_rounding)
     trained = engine.trained
     if not (trained["detector"] and all(trained["recognizers"])
             and len(trained["recognizers"]) == 2):
@@ -1305,7 +1344,8 @@ def phase_best(shipped):
     most 0.005 over the golden's); the 1-vs-1 votes decided by
     confidence; K1 and K2 launches on the ``"best"`` path (both > 0).
     Then the WORD request against its golden, and card against CPU on
-    two pages: the detections (equal box counts and lines; boxes the
+    two pages (the CPU's bf16 detector rounding where the card's does):
+    the detections (equal box counts and lines; boxes the
     bf16 detector moves are counted and keep IoU >= BOX_IOU_LIMIT), then
     both sides' recognisers and vote on the card's detections: equal
     result dicts apart from texts and scores, equal texts apart from
@@ -1349,7 +1389,7 @@ def phase_best(shipped):
     word_equal, word_err = _results_equal(word, [spec["result"]])
 
     t0 = time.perf_counter()
-    cpu_engine = best_engine("cpu")
+    cpu_engine = best_engine("cpu", cpu_bf16_rounding="torch")
     two = pages[:2]
     card_pages = engine._detect_pages(two, PSMode.SPARSE)
     cpu_pages = cpu_engine._detect_pages(two, PSMode.SPARSE)
@@ -1399,6 +1439,183 @@ def phase_best(shipped):
     return engine, launches
 
 
+#: card against the JAX golden (float32 heads at base width: 3-decimal
+#: agreement, as the float32 engines' card vs CPU scores) and card
+#: against CPU or JAX embeddings (float32 through 12 layers)
+CLASSIFY_SCORE_LIMIT = 1e-3
+EMBED_LIMIT = 1e-4
+CLASSIFY_PASSES = ("cold", "cached_1", "cached_2")
+
+
+def _time_calls(obj, method: str, stage: str, times: dict) -> None:
+    """Wrap ``obj.method`` so that each call adds its host ms, to a
+    synchronised card, to ``times[stage]``."""
+    import torch
+
+    fn = getattr(obj, method)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times[stage] = times.get(stage, 0.0) + (time.perf_counter() - t) * 1e3
+        return out
+
+    setattr(obj, method, timed)
+
+
+def _classify_rows(meta):
+    """(labels, scores, split labels, split scores, boundaries, documents)."""
+    return ([p["classification"] for p in meta["page_classifier"]],
+            [p["score"] for p in meta["page_classifier"]],
+            [p["label"] for p in meta["splitter"]], [p["score"] for p in meta["splitter"]],
+            [p["is_boundary"] for p in meta["splitter"]], meta["documents"])
+
+
+def phase_classify(shipped, trained_engine, cls_tree):
+    """The classification pipeline (``ClassificationPipeline``: OCR,
+    page classification, split into documents) with the classifier at
+    LayoutLMv3-base width (``base(3)``, image branch; ``layoutlm_base``'s
+    tree) and the splitter at ``base(2)``, seeded as
+    ``torch_zoo/golden_classify.json`` states:
+
+    * (a) on the 16 shipped pages with the golden's ``ocr_results`` (no
+      OCR): labels, split and documents equal the JAX golden, scores
+      within CLASSIFY_SCORE_LIMIT;
+    * (b) on the same pages with the trained serving engine (the trained
+      trees of ``trained``, no chained heads) in a fresh ``work_dir``: a
+      cold pass (OCR, then ``results/ocr.json``) and two passes that read
+      the cache; pages/s, ms/page and stage ms (ocr, classify, split) of
+      each, K1/K2 launches by path (the cached passes launch nothing on
+      ``"fused"`` and K2 on ``"heads"``), and the labels' agreement with
+      (a), reported (card OCR moves a few boxes);
+    * (c) ``LayoutEmbeddingsModel`` at base width on the 16 pages' texts:
+      ms per call, K2 launches on ``"embeddings"``, the first 4 rows
+      against the CPU and against the golden's JAX vectors within
+      EMBED_LIMIT.
+
+    Returns the launches of (b)'s passes and (c)'s call."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu_torch.components.document_splitter import LayoutDocumentSplitter
+    from marie_tpu_torch.embeddings import LayoutEmbeddingsModel
+    from marie_tpu_torch.models.configs import LayoutLMConfig
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.pipe import ClassificationPipeline
+    from marie_tpu_torch.registry.convert import init_flax_layout
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+
+    with open(os.path.join(ZOO_DIR, "golden_classify.json")) as f:
+        golden = json.load(f)
+    seeds, labels = golden["settings"]["seeds"], tuple(golden["settings"]["labels"])
+    if seeds["classifier"] != SEED + 10:
+        raise AssertionError(f"golden classifier seed {seeds['classifier']} is not "
+                             f"layoutlm_base's {SEED + 10}")
+    frames, ocr = list(shipped["pages"]), shipped["golden"]["pages"]
+    n, (h, w) = len(frames), frames[0].shape
+    t0 = time.perf_counter()
+    cls = LayoutDocumentClassifier(labels, LayoutLMConfig.base(3), cls_tree, device="cuda")
+    split_cfg = LayoutLMConfig.base(2)
+    splitter = LayoutDocumentSplitter(
+        config=split_cfg, params=init_flax_layout(split_cfg, seeds["splitter"], "sequence"),
+        device="cuda")
+    engine = PipelineOcrEngine(trained_engine.box_processor, trained_engine.ocr_processor,
+                               upload_format="u2", compact_slots=160, page_fuse_batch=16)
+    stage_ms: dict = {}
+    _time_calls(engine, "extract", "ocr", stage_ms)
+    _time_calls(cls, "predict", "classify", stage_ms)
+    _time_calls(splitter, "split", "split", stage_ms)
+    row = {"phase": "classify", "pages": n, "page_hw": [h, w], "seeds": seeds,
+           "score_limit": CLASSIFY_SCORE_LIMIT, "setup_s": time.perf_counter() - t0}
+
+    with tempfile.TemporaryDirectory() as work_dir:
+        # (a) the golden's OCR results: the heads alone against JAX
+        pipe = ClassificationPipeline(classifiers=[cls], splitter=splitter,
+                                      work_dir=os.path.join(work_dir, "a"))
+        got = _classify_rows(pipe.execute("shipped", "classify", frames, ocr_results=ocr))
+        want = _classify_rows(golden)
+        score_err = max(float(np.abs(np.subtract(got[i], want[i])).max()) for i in (1, 3))
+        equal = (got[0] == want[0] and got[2] == want[2] and got[4:] == want[4:])
+        row["golden_inputs"] = {"equal_labels_split_documents": equal,
+                                "max_score_err": score_err,
+                                "labels": sorted(set(got[0])), "documents": len(got[5])}
+        if not equal or not score_err <= CLASSIFY_SCORE_LIMIT:
+            emit(row)
+            raise AssertionError(f"classify on the golden's OCR differs from JAX: {row}")
+
+        # (b) the whole bundle: a cold pass, then two passes on the cache
+        pipe = ClassificationPipeline(ocr_engine=engine, classifiers=[cls], splitter=splitter,
+                                      work_dir=os.path.join(work_dir, "b"))
+        passes, launches = {}, {}
+        for name in CLASSIFY_PASSES:
+            stage_ms.clear()
+            _reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            meta = pipe.execute("shipped", "classify", frames)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches[name] = _read_counts()
+            passes[name] = {"wall_ms": wall * 1e3, "ms_per_page": wall / n * 1e3,
+                            "pages_per_s": n / wall, "stage_ms": dict(stage_ms),
+                            "documents": len(meta["documents"]), "launches": launches[name]}
+            if name == "cold":
+                _check_results(meta["ocr"], n, h, w)
+            mine = _classify_rows(meta)
+            passes[name]["label_agreement_with_a"] = float(np.mean(
+                [a == b for a, b in zip(mine[0], got[0])]))
+            passes[name]["split_agreement_with_a"] = float(np.mean(
+                [a == b for a, b in zip(mine[4], got[4])]))
+        cache = os.path.join(work_dir, "b", os.listdir(os.path.join(work_dir, "b"))[0],
+                             "results", "ocr.json")
+        row["bundle"] = {"passes": passes, "ocr_cache_bytes": os.path.getsize(cache)}
+    cold, cached = launches["cold"], [launches[p] for p in CLASSIFY_PASSES[1:]]
+    ok = (cold["crop_resize"].get("fused", 0) > 0 and cold["flash_attention"].get("fused", 0) > 0
+          and "ocr" in passes["cold"]["stage_ms"]
+          and all(c[k].get("fused", 0) == 0 for c in cached for k in c)
+          and all(c["flash_attention"].get("heads", 0) > 0 for c in cached)
+          and not any("ocr" in passes[p]["stage_ms"] for p in CLASSIFY_PASSES[1:]))
+
+    # (c) the layout embeddings of the pages' texts
+    texts = [" ".join(wd["text"] for wd in page["words"]) for page in ocr]
+    t = time.perf_counter()
+    embed_cfg = dataclasses.replace(LayoutLMConfig.base(), use_image=False)
+    embed_tree = init_flax_layout(embed_cfg, seeds["embeddings"], "encoder")
+    card = LayoutEmbeddingsModel(LayoutLMConfig.base(), embed_tree, device="cuda")
+    setup_s = time.perf_counter() - t
+    ms, _ = _ms_per_call(lambda: card.get_embeddings(texts))
+    _reset_counts()
+    vectors = card.get_embeddings(texts)
+    torch.cuda.synchronize()
+    launches["embeddings"] = _read_counts()
+    k = len(golden["embeddings"])
+    t = time.perf_counter()
+    cpu = LayoutEmbeddingsModel(LayoutLMConfig.base(), embed_tree,
+                                device="cpu").get_embeddings(texts[:k])
+    errs = {"cpu": float(np.abs(vectors[:k] - cpu).max()),
+            "jax": float(np.abs(vectors[:k] - np.asarray(golden["embeddings"])).max())}
+    row["embeddings"] = {"texts": len(texts), "dim": int(vectors.shape[1]),
+                         "ms_per_call": ms, "setup_s": setup_s,
+                         "cpu_check_s": time.perf_counter() - t, "checked_rows": k,
+                         "max_abs_err": errs, "limit": EMBED_LIMIT,
+                         "norms": [float(np.linalg.norm(v)) for v in vectors[:2]],
+                         "launches": launches["embeddings"]}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"classify bundle launches or stages: {row['bundle']}")
+    if not (np.isfinite(vectors).all() and vectors.shape == (n, 768)
+            and max(errs.values()) <= EMBED_LIMIT
+            and launches["embeddings"]["flash_attention"].get("embeddings", 0) > 0):
+        raise AssertionError(f"embeddings: {row['embeddings']}")
+    return launches
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -1433,11 +1650,13 @@ def main() -> int:
     _, setups, pages = run("slice", phase_slice)
     run("stream", phase_stream, setups["heatmap"], pages)
     launches, chain_engines, chain_results = run("chain", phase_chain, setups, pages)
-    run("layoutlm_base", phase_layoutlm_base, pages, chain_results)
+    cls_tree = run("layoutlm_base", phase_layoutlm_base, pages, chain_results)
     shipped = run("trained", load_shipped)
     trained_engine, trained_launches = run("trained", phase_trained, shipped)
     forms_launches = run("forms", phase_forms, trained_engine, shipped)
     best, best_launches = run("best", phase_best, shipped)
+    classify_launches = run("classify", phase_classify, shipped, trained_engine, cls_tree)
+    del cls_tree
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
@@ -1453,7 +1672,10 @@ def main() -> int:
         row["launches_by_path"] = {
             **{k: v for k, v in trained_launches[name].items() if k != "all"},
             "fragments": forms_launches[name].get("fragments", 0),
-            "best": best_launches[name].get("best", 0)}
+            "best": best_launches[name].get("best", 0),
+            **{f"classify_{p}_{k}": v for p in CLASSIFY_PASSES
+               for k, v in classify_launches[p][name].items() if k != "all"},
+            "embeddings": classify_launches["embeddings"][name].get("embeddings", 0)}
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -7,8 +7,10 @@ and a ``TrOcrProcessor`` (word crops, TrOCR encoder and greedy decode),
 with packed uploads, the fused page-group program streamed on a worker
 thread, line organisation and the JAX package's result schema; the
 LayoutLM classification and NER heads chained into that program, and the
-document classifier, indexer and splitter on their own.  It imports
-torch, numpy and the standard library only.
+document classifier, indexer and splitter on their own; the
+classification pipeline (``pipe/``) and the layout embeddings
+(``embeddings/``).  It imports torch, numpy and the standard library
+only.
 
 Importing the package builds nothing: the CUDA kernels under ``csrc/`` are
 compiled with ``nvcc`` the first time a wrapper launches one

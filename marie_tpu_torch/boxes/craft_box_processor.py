@@ -146,7 +146,9 @@ class BoxProcessorCraft(BoxProcessor):
     keywords: ``device``; ``cc_runs``, the run-domain CC's per-row run
     budget (the JAX ``MARIE_CC_RUNS``); ``allow_tf32``, whether float32
     convolutions may run in TF32 (the engine sets this for each forward
-    and leaves the global flags as it found them)."""
+    and leaves the global flags as it found them); ``cpu_bf16_rounding``,
+    where a bf16 model rounds on the CPU: ``"xla"``, as the JAX package's
+    CPU results, or ``"torch"``, as the card (``models/craft.py``)."""
 
     #: the zoo tree the weights came from (None: passed in or seeded)
     zoo_name: Optional[str] = None
@@ -168,6 +170,7 @@ class BoxProcessorCraft(BoxProcessor):
         device="cuda",
         cc_runs: int = 48,
         allow_tf32: bool = False,
+        cpu_bf16_rounding: str = "xla",
     ):
         if param_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"param_dtype must be float32 or bfloat16, got {param_dtype!r}")
@@ -191,6 +194,7 @@ class BoxProcessorCraft(BoxProcessor):
             variables = init_flax_layout(self.config, 0)
         dtype = torch.bfloat16 if param_dtype == "bfloat16" else torch.float32
         self.model = load_model(self.config, variables, self.device, dtype)
+        self.model.set_cpu_bf16_rounding(cpu_bf16_rounding)
 
     def heatmap(self, pages) -> torch.Tensor:
         """[H, W] / [B, H, W] / [B, H, W, 3] uint8 pages (numpy or

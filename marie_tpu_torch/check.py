@@ -117,21 +117,28 @@ def agreement(golden: List[Dict[str, Any]], candidate: List[Dict[str, Any]],
     share of golden words matched with equal text; ``ner``, the share of
     matched words with equal ``ner_label``; ``labels``, the share of pages
     with equal ``classification`` label (of the pages both runs
-    classified); ``label_pages``, the pages whose
-    labels differ although every golden word was matched with equal
-    text.  A share with nothing to count is None."""
+    classified); ``label_pages``, the pages whose labels differ although
+    every golden word was matched with equal text; ``box_pages``, the
+    pages with NER labels whose word boxes all equal the golden's (the
+    NER heads see the same words there); ``ner_pages``, those of them
+    whose NER labels differ.  A share with nothing to count is None."""
     n_words = n_same = n_ner = n_ner_same = n_pages = n_label_same = 0
-    label_pages = []
+    label_pages, box_pages, ner_pages = [], [], []
     for p, (g_page, c_page) in enumerate(zip(golden, candidate)):
         gws, cws = g_page.get("words", []), c_page.get("words", [])
         pairs = match_words(gws, cws, iou_threshold)
         same = sum(gws[gi]["text"] == cws[ci]["text"] for gi, ci in pairs)
         n_words += len(gws)
         n_same += same
-        for gi, ci in pairs:
-            if "ner_label" in gws[gi]:
-                n_ner += 1
-                n_ner_same += gws[gi]["ner_label"] == cws[ci].get("ner_label")
+        ner_same = [gws[gi]["ner_label"] == cws[ci].get("ner_label")
+                    for gi, ci in pairs if "ner_label" in gws[gi]]
+        n_ner += len(ner_same)
+        n_ner_same += sum(ner_same)
+        if ner_same and sorted(map(tuple, (w["box"] for w in gws))) == sorted(
+                map(tuple, (w["box"] for w in cws))):
+            box_pages.append(p)
+            if not all(ner_same):
+                ner_pages.append(p)
         if "classification" in g_page and "classification" in c_page:
             n_pages += 1
             equal = g_page["classification"].get("label") == c_page["classification"].get("label")
@@ -143,5 +150,7 @@ def agreement(golden: List[Dict[str, Any]], candidate: List[Dict[str, Any]],
         "ner": n_ner_same / n_ner if n_ner else None,
         "labels": n_label_same / n_pages if n_pages else None,
         "label_pages": label_pages,
+        "box_pages": box_pages,
+        "ner_pages": ner_pages,
         "golden_words": n_words,
     }

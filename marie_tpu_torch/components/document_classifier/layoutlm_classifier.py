@@ -2,7 +2,7 @@
 ``marie_tpu/components/document_classifier/layoutlm_classifier.py``):
 pages padded to ``max_seq_len`` tokens with a length mask, batches padded
 to a few fixed sizes, and with an image branch each page's image resized
-to the config's ``image_size`` on the device.  ``from_zoo`` and
+to the config's ``image_size`` as cv2 resizes it.  ``from_zoo`` and
 ``from_zoo_chain`` load the trained heads of ``torch_zoo/``
 (:mod:`marie_tpu_torch.registry.zoo`).
 """
@@ -20,6 +20,7 @@ from marie_tpu_torch.components.word_tokenizer import HashWordTokenizer, Rolling
 from marie_tpu_torch.models.configs import LayoutLMConfig
 from marie_tpu_torch.ops.kernels._build import launch_path
 from marie_tpu_torch.preprocess.buckets import pad_batch
+from marie_tpu_torch.preprocess.resize import resize_linear_u8
 from marie_tpu_torch.registry.convert import init_flax_layout, load_model
 from marie_tpu_torch.registry.zoo import zoo_params
 from marie_tpu_torch.utils.device import float32_precision, resolve_device
@@ -28,20 +29,27 @@ SYNTH_CLASS_LABELS = ("invoice", "correspondence", "claim")
 
 def resize_page_image(image: np.ndarray, size_hw: Tuple[int, int],
                       device: torch.device) -> torch.Tensor:
-    """``cv2.resize(image, (w, h))`` (bilinear, half-pixel centres, no
-    antialias) then ``/ 255`` as float32 [h, w, 3], on ``device``; a 2-D
-    page is stacked to 3 channels.  A uint8 image is rounded half up to
-    uint8 levels, as cv2 rounds; cv2 weighs the taps in 11-bit fixed
-    point, so about one pixel in eight comes out one level apart."""
-    x = torch.from_numpy(np.ascontiguousarray(image)).to(device)
-    gray = x.ndim == 2
-    x = x[None, None] if gray else x.permute(2, 0, 1)[None]
-    y = F.interpolate(x.to(torch.float32), size=tuple(size_hw), mode="bilinear",
-                      align_corners=False, antialias=False)
+    """``cv2.resize(image, (w, h)).astype(float32) / 255`` as float32 [h,
+    w, 3] on ``device`` (the JAX classifier's page image); a 2-D page is
+    resized, then stacked to 3 channels.  A uint8 image is resized on the
+    host with cv2's fixed-point arithmetic (``resize_linear_u8``, equal
+    to cv2 to the bit), uploaded as uint8 and divided by 255 there (a
+    true division, as numpy's); other dtypes take torch's float bilinear
+    (cv2's float path: half-pixel centres, no antialias), within float
+    rounding of cv2."""
     if image.dtype == np.uint8:
-        y = torch.clamp(torch.floor(y + 0.5), 0.0, 255.0)
-    y = y[0].permute(1, 2, 0) / 255.0
-    return y.expand(*y.shape[:2], 3) if gray else y
+        small = resize_linear_u8(np.ascontiguousarray(image), (size_hw[1], size_hw[0]))
+        y = torch.from_numpy(small).to(device).to(torch.float32)
+    else:
+        x = torch.from_numpy(np.ascontiguousarray(image, dtype=np.float32)).to(device)
+        x = x[None, None] if x.ndim == 2 else x.permute(2, 0, 1)[None]
+        y = F.interpolate(x, size=tuple(size_hw), mode="bilinear", align_corners=False,
+                          antialias=False)
+        y = y[0, 0] if image.ndim == 2 else y[0].permute(1, 2, 0)
+    # a 0-dim device tensor: torch multiplies by the reciprocal of a CPU
+    # scalar on the card, which is not always the quotient
+    y = y / torch.tensor(255.0, device=device)
+    return y[..., None].expand(*y.shape, 3) if image.ndim == 2 else y
 
 
 class LayoutDocumentClassifier(BaseDocumentClassifier):

@@ -57,7 +57,8 @@ _PATH = threading.local()
 def launch_path(name: str) -> Iterator[None]:
     """Count the kernel launches this thread makes inside the block
     under ``name`` (the engine's paths: ``"fused"``, ``"overflow"``, and
-    ``"heads"`` for the LayoutLM heads, chained or on their own)."""
+    ``"heads"`` for the LayoutLM heads, chained or on their own;
+    ``"embeddings"`` for the layout embeddings' encoder)."""
     prev = getattr(_PATH, "name", None)
     _PATH.name = name
     try:

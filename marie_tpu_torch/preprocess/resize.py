@@ -156,17 +156,21 @@ def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
         return img.copy()
     if _integer_factor(w, dw) == 2 and _integer_factor(h, dh) == 2:
         return _area_fast(img, 2, 2)
-    x0, x1, a0, a1 = _linear_taps(w, dw, True)
-    y0, y1, b0, b1 = _linear_taps(h, dh, False)
+    x0, x1, a0, a1 = (t.astype(np.int32) for t in _linear_taps(w, dw, True))
+    y0, y1, b0, b1 = (t.astype(np.int32) for t in _linear_taps(h, dh, False))
     chan = (1,) * (img.ndim - 2)
-    src = img.astype(np.int64)
-    rows = (src[:, x0] * a0.reshape((1, dw) + chan)
-            + src[:, x1] * a1.reshape((1, dw) + chan))  # [h, dw, ...]
-    r0 = rows[y0] >> 4
-    r1 = rows[y1] >> 4
+    a0 = a0.reshape((1, dw) + chan)
+    a1 = a1.reshape((1, dw) + chan)
+
+    def rows(src_rows):
+        # the horizontal pass of the source rows an output row reads
+        # (int32 holds it: 255 * 2^11 per row, 2^11 * (row >> 4) per product)
+        src = img[src_rows]
+        return (src[:, x0].astype(np.int32) * a0 + src[:, x1].astype(np.int32) * a1) >> 4
+
     b0 = b0.reshape((dh, 1) + chan)
     b1 = b1.reshape((dh, 1) + chan)
-    out = (((b0 * r0) >> 16) + ((b1 * r1) >> 16) + 2) >> 2
+    out = (((b0 * rows(y0)) >> 16) + ((b1 * rows(y1)) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
 
 

@@ -37,8 +37,8 @@ import torch.nn as nn
 from marie_tpu_torch.models.configs import CraftConfig, CRNNConfig, LayoutLMConfig, TrOCRConfig
 
 Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig]
-#: the LayoutLM heads by name
-LAYOUT_HEADS = ("sequence", "token")
+#: the LayoutLM heads by name ("encoder": the bare encoder, no head)
+LAYOUT_HEADS = ("sequence", "token", "encoder")
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
@@ -49,10 +49,13 @@ _LSTM_GATES = ("i", "f", "g", "o")
 def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
     """The port's module for a config (on the current default device).
     A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
-    classification) or ``"token"`` (NER); other configs take none."""
+    classification), ``"token"`` (NER) or ``"encoder"`` (the encoder
+    alone, whose flax tree has its modules at the top); other configs
+    take none."""
     from marie_tpu_torch.models.craft import CRAFT
     from marie_tpu_torch.models.crnn import CRNN
     from marie_tpu_torch.models.layoutlm import (
+        LayoutLMv3Encoder,
         LayoutLMv3ForSequenceClassification,
         LayoutLMv3ForTokenClassification,
     )
@@ -63,6 +66,8 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
             raise ValueError(f"a LayoutLM head is one of {LAYOUT_HEADS}, got {head!r}")
         if head == "sequence":
             return LayoutLMv3ForSequenceClassification(config)
+        if head == "encoder":
+            return LayoutLMv3Encoder(config)
         return LayoutLMv3ForTokenClassification(config)
     if head is not None:
         raise ValueError(f"{type(config).__name__} takes no head, got {head!r}")

@@ -10,6 +10,7 @@ the DejaVu font (the JAX package's own environment)::
     python scripts/export_torch_zoo.py --all    # + the -synth heads
     python scripts/export_torch_zoo.py --best   # only crnn-synth.npz and
                                                 # golden_best.json
+    python scripts/export_torch_zoo.py --classify  # only golden_classify.json
 
 It writes
 
@@ -34,6 +35,15 @@ It writes
   default page buckets.  The processors are built from the ``.npz``
   trees just written, so the golden and the port start from the same
   bits.
+* ``golden_classify.json``: the JAX ``ClassificationPipeline`` on the 16
+  pages with ``ocr_results`` taken from ``golden.json`` (no OCR): page
+  labels and scores, the split and the documents, with a classifier at
+  ``LayoutLMConfig.base(num_labels=3)`` (image branch on) and a
+  ``LayoutDocumentSplitter(config=LayoutLMConfig.base(2))``, whose trees
+  are the port's ``init_flax_layout`` at the seeds the file states; and
+  ``LayoutEmbeddingsModel`` at base width (its encoder tree likewise) on
+  the first 4 pages' texts (golden words joined by spaces), rounded to 6
+  decimals.  The file stays under 100 KB.
 """
 
 import argparse
@@ -267,6 +277,82 @@ def export_best() -> None:
         json.dump(golden, f, default=_json_default, separators=(",", ":"))
 
 
+#: (seed, config) of the trees in golden_classify.json; the classifier's
+#: seed is the one chip_smoke.py's layoutlm_base phase draws its
+#: base-width classifier from
+CLASSIFY_SEEDS = {"classifier": 10, "splitter": 30, "embeddings": 31}
+CLASSIFY_LABELS = ("invoice", "correspondence", "claim")
+EMBED_PAGES = 4
+
+
+def page_texts(pages):
+    """Each result dict's words joined by single spaces."""
+    return [" ".join(w["text"] for w in page["words"]) for page in pages]
+
+
+def export_classify() -> None:
+    """golden_classify.json, from the shipped pages and golden.json."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    from marie_tpu.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu.components.document_splitter import LayoutDocumentSplitter
+    from marie_tpu.embeddings import LayoutEmbeddingsModel
+    from marie_tpu.models.configs import LayoutLMConfig
+    from marie_tpu.pipe import ClassificationPipeline
+    from marie_tpu_torch.models.configs import LayoutLMConfig as PortConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    def tree(config, seed, head):
+        return jax.tree_util.tree_map(jnp.asarray, init_flax_layout(config, seed, head))
+
+    with np.load(os.path.join(ZOO, "pages.npz")) as data:
+        stack = data["pages"]
+    with open(os.path.join(ZOO, "golden.json")) as f:
+        ocr = json.load(f)["pages"]
+    seeds = CLASSIFY_SEEDS
+    t0 = time.time()
+    classifier = LayoutDocumentClassifier(
+        labels=CLASSIFY_LABELS, config=LayoutLMConfig.base(num_labels=3),
+        params=tree(PortConfig.base(num_labels=3), seeds["classifier"], "sequence"))
+    splitter = LayoutDocumentSplitter(
+        config=LayoutLMConfig.base(2),
+        params=tree(PortConfig.base(2), seeds["splitter"], "sequence"))
+    with tempfile.TemporaryDirectory() as work_dir:
+        meta = ClassificationPipeline(ocr_engine=None, classifiers=[classifier],
+                                      splitter=splitter, work_dir=work_dir).execute(
+            "shipped", "classify", list(stack), ocr_results=ocr)
+    texts = page_texts(ocr[:EMBED_PAGES])
+    embed_config = dataclasses.replace(PortConfig.base(), use_image=False)
+    vectors = LayoutEmbeddingsModel(
+        config=LayoutLMConfig.base(),
+        params=tree(embed_config, seeds["embeddings"], "encoder")).get_embeddings(texts)
+    golden = {
+        "settings": {
+            "pipeline": "ClassificationPipeline(ocr_engine=None), ocr_results = golden.json "
+                        "pages, frames = pages.npz pages",
+            "classifier": "LayoutDocumentClassifier(labels, LayoutLMConfig.base(num_labels=3)),"
+                          " use_image, init_flax_layout(config, seed, 'sequence')",
+            "splitter": "LayoutDocumentSplitter(config=LayoutLMConfig.base(2)), "
+                        "init_flax_layout(config, seed, 'sequence')",
+            "embeddings": "LayoutEmbeddingsModel(LayoutLMConfig.base()), use_image False, "
+                          "init_flax_layout(config, seed, 'encoder'); texts: the first "
+                          f"{EMBED_PAGES} golden pages' words joined by spaces; 6 decimals",
+            "seeds": seeds,
+            "labels": list(CLASSIFY_LABELS),
+        },
+        "page_classifier": meta["page_classifier"],
+        "splitter": meta["splitter"],
+        "documents": meta["documents"],
+        "embeddings": np.round(vectors.astype(np.float64), 6).tolist(),
+    }
+    print(f"golden_classify: {time.time() - t0:.1f} s", flush=True)
+    with open(os.path.join(ZOO, "golden_classify.json"), "w") as f:
+        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+
+
 def _cut(page, box):
     x, y, w, h = box
     return np.ascontiguousarray(page[y:y + h, x:x + w])
@@ -286,6 +372,8 @@ def main() -> None:
                     help="also write the -synth classifier, indexer and splitter")
     ap.add_argument("--best", action="store_true",
                     help="write only crnn-synth.npz and golden_best.json")
+    ap.add_argument("--classify", action="store_true",
+                    help="write only golden_classify.json")
     args = ap.parse_args()
 
     import jax
@@ -293,6 +381,9 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     if args.best:
         export_best()
+        return
+    if args.classify:
+        export_classify()
         return
     from bench import make_pages
     from marie_tpu.enums import PSMode
@@ -334,6 +425,7 @@ def main() -> None:
         with open(os.path.join(ZOO, name), "w") as f:
             json.dump(obj, f, default=_json_default, separators=(",", ":"))
     export_best()
+    export_classify()
     sizes = {n: os.path.getsize(os.path.join(ZOO, n)) for n in sorted(os.listdir(ZOO))}
     print(json.dumps({"bytes": sizes, "total": sum(sizes.values())}))
 

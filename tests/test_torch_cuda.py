@@ -525,3 +525,41 @@ def test_cuda_best_engine_matches_cpu_and_launches_on_best(cuda_device):
                                    [w["confidence"] for r in want for w in r["words"]],
                                    rtol=0, atol=1e-3)
     assert sum(len(r["words"]) for r in out["cpu"][0]) > 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 768), (3300, 2550, 3), (100, 37, 3)])
+def test_cuda_classifier_page_image_equals_cpu(cuda_device, shape):
+    """The classifier's page image on the card equals the CPU's to the bit:
+    the same host resize, and a true division by 255 on both (a division
+    by a CPU scalar would be a multiply by its reciprocal on the card)."""
+    from marie_tpu_torch.components.document_classifier.layoutlm_classifier import (
+        resize_page_image,
+    )
+
+    img = np.random.default_rng(3).integers(0, 256, shape).astype(np.uint8)
+    got = resize_page_image(img, (224, 224), cuda_device).cpu()
+    want = resize_page_image(img, (224, 224), torch.device("cpu"))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_layout_embeddings_match_cpu_and_launch_on_embeddings(cuda_device):
+    """LayoutEmbeddingsModel at tiny width, card against CPU within 1e-4;
+    K2 launches once per layer on the ``"embeddings"`` path."""
+    import dataclasses
+
+    from marie_tpu_torch.embeddings import LayoutEmbeddingsModel
+    from marie_tpu_torch.models.configs import LayoutLMConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    config = LayoutLMConfig.tiny()
+    tree = init_flax_layout(dataclasses.replace(config, use_image=False), 3, "encoder")
+    texts = ["invoice total amount", "patient claim form due 12/01/2023", "", "word " * 90]
+    before = k2.flash_attention.launches_by_path.get("embeddings", 0)
+    got = LayoutEmbeddingsModel(config, tree, device="cuda").get_embeddings(texts)
+    torch.cuda.synchronize()
+    launches = k2.flash_attention.launches_by_path.get("embeddings", 0) - before
+    want = LayoutEmbeddingsModel(config, tree, device="cpu").get_embeddings(texts)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert launches == config.num_layers

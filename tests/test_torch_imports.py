@@ -59,3 +59,24 @@ def test_importing_the_package_builds_nothing():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "{}"
+
+
+def test_pipeline_and_embeddings_default_to_the_card():
+    """The classification pipeline and the layout embeddings are the
+    port's; the embeddings (like the heads the pipeline runs) are built on
+    the card unless the caller asks for the CPU, and refuse where CUDA is
+    absent rather than fall back."""
+    import inspect
+
+    import pytest
+    import torch
+
+    from marie_tpu_torch.embeddings import LayoutEmbeddingsModel
+    from marie_tpu_torch.models.configs import LayoutLMConfig
+    from marie_tpu_torch.pipe import ClassificationPipeline
+
+    assert inspect.signature(LayoutEmbeddingsModel).parameters["device"].default == "cuda"
+    assert callable(ClassificationPipeline.execute)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            LayoutEmbeddingsModel(LayoutLMConfig.tiny())

@@ -5,11 +5,9 @@ through both.
 
 Tolerances: logits within 1e-5 (float32, summed in another order by XLA
 and torch; measured differences are ~1e-6); component dicts equal, their
-float scores within 1e-5.  The classifier resizes page images with a
-torch bilinear resize that agrees with the JAX side's cv2.resize within
-one uint8 level; the parity cases use images whose resize is exact
-(the same size, and a 2x downscale), and the resize itself is held to
-cv2 separately.
+float scores within 1e-5.  The classifier's page-image resize equals the
+JAX side's cv2.resize to the bit for uint8 pages, gray and RGB, at any
+size.
 """
 
 import dataclasses
@@ -209,8 +207,8 @@ def test_classifier_predict_matches_jax():
     jc, tc = _configs(num_labels=3)
     tree = init_flax_layout(tc, 5, "sequence")
     rng = np.random.default_rng(6)
-    images = [rng.integers(0, 256, (64, 64)).astype(np.uint8),
-              rng.integers(0, 256, (32, 32, 3)).astype(np.uint8), None]
+    images = [rng.integers(0, 256, (71, 53)).astype(np.uint8),
+              rng.integers(0, 256, (45, 29, 3)).astype(np.uint8), None]
     pt, pj = _pages(7, 5, 9, images)
     pt[2].image = pj[2].image = None
     got = LayoutDocumentClassifier(labels, tc, tree, device="cpu").predict(pt)
@@ -254,11 +252,12 @@ def test_splitter_split_and_documents_match_jax():
 
 @pytest.mark.parametrize("src_hw,out_hw,channels", [
     ((1024, 768), (224, 224), 0), ((100, 37), (224, 224), 3), ((37, 300), (32, 32), 3),
-    ((64, 64), (32, 32), 0), ((224, 224), (224, 224), 0),
+    ((64, 64), (32, 32), 0), ((224, 224), (224, 224), 0), ((3300, 2550), (224, 224), 3),
+    ((1024, 768), (224, 224), 3),
 ])
 def test_resize_matches_cv2(src_hw, out_hw, channels):
-    """The classifier's torch resize against cv2.resize (INTER_LINEAR) /
-    255, within one uint8 level; a 2-D page comes back with 3 channels."""
+    """The classifier's page-image resize against cv2.resize (INTER_LINEAR)
+    / 255, to the bit; a 2-D page comes back with 3 channels."""
     rng = np.random.default_rng(sum(src_hw))
     shape = src_hw if channels == 0 else (*src_hw, channels)
     img = rng.integers(0, 256, shape).astype(np.uint8)
@@ -266,8 +265,34 @@ def test_resize_matches_cv2(src_hw, out_hw, channels):
     if want.ndim == 2:
         want = np.stack([want] * 3, -1)
     got = resize_page_image(img, out_hw, CPU).numpy()
-    assert got.shape == (*out_hw, 3)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1.0 / 255 + 1e-6)
+    assert got.shape == (*out_hw, 3) and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_resize_of_float_pages_matches_cv2(dtype):
+    """A float page takes cv2's float bilinear: within float32 rounding."""
+    img = (np.random.default_rng(3).random((97, 61, 3)) * 255).astype(dtype)
+    want = cv2.resize(img, (32, 32)).astype(np.float32) / 255.0
+    got = resize_page_image(img, (32, 32), CPU).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_base_classifier_predict_on_full_pages_matches_jax():
+    """predict() at LayoutLMv3-base width with the image branch on a random
+    1024x768 gray page and a 3300x2550 RGB page, dicts equal and scores
+    within 1e-5: the page image reaches the encoder with cv2's bits."""
+    labels = ("invoice", "correspondence", "claim")
+    tc = tcfg.LayoutLMConfig.base(num_labels=3)
+    jc = jcfg.LayoutLMConfig.base(num_labels=3)
+    tree = init_flax_layout(tc, 14, "sequence")
+    rng = np.random.default_rng(15)
+    images = [rng.integers(0, 256, (1024, 768)).astype(np.uint8),
+              rng.integers(0, 256, (3300, 2550, 3)).astype(np.uint8)]
+    pt, pj = _pages(16, 2, 40, images)
+    got = LayoutDocumentClassifier(labels, tc, tree, batch_sizes=(2,), device="cpu").predict(pt)
+    want = JaxClassifier(labels, jc, _jnp(tree), batch_sizes=(2,)).predict(pj)
+    assert_close_tree(got, want)
 
 
 def test_from_flax_is_strict():

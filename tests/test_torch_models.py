@@ -149,3 +149,102 @@ def test_from_flax_layouts():
 def test_sinusoidal_positions_match_flax():
     np.testing.assert_allclose(sinusoidal_positions(20, 64).numpy(),
                                np.asarray(jax_sinusoidal(20, 64)), atol=1e-6)
+
+
+def _bf16_bits(x) -> np.ndarray:
+    """The bf16 values of a float array (exactly representable) as bits."""
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+def test_bf16_conv_bn_relu_rounds_as_xla():
+    """One CRAFT block in bf16 on the CPU equals the jitted flax block to the
+    bit: the conv's sum, its bias and BatchNorm's four ops each rounded to
+    bf16 where XLA rounds them (a 36-term sum, short enough that both
+    float32 summation orders give the same bf16)."""
+    from marie_tpu.models.craft import ConvBNRelu as JaxConvBNRelu
+    from marie_tpu_torch.models.craft import ConvBNRelu
+
+    rng = np.random.default_rng(21)
+    cin, cout = 4, 8
+    tree = {"params": {"Conv_0": {"kernel": rng.standard_normal((3, 3, cin, cout)) / 6,
+                                  "bias": rng.standard_normal(cout) * 0.1},
+                       "BatchNorm_0": {"scale": 1 + rng.standard_normal(cout) * 0.1,
+                                       "bias": rng.standard_normal(cout) * 0.1}},
+            "batch_stats": {"BatchNorm_0": {"mean": rng.standard_normal(cout) * 0.1,
+                                            "var": rng.uniform(0.5, 1.5, cout)}}}
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+    x = rng.random((2, 12, 10, cin)).astype(np.float32)
+    bf = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    want = jax.jit(lambda v, x: JaxConvBNRelu(cout).apply(v, x.astype(jnp.bfloat16)).astype(
+        jnp.float32))(bf, jnp.asarray(x))
+    block = from_flax(tree, ConvBNRelu(cin, cout)).to(torch.bfloat16).eval()
+    with torch.no_grad():
+        got = block(torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(_bf16_bits(got.float().permute(0, 2, 3, 1).numpy()),
+                                  _bf16_bits(want))
+
+
+@pytest.mark.parametrize("src_hw,dst_hw,c", [((2, 3), (4, 6), 64), ((3, 5), (7, 11), 32),
+                                             ((16, 12), (32, 24), 32), ((5, 4), (5, 9), 64),
+                                             ((8, 8), (16, 16), 32), ((24, 32), (48, 64), 16)])
+def test_bf16_resize_rounds_as_xla(src_hw, dst_hw, c):
+    """The U-Net's bf16 upsample on the CPU equals the jitted
+    ``jax.image.resize`` in bf16 to the bit: bf16 weights, one axis at a
+    time in jnp.einsum's order (W first on a wide map, H first on a tall
+    or square one), each pass rounded."""
+    x = np.random.default_rng(1).standard_normal((2, *src_hw, c)).astype(np.float32)
+    want = jax.jit(lambda x: jax.image.resize(x.astype(jnp.bfloat16), (2, *dst_hw, c),
+                                              method="bilinear").astype(jnp.float32))(
+        jnp.asarray(x))
+    xt = torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2)
+    got = resize_bilinear(xt, dst_hw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bf16_bits(got.float().permute(0, 2, 3, 1).numpy()),
+                                  _bf16_bits(want))
+
+
+def test_bf16_head_sigmoid_rounds_as_xla():
+    """CRAFT's 1x1 head and sigmoid in bf16 on the CPU equal the jitted flax
+    ops to the bit: XLA rounds exp and 1 + exp to bf16 and keeps the last
+    division in float32 before the cast to float32."""
+    rng = np.random.default_rng(22)
+    cfg = tcfg.CraftConfig.tiny()
+    model = load_model(cfg, init_flax_layout(cfg, seed=3), device="cpu", dtype=torch.bfloat16)
+    cin = model.head_out.in_channels
+    h = rng.standard_normal((2, 6, 7, cin)).astype(np.float32)
+    kernel = model.head_out.weight.float().permute(2, 3, 1, 0).numpy()
+    bias = model.head_out.bias.float().numpy()
+
+    def flax_head(h, k, b):
+        y = jax.lax.conv_general_dilated(h.astype(jnp.bfloat16), k.astype(jnp.bfloat16),
+                                         (1, 1), "SAME",
+                                         dimension_numbers=("NHWC", "HWIO", "NHWC"))
+        return jax.nn.sigmoid(y + b.astype(jnp.bfloat16)).astype(jnp.float32)
+
+    want = jax.jit(flax_head)(jnp.asarray(h), jnp.asarray(kernel), jnp.asarray(bias))
+    with torch.no_grad():
+        got = model._head_xla(torch.from_numpy(h).to(torch.bfloat16).permute(0, 3, 1, 2))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy().view(np.uint32),
+                                  np.asarray(want).view(np.uint32))
+
+
+def test_cpu_bf16_rounding_can_follow_torchs_modules():
+    """``set_cpu_bf16_rounding("torch")`` runs the CPU bf16 model through
+    torch's modules (the card's rounding points): each block is
+    ``relu(BatchNorm(Conv))`` and the head ``sigmoid(Conv)`` in bf16;
+    other modes are refused."""
+    cfg = tcfg.CraftConfig.tiny()
+    model = load_model(cfg, init_flax_layout(cfg, seed=3), device="cpu", dtype=torch.bfloat16)
+    x = torch.rand(1, 64, 96, 3).to(torch.bfloat16)
+    with torch.no_grad():
+        xla = model(x)
+        model.set_cpu_bf16_rounding("torch")
+        stock = model(x)
+        block = model.stage1.ConvBNRelu_0
+        x1 = torch.rand(1, block.Conv_0.in_channels, 16, 24).to(torch.bfloat16)
+        assert torch.equal(block(x1), torch.relu(block.BatchNorm_0(block.Conv_0(x1))))
+    assert xla.dtype == torch.float32 and stock.dtype == torch.bfloat16
+    assert not torch.equal(xla, stock.float())
+    with pytest.raises(ValueError):
+        model.set_cpu_bf16_rounding("cudnn")

@@ -197,7 +197,36 @@ def test_known_engines_on_shipped_pages_against_golden(shipped, name):
     agree = agreement(want, got)
     assert agree["words"] >= 0.99
     assert agree["label_pages"] == []
+    assert agree["ner_pages"] == []
     gold = truth_pages(truth["pages"][:2], [(1024, 768)] * 2)
     mine, theirs = (compare_results(gold, r, iou_threshold=0.4) for r in (got, want))
     assert abs(mine["detection"]["recall"] - theirs["detection"]["recall"]) <= 0.005
     assert mine["recognition"]["cer"] <= theirs["recognition"]["cer"] + 0.005
+
+
+def test_chained_engine_ner_on_box_equal_pages(shipped):
+    """The engine in the golden's configuration (``bench.py``'s serving
+    settings with the chained heads) on shipped pages 4 and 6 against the
+    golden: the words' text equal, and the NER labels equal on every page
+    whose boxes all equal the golden's.  The CPU bf16 CRAFT rounds where
+    XLA's does (models/craft.py), but its convolutions sum in another
+    order, which moves a box on some pages (PERF.md, fault 2): page 4's
+    boxes equal the golden's; page 6 moves one box and with it NER
+    labels."""
+    from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.ocr.util import craft_box_processor, trocr_processor
+
+    pages, _, golden = shipped
+    engine = PipelineOcrEngine(
+        craft_box_processor(256, cc_runs=32, device="cpu"),
+        trocr_processor(device="cpu", batch_sizes=(32, 128, 256)),
+        upload_format="u2", compact_slots=160, page_fuse_batch=16,
+        classifier=LayoutDocumentClassifier.from_zoo_chain(device="cpu"),
+        indexer=LayoutDocumentIndexer.from_zoo_chain(device="cpu"))
+    got = engine.extract([pages["pages"][4], pages["pages"][6]])
+    agree = agreement([golden["pages"][4], golden["pages"][6]], got)
+    assert agree["words"] == 1.0
+    assert 0 in agree["box_pages"]
+    assert agree["ner_pages"] == []
