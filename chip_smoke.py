@@ -27,9 +27,14 @@ against the truth, its JAX golden and the CPU path (``best``); runs the
 classification pipeline (OCR, classify, split, with its OCR cache) at
 LayoutLMv3-base width on the shipped pages against its JAX golden, cold
 and cached, and the layout embeddings against the CPU and JAX
-(``classify``); traces
+(``classify``); runs the extract pipeline (overlay cleanup, OCR, classify
+and index, the text, PDF, BLOBS and Adlib renderers, pack) against its
+JAX golden on replayed OCR, as bench's ``full_pipeline`` job twice on 16
+pages with 4 made dirty, again with base-width heads, and its pix2pix
+generator alone at full width (``extract``); traces
 one more run per box source, of the chained engine, of the trained
-engine and of the ``best`` engine, with torch.profiler (``profile``).  It prints one JSON
+engine, of the ``best`` engine and of the extract job and its generator,
+with torch.profiler (``profile``).  It prints one JSON
 line per phase; the last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.  Every phase raises on failure; the
 script exits nonzero, with no result line, without a CUDA device or
@@ -308,6 +313,9 @@ K2_CASES = [
     # LayoutEmbeddingsModel at base width on the 16 shipped pages' texts
     # (text only, padded to 512 tokens; kv_len = each page's word count)
     ("embeddings_fp32", (16, 12, 512, 512, 64), "fp32", False, EMBEDDINGS, True),
+    # the base indexer of the extract phase on a shipped page: one window
+    # of 512, kv_len = page 0's word count
+    ("layoutlm_base_ner_page_fp32", (1, 12, 512, 512, 64), "fp32", False, EMBEDDINGS, True),
 ]
 
 INDEXER_WORDS = 1200  # the long page of phase_layoutlm_base
@@ -371,7 +379,8 @@ def phase_k2():
     tokens with the image patches) and indexer (the 7 full windows of 512
     of ``phase_layoutlm_base``'s 1,200-word page), and the base-width
     layout embeddings of the 16 shipped pages' texts (512 tokens, kv_len
-    the pages' word counts).  Times
+    the pages' word counts), and the base indexer on one shipped page
+    (the extract phase's shape: one window, kv_len its word count).  Times
     are cold (see cold_device_ms) and warm; SDPA is timed on the same
     inputs, with the equivalent boolean ``attn_mask`` where K2 masks."""
     import torch
@@ -694,8 +703,10 @@ def phase_profile(setups):
     """Where the serving slice's time goes: torch.profiler over one more
     extract per engine on its pages (``setups``: {name: (engine, pages)};
     ``slice``'s two box sources, ``chain``'s heatmap engine, the
-    ``trained`` engine and the ``best`` engine on two pages), on every
-    thread; wall time, device busy time, the
+    ``trained`` engine, the ``best`` engine on one page, a first pass of
+    the ``extract`` phase's ``full_pipeline`` job on its last 8 pages and
+    its generator on the 4 dirty pages), on every thread; wall time,
+    device busy time, the
     ``marie.*`` stage ranges (counts and times summed over threads;
     ``marie.heads`` for the chained heads) and the kernels with the most
     device time."""
@@ -1038,7 +1049,7 @@ def phase_layoutlm_base(pages, chain_results):
     emit(row)
     if not max(errs) <= LAYOUT_LIMIT:
         raise AssertionError(f"card and CPU logits differ by {errs} > {LAYOUT_LIMIT}")
-    return cls_tree
+    return cls_tree, ner_tree
 
 
 #: card vs CPU scores of the bfloat16 serving engine: one bfloat16
@@ -1053,6 +1064,110 @@ BF16_SCORE_LIMIT = 2e-2
 TEXT_AGREEMENT = 0.99
 RECALL_DELTA = 0.005
 CER_DELTA = 0.005
+
+
+#: the grays of the JAX package's overlay trainer (``_OVERLAY_COLORS`` of
+#: ``marie_tpu/train/overlay.py``); shaded fills take the palest
+OVERLAY_GRAYS = (160, 120, 190)
+#: the shipped pages made dirty for the ``extract`` phase, and their seed
+DIRTY_PAGES = (12, 13, 14, 15)
+DIRTY_SEED = SEED + 40
+
+
+def dirty_pages(pages, seed: int = DIRTY_SEED):
+    """Gray pages with form overlays drawn under their text, as
+    ``render_overlay_pair`` draws them on its 512x384 pages (sizes scaled
+    to the page's height): 2-7 horizontal rules 1-3 px thick, 0-3
+    vertical rules, 1-4 box outlines, 1-3 shaded fills and 0-3 dotted
+    lines (4 px dashes every 8 px), in ``OVERLAY_GRAYS``.  The text stays
+    on top: each pixel keeps the darker of the page and the overlay.
+    numpy only, from ``np.random.default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for page in pages:
+        h, w = page.shape
+        k = h / 512.0
+        ov = np.full((h, w), 255, np.uint8)
+
+        def ri(lo, hi):
+            return int(rng.integers(int(lo), max(int(hi), int(lo) + 1)))
+
+        def gray():
+            return OVERLAY_GRAYS[ri(0, len(OVERLAY_GRAYS))]
+
+        def paint(y0, y1, x0, x1, g):
+            ov[y0:y1, x0:x1] = np.minimum(ov[y0:y1, x0:x1], g)
+
+        for _ in range(ri(2, 8)):
+            y = ri(0, h)
+            paint(y, y + ri(1, 4), 0, w, gray())
+        for _ in range(ri(0, 4)):
+            x = ri(0, w)
+            paint(0, h, x, x + ri(1, 3), gray())
+        for _ in range(ri(1, 5)):
+            x0, y0 = ri(0, w - 60 * k), ri(0, h - 40 * k)
+            x1 = min(x0 + ri(50 * k, 220 * k), w - 1)
+            y1 = min(y0 + ri(25 * k, 120 * k), h - 1)
+            t, g = ri(1, 3), gray()
+            paint(y0, y0 + t, x0, x1 + 1, g)
+            paint(y1 - t + 1, y1 + 1, x0, x1 + 1, g)
+            paint(y0, y1 + 1, x0, x0 + t, g)
+            paint(y0, y1 + 1, x1 - t + 1, x1 + 1, g)
+        for _ in range(ri(1, 4)):
+            x0, y0 = ri(0, w - 80 * k), ri(0, h - 40 * k)
+            paint(y0, min(y0 + ri(20 * k, 90 * k), h), x0, min(x0 + ri(60 * k, 240 * k), w),
+                  max(OVERLAY_GRAYS))
+        for _ in range(ri(0, 4)):
+            y, g = ri(0, h), gray()
+            for x in range(0, w, 8):
+                paint(y, y + 1, x, x + 4, g)
+        out.append(np.minimum(page, ov))
+    return out
+
+
+def asset_digest(root: str) -> dict:
+    """What the extract pipeline left under an asset directory, by the
+    golden's measure: the listing relative to ``root``, sha256 of
+    ``results.txt``, of each BLOBS XML, of each Adlib XML with its
+    ``CreationDate`` blanked, and of each PDF page's inflated content
+    stream."""
+    import hashlib
+    import re
+
+    from marie_tpu_torch.renderer.pdf_renderer import read_pdf
+
+    def read(rel):
+        with open(os.path.join(root, rel), "rb") as f:
+            return f.read()
+
+    def sha(data):
+        return hashlib.sha256(data).hexdigest()
+
+    listing = sorted(os.path.relpath(os.path.join(base, f), root)
+                     for base, _, files in os.walk(root) for f in files)
+    out = {"assets": listing, "results.txt": sha(read("results.txt"))}
+    for rel in listing:
+        if rel.startswith("blobs" + os.sep):
+            out[rel] = sha(read(rel))
+        elif rel.startswith("adlib" + os.sep):
+            out[rel] = sha(re.sub(rb'(FIELD="CreationDate" VALUE=")[^"]*"', rb'\1"', read(rel)))
+    out["pdf_content"] = [sha(p["content"]) for p in read_pdf(read("results.pdf"))]
+    return out
+
+
+class ReplayOcr:
+    """An OCR engine that answers with given result dicts (copies), page by
+    page: the extract pipeline's OCR stage without a model."""
+
+    def __init__(self, results):
+        self.results = results
+
+    def extract(self, frames, pms_mode=None, coordinate_format=None, **kwargs):
+        import copy
+
+        return copy.deepcopy(self.results[:len(frames)])
 
 
 def load_shipped():
@@ -1616,6 +1731,363 @@ def phase_classify(shipped, trained_engine, cls_tree):
     return launches
 
 
+#: ``extract``: the heads against golden_extract.json (float32 at base
+#: width, as classify); the generator card against CPU in float32
+#: (blended pixels equal in >= 99.9%: a float32 value on a rounding
+#: boundary of ``clip((fake + 1) * 127.5)`` moves a pixel by one level);
+#: the card's float32 generator against the JAX golden's per-page counts:
+#: mask and changed pixels within 16, the page's sum within 5e-6 of it
+#: (measured on an NVIDIA H100 80GB HBM3 at 700 W: within 2 pixels and 72
+#: of ~1.1e8; the bfloat16 generator's counts, reported beside them, are
+#: the control that these limits tell apart); bfloat16 against float32
+#: on the card: masks equal in >= 99.9%, pixels within 4 levels in
+#: >= 99.98% (measured there: 99.957% and 99.9957%)
+EXTRACT_SCORE_LIMIT = 1e-3
+GAN_CPU_EQUAL = 0.999
+GAN_COUNT_LIMIT = 16
+GAN_SUM_LIMIT = 5e-6
+GAN_BF16_MASK_EQUAL = 0.999
+GAN_BF16_WITHIN_4 = 0.9998
+#: the two passes of bench's full_pipeline job in one work dir
+EXTRACT_PASSES = ("pass_1", "pass_2")
+
+
+def _off_golden(masks, blended, dirty, golden) -> dict:
+    """Per page, how far the generator's mask pixels, changed pixels and
+    blended sum lie from the JAX golden's; within GAN_COUNT_LIMIT pixels
+    and GAN_SUM_LIMIT of the sum, or not."""
+    import numpy as np
+
+    off, ok = [], True
+    for g, m, b, d in zip(golden, masks, blended, dirty):
+        o = {"page": g["page"], "mask_pixels": int((m > 0).sum()) - g["mask_pixels"],
+             "changed_pixels": int((b != d).sum()) - g["changed_pixels"],
+             "sum": int(b.astype(np.int64).sum()) - g["sum"]}
+        ok = ok and (abs(o["mask_pixels"]) <= GAN_COUNT_LIMIT
+                     and abs(o["changed_pixels"]) <= GAN_COUNT_LIMIT
+                     and abs(o["sum"]) <= GAN_SUM_LIMIT * g["sum"])
+        off.append(o)
+    return {"off_by": off, "within_limits": ok}
+
+
+def _gan_flops(cfg, h: int, w: int) -> int:
+    """Operations (2 per multiply-add) of one generator forward on an
+    [h, w] input: 7x7 in, two stride-2 3x3 downs, the resnet blocks, two
+    stride-2 3x3 transposed ups (counted on their inputs), 7x7 out."""
+    f, n = cfg.base_channels, cfg.num_res_blocks
+    ops = 49 * cfg.in_channels * f * h * w
+    ops += 9 * f * 2 * f * (h // 2) * (w // 2) + 9 * 2 * f * 4 * f * (h // 4) * (w // 4)
+    ops += 2 * n * 9 * (4 * f) ** 2 * (h // 4) * (w // 4)
+    ops += 9 * 4 * f * 2 * f * (h // 4) * (w // 4) + 9 * 2 * f * f * (h // 2) * (w // 2)
+    ops += 49 * f * cfg.out_channels * h * w
+    return 2 * ops
+
+
+def _pdf_words(pdf_path):
+    """Each page's invisible text, as the words of its ``(text) Tj`` ops."""
+    import re
+
+    from marie_tpu_torch.renderer.pdf_renderer import read_pdf
+
+    with open(pdf_path, "rb") as f:
+        pages = read_pdf(f.read())
+    unescape = re.compile(rb"\\(.)")
+    return [[unescape.sub(rb"\1", m.group(1)).decode("latin-1")
+             for m in re.finditer(rb"\((.*?)(?<!\\)\) Tj", p["content"])] for p in pages]
+
+
+def _extract_pass(pipe, frames, ref_id, overlay, stage: str):
+    """One ``execute`` to a synchronised card: (metadata, row)."""
+    import torch
+
+    calls = overlay.calls
+    _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    meta = pipe.execute(ref_id, "bench_pdf", list(frames), job_id=stage)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    row = {"wall_ms": wall * 1e3, "ms_per_page": wall / len(frames) * 1e3,
+           "pages_per_s": len(frames) / wall, "stage_times_s": meta["stage_times_s"],
+           "generator_calls": overlay.calls - calls, "launches": _read_counts()}
+    return meta, row
+
+
+def _check_bundle(meta, root, frames, dirty_idx, prefix):
+    """What a pass left: results.tif equal to clean/ (the pages the gate
+    passed unchanged equal to the input, the dirty ones cleaned), a
+    16-page PDF whose text layer holds each page's OCR words, and the
+    packed assets (a pack that failed quietly fails here)."""
+    import zipfile
+
+    import numpy as np
+
+    from marie_tpu_torch.utils.image_io import read_png, read_tiff
+
+    n = len(frames)
+    tif = read_tiff(os.path.join(root, "results.tif"))
+    clean = [read_png(os.path.join(root, "clean", name))
+             for name in sorted(os.listdir(os.path.join(root, "clean")))]
+    if len(tif) != n or len(clean) != n or not all(
+            np.array_equal(t, c) for t, c in zip(tif, clean)):
+        raise AssertionError("results.tif is not the clean pages")
+    for i, (t, f) in enumerate(zip(tif, frames)):
+        if np.array_equal(t, f) == (i in dirty_idx):
+            raise AssertionError(f"page {i}: cleaned {i in dirty_idx} but "
+                                 f"{'unchanged' if np.array_equal(t, f) else 'changed'}")
+    words = _pdf_words(os.path.join(root, "results.pdf"))
+    want = [[w["text"] for w in page["words"] if w["text"]] for page in meta["ocr"]]
+    if len(words) != n or words != want:
+        raise AssertionError("the PDF's text layer is not the OCR's words")
+    assets = os.path.join(root, "assets")
+    names = sorted(os.listdir(assets))
+    expect = sorted(f"{prefix}{ext}" for ext in (".blobs.xml.zip", ".ocr.zip", ".pdf", ".tif",
+                                                 ".tif.clean"))
+    with zipfile.ZipFile(os.path.join(assets, f"{prefix}.ocr.zip")) as z:
+        adlib = len(z.namelist())
+    with zipfile.ZipFile(os.path.join(assets, f"{prefix}.blobs.xml.zip")) as z:
+        blobs = len(z.namelist())
+    if not set(expect) <= set(names) or adlib != n + 1 or blobs != n:
+        raise AssertionError(f"packed assets: {names}, {adlib} Adlib and {blobs} BLOBS files")
+    return {"pdf_pages": len(words), "pdf_words": sum(map(len, words)), "assets": len(names)}
+
+
+class _Calls:
+    """An ``extract(pages)`` for ``phase_profile`` over another call."""
+
+    def __init__(self, fn):
+        self.extract = fn
+
+
+def _full_pipeline_pass(engine, overlay):
+    """One first pass of bench's ``full_pipeline`` job in a fresh work
+    dir (the overlay runs), as an ``extract(pages)``."""
+    import tempfile
+
+    from marie_tpu_torch.pipe import ExtractPipeline
+
+    def run(pages):
+        with tempfile.TemporaryDirectory() as work_dir:
+            return ExtractPipeline(ocr_engine=engine, classifiers=[], indexers=[],
+                                   work_dir=work_dir, overlay_processor=overlay,
+                                   device="cuda").execute("bench0", "bench_pdf", list(pages))
+
+    return _Calls(run)
+
+
+def phase_extract(shipped, cls_tree, ner_tree):
+    """The extract pipeline (``ExtractPipeline``: burst, overlay cleanup,
+    OCR streamed to the renderers, classify and index, the text, PDF,
+    BLOBS and Adlib renderers, pack, store) on the card:
+
+    * (a) on the 16 shipped pages with the golden's OCR replayed, the
+      classifier at ``base(3)`` and the indexer at ``base(5)`` (the trees
+      of ``layoutlm_base``) and no overlay: labels, entities and the
+      renderers' digest equal to ``torch_zoo/golden_extract.json``, scores
+      within EXTRACT_SCORE_LIMIT;
+    * (b) bench's ``full_pipeline`` job (``bench.py:388-437``):
+      ``DefaultOcrEngine`` on the zoo's trained trees in bench's serving
+      configuration, ``OverlayProcessor()`` at full width (seeded,
+      bfloat16, ``gan_scale`` 2), no heads, on the 16 pages with 12-15
+      made dirty (``dirty_pages``), twice in a fresh work dir: the gate
+      sends the 4 dirty pages through the generator on the first pass;
+      the second reads ``clean/`` and runs no generator.  pages/s,
+      ms/page, stage seconds and launches of each; pages 0-11 against the
+      truth and the golden (the golden's limits); ``results.tif``, the
+      PDF and the packed assets checked (``_check_bundle``);
+    * (c) (b) with the heads of (a): ``classify_index`` and K2 on
+      ``"heads"``;
+    * (d) the generator alone: bfloat16 ``segment_batch`` on the 4 dirty
+      pages repeated to 16 (ms/page, TFLOP/s); float32 on the card
+      against the CPU on 2 of them (GAN_CPU_EQUAL); float32 against the
+      JAX golden's per-page counts (GAN_COUNT_LIMIT, GAN_SUM_LIMIT), and
+      bfloat16's distance from them reported as the control; bfloat16
+      against float32 on the card (GAN_BF16_MASK_EQUAL, GAN_BF16_WITHIN_4).
+
+    Returns the launches by part and pass, and ``phase_profile``'s setups
+    for a first pass of (b) and the generator on the 4 dirty pages."""
+    import copy
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu_torch.models.configs import LayoutLMConfig, Pix2PixConfig
+    from marie_tpu_torch.ocr.default_ocr_engine import DefaultOcrEngine
+    from marie_tpu_torch.ocr.util import craft_box_processor, trocr_processor
+    from marie_tpu_torch.overlay.overlay import OverlayProcessor, _segment_batch_gray
+    from marie_tpu_torch.pipe import ExtractPipeline
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.utils.image_io import encode_jpeg, write_png
+
+    with open(os.path.join(ZOO_DIR, "golden_extract.json")) as f:
+        golden = json.load(f)
+    settings = golden["settings"]
+    if settings["seeds"]["classifier"] != SEED + 10 or settings["seeds"]["indexer"] != SEED + 11:
+        raise AssertionError(f"golden seeds {settings['seeds']} are not layoutlm_base's")
+    pages = list(shipped["pages"])
+    n, (h, w) = len(pages), pages[0].shape
+    t0 = time.perf_counter()
+    cls = LayoutDocumentClassifier(tuple(settings["labels"]), LayoutLMConfig.base(3), cls_tree,
+                                   device="cuda")
+    ner = LayoutDocumentIndexer(tuple(settings["ner_labels"]), LayoutLMConfig.base(5), ner_tree,
+                                device="cuda")
+    row = {"phase": "extract", "pages": n, "page_hw": [h, w], "score_limit": EXTRACT_SCORE_LIMIT}
+    launches = {}
+    with tempfile.TemporaryDirectory() as work_dir:
+        # (a) the golden's OCR: heads and renderers against JAX
+        t = time.perf_counter()
+        _reset_counts()
+        pipe = ExtractPipeline(ocr_engine=ReplayOcr(shipped["golden"]["pages"]),
+                               classifiers=[cls], indexers=[ner],
+                               work_dir=os.path.join(work_dir, "a"), device="cuda")
+        meta = pipe.execute("shipped.tif", "extract", pages)
+        torch.cuda.synchronize()
+        launches["golden"] = _read_counts()
+        (checksum,) = os.listdir(os.path.join(work_dir, "a"))
+        digest = asset_digest(os.path.join(work_dir, "a", checksum))
+
+        def rows(pc, pi):
+            return ([p["classification"] for p in pc],
+                    [[(e["label"], list(e["word_span"]), e["text"]) for e in p["entities"]]
+                     for p in pi])
+
+        def scores(pc, pi):
+            return [p["score"] for p in pc] + [e["score"] for p in pi for e in p["entities"]]
+
+        got_scores = scores(meta["page_classifier"], meta["page_indexer"])
+        want_scores = scores(golden["page_classifier"], golden["page_indexer"])
+        equal = (rows(meta["page_classifier"], meta["page_indexer"])
+                 == rows(golden["page_classifier"], golden["page_indexer"]))
+        err = (float(np.abs(np.subtract(got_scores, want_scores)).max())
+               if len(got_scores) == len(want_scores) else float("inf"))
+        row["golden"] = {"equal_labels_entities": equal, "max_score_err": err,
+                         "digest_equal": digest == golden["digest"],
+                         "differing": sorted(k for k in golden["digest"]
+                                             if digest.get(k) != golden["digest"][k]),
+                         "entities": sum(len(p["entities"]) for p in meta["page_indexer"]),
+                         "wall_s": time.perf_counter() - t, "launches": launches["golden"]}
+        if not (equal and err <= EXTRACT_SCORE_LIMIT and digest == golden["digest"]):
+            emit(row)
+            raise AssertionError(f"extract on the golden's OCR differs from JAX: {row['golden']}")
+
+        # (b) and (c): bench's full_pipeline job, without and with heads
+        t = time.perf_counter()
+        engine = DefaultOcrEngine(
+            box_processor=craft_box_processor(256, cc_runs=32, device="cuda"),
+            ocr_processor=trocr_processor(device="cuda", batch_sizes=(32, 128, 256)),
+            upload_format="u2", compact_slots=160, page_fuse_batch=16, device="cuda")
+        overlay = OverlayProcessor(device="cuda")
+        row["setup_s"] = time.perf_counter() - t0
+        row["engine_s"] = time.perf_counter() - t
+        if (overlay.trained or overlay.config != Pix2PixConfig()
+                or not all(engine.trained.values())):
+            raise AssertionError(f"engine {engine.trained}, overlay trained {overlay.trained}")
+        frames = list(pages)
+        dirty = dirty_pages([pages[i] for i in DIRTY_PAGES])
+        for i, d in zip(DIRTY_PAGES, dirty):
+            frames[i] = d
+        gate = [mid > 0.03 for _, mid in overlay.overlay_scores(frames)]
+        row["gate_dirty"] = [i for i, g in enumerate(gate) if g]
+        if row["gate_dirty"] != list(DIRTY_PAGES):
+            raise AssertionError(f"the gate sent pages {row['gate_dirty']} to the generator")
+        clean_golden = [{k: v for k, v in p.items() if k != "classification"}
+                        for p in copy.deepcopy(shipped["golden"]["pages"][:DIRTY_PAGES[0]])]
+        for p in clean_golden:
+            for wd in p["words"]:
+                wd.pop("ner_label", None)
+                wd.pop("ner_score", None)
+        for part, heads in (("full", False), ("heads", True)):
+            pipe = ExtractPipeline(ocr_engine=engine, classifiers=[cls] if heads else [],
+                                   indexers=[ner] if heads else [],
+                                   work_dir=os.path.join(work_dir, part),
+                                   overlay_processor=overlay, device="cuda")
+            passes = {}
+            for k, name in enumerate(EXTRACT_PASSES):
+                meta, passes[name] = _extract_pass(pipe, frames, f"bench{k}", overlay, part)
+                launches[f"{part}_{name}"] = passes[name]["launches"]
+                (checksum,) = os.listdir(os.path.join(work_dir, part))
+                passes[name]["bundle"] = _check_bundle(
+                    meta, os.path.join(work_dir, part, checksum), frames, DIRTY_PAGES,
+                    f"bench{k}")
+                _check_results(meta["ocr"], n, h, w)
+            passes["clean_pages"] = _against_golden(
+                meta["ocr"][:DIRTY_PAGES[0]], clean_golden,
+                shipped["truth"]["pages"][:DIRTY_PAGES[0]], (h, w))
+            if heads:
+                passes["labels"] = sorted({p["classification"] for p in meta["page_classifier"]})
+                passes["entities"] = sum(len(p["entities"]) for p in meta["page_indexer"])
+            row[part] = passes
+            p1, p2 = passes["pass_1"], passes["pass_2"]
+            ok = (p1["generator_calls"] == 1 and p2["generator_calls"] == 0
+                  and passes["clean_pages"]["within_limits"]
+                  and all(p["launches"]["crop_resize"].get("fused", 0) > 0
+                          and p["launches"]["flash_attention"].get("fused", 0) > 0
+                          for p in (p1, p2)))
+            if heads:
+                ok = ok and all(p["launches"]["flash_attention"].get("heads", 0) > 0
+                                for p in (p1, p2))
+            if not ok:
+                emit(row)
+                raise AssertionError(f"extract {part}: {passes}")
+
+        # the host's file encoders on the 16 pages (render thread, clean/)
+        host = {}
+        for name, fn in (("jpeg", encode_jpeg), ("png", lambda f: write_png(io.BytesIO(), f))):
+            t = time.perf_counter()
+            for f in frames:
+                fn(f)
+            host[f"{name}_ms_per_page"] = (time.perf_counter() - t) / n * 1e3
+        row["host_encoders"] = host
+
+        # (d) the generator alone at full width
+        dirty16 = np.stack(dirty * 4)
+        flops = _gan_flops(overlay.config, h // overlay.gan_scale, w // overlay.gan_scale)
+        ms, _ = _ms_per_call(lambda: overlay.segment_batch(list(dirty16), gate="off"))
+        gan = {"pages": len(dirty16), "bf16_ms_per_page": ms / len(dirty16),
+               "gflop_per_page": flops / 1e9,
+               "bf16_tflops": flops * len(dirty16) / (ms * 1e-3) / 1e12}
+        t = time.perf_counter()
+        cpu = OverlayProcessor(device="cpu").segment_batch(dirty[:2], chunk=2,
+                                                          compute_dtype="float32", gate="off")
+        gan["cpu_check_s"] = time.perf_counter() - t
+        card32 = overlay.segment_batch(dirty[:2], chunk=2, compute_dtype="float32", gate="off")
+        diff = np.abs(np.stack(card32).astype(np.int16) - np.stack(cpu))
+        gan["f32_card_cpu"] = {"equal": float(np.mean(diff == 0)), "max_diff": int(diff.max()),
+                               "limit": GAN_CPU_EQUAL}
+        d4 = torch.from_numpy(np.stack(dirty)).cuda()
+        masks = {}
+        for dt in ("float32", "bfloat16"):
+            m, b = overlay._forward(_segment_batch_gray, dt, d4, overlay.gan_scale)
+            masks[dt] = (m.cpu().numpy(), b.cpu().numpy())
+        gan["golden_limits"] = {"pixels": GAN_COUNT_LIMIT, "sum": GAN_SUM_LIMIT}
+        for dt, key in (("float32", "f32_against_golden"), ("bfloat16", "bf16_against_golden")):
+            gan[key] = _off_golden(*masks[dt], dirty, golden["overlay"])
+        (m32, b32), (m16, b16) = masks["float32"], masks["bfloat16"]
+        d16 = np.abs(b16.astype(np.int16) - b32)
+        gan["bf16_vs_f32"] = {"mask_equal": float(np.mean(m16 == m32)),
+                              "equal": float(np.mean(d16 == 0)),
+                              "within_1": float(np.mean(d16 <= 1)),
+                              "within_4": float(np.mean(d16 <= 4)),
+                              "limits": {"mask_equal": GAN_BF16_MASK_EQUAL,
+                                         "within_4": GAN_BF16_WITHIN_4}}
+        row["generator"] = gan
+    emit(row)
+    bf = gan["bf16_vs_f32"]
+    if not (gan["f32_card_cpu"]["equal"] >= GAN_CPU_EQUAL
+            and gan["f32_against_golden"]["within_limits"]
+            and bf["mask_equal"] >= GAN_BF16_MASK_EQUAL and bf["within_4"] >= GAN_BF16_WITHIN_4):
+        raise AssertionError(f"generator: {gan}")
+    # the traced pass takes the last 8 pages (4 clean, the 4 dirty): the
+    # profiler spends ~1.4 s a page on the job's ~530 launches a page
+    return launches, {
+        "extract_full": (_full_pipeline_pass(engine, overlay), frames[8:]),
+        "overlay": (_Calls(lambda p: overlay.segment_batch(list(p), gate="off")), dirty)}
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -1650,20 +2122,22 @@ def main() -> int:
     _, setups, pages = run("slice", phase_slice)
     run("stream", phase_stream, setups["heatmap"], pages)
     launches, chain_engines, chain_results = run("chain", phase_chain, setups, pages)
-    cls_tree = run("layoutlm_base", phase_layoutlm_base, pages, chain_results)
+    cls_tree, ner_tree = run("layoutlm_base", phase_layoutlm_base, pages, chain_results)
     shipped = run("trained", load_shipped)
     trained_engine, trained_launches = run("trained", phase_trained, shipped)
     forms_launches = run("forms", phase_forms, trained_engine, shipped)
     best, best_launches = run("best", phase_best, shipped)
     classify_launches = run("classify", phase_classify, shipped, trained_engine, cls_tree)
-    del cls_tree
+    extract_launches, extract_setups = run("extract", phase_extract, shipped, cls_tree,
+                                           ner_tree)
+    del cls_tree, ner_tree
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
          "trained": (trained_engine, shipped["pages"]),
-         # two pages: tracing the best engine's ~8,700 launches a page
+         # one page: tracing the best engine's ~8,700 launches a page
          # costs the profiler ~8 s a page
-         "best": (best, list(shipped["pages"][:2]))})
+         "best": (best, list(shipped["pages"][:1])), **extract_setups})
     # the trained engine's 16-page run is the main path (OCR program and
     # chained heads); the forms phase adds the fragments path, the best
     # phase the voting engine's recognisers
@@ -1675,7 +2149,9 @@ def main() -> int:
             "best": best_launches[name].get("best", 0),
             **{f"classify_{p}_{k}": v for p in CLASSIFY_PASSES
                for k, v in classify_launches[p][name].items() if k != "all"},
-            "embeddings": classify_launches["embeddings"][name].get("embeddings", 0)}
+            "embeddings": classify_launches["embeddings"][name].get("embeddings", 0),
+            **{f"extract_{part}_{k}": v for part, counts in extract_launches.items()
+               for k, v in counts[name].items() if k != "all"}}
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -1,7 +1,8 @@
 """Model size configs — the presets of ``marie_tpu/models/configs.py``
 that the port runs: CRAFT ``fast_s2d2``, TrOCR ``fast_v3_g2_d6``, the
-LayoutLM ``base``, ``synth`` and ``tiny`` presets, the CRNN, and the
-``tiny`` CPU-test presets of CRAFT, TrOCR and the CRNN.  Field names and defaults are the JAX
+LayoutLM ``base``, ``synth`` and ``tiny`` presets, the CRNN, the pix2pix
+generator (default, ``synth``, ``tiny``), and the ``tiny`` CPU-test
+presets of CRAFT, TrOCR and the CRNN.  Field names and defaults are the JAX
 package's, so a config means the same model on both sides."""
 
 import dataclasses
@@ -201,3 +202,24 @@ class LayoutLMConfig:
             use_image=True,
             num_labels=num_labels,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Pix2PixConfig:
+    """Overlay-cleanup generator (the pix2pix ``resnet_9blocks`` of upstream
+    marie's overlay)."""
+
+    base_channels: int = 64
+    num_res_blocks: int = 9
+    in_channels: int = 3
+    out_channels: int = 3
+
+    @staticmethod
+    def synth() -> "Pix2PixConfig":
+        """The JAX package's synthetic-trained generator
+        (``marie_tpu/train/overlay.py``, ``model_zoo/pix2pix-synth``)."""
+        return Pix2PixConfig(base_channels=32, num_res_blocks=6)
+
+    @staticmethod
+    def tiny() -> "Pix2PixConfig":
+        return Pix2PixConfig(base_channels=8, num_res_blocks=2)

@@ -1,6 +1,6 @@
-"""Pipeline asset lifecycle: store and restore document assets (copy of
-``marie_tpu/pipe/assets.py`` without the frame writers, which need PIL
-and wait for the extract pipeline).
+"""Pipeline asset lifecycle: burst, store and restore document assets
+(port of ``marie_tpu/pipe/assets.py``; the frame writers go through
+:mod:`marie_tpu_torch.utils.image_io` instead of PIL).
 
 Every pipeline run is rooted in a checksum-keyed asset directory; stage
 outputs live in named subdirectories (``clean``, ``results``, ``pdf``
@@ -11,8 +11,12 @@ pipeline's OCR cache, ``results/ocr.json``).
 """
 
 import os
+from functools import partial
 from typing import List, Optional, Tuple
 
+import numpy as np
+
+from marie_tpu_torch.helper import ensure_exists
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.storage.manager import StorageManager
 
@@ -65,6 +69,40 @@ def s3_asset_path(
     if include_filename:
         path = f"{path}/{filename}"
     return path
+
+
+def save_frame(frame: np.ndarray, path: str) -> None:
+    """Save one page frame: a PackBits TIFF for ``.tif``/``.tiff`` paths
+    (bool frames 1-bit; the JAX package writes those as CCITT G4, which
+    :mod:`~marie_tpu_torch.utils.image_io` does not encode), a PNG of a
+    uint8 gray or RGB frame otherwise."""
+    from marie_tpu_torch.utils.image_io import write_png, write_tiff
+
+    frame = np.asarray(frame)
+    if path.lower().endswith((".tif", ".tiff")):
+        write_tiff(path, [frame])
+    else:
+        write_png(path, frame)
+
+
+def burst_frames(
+    ref_id: str,
+    frames: List[np.ndarray],
+    root_asset_dir: str,
+    force: bool = False,
+) -> str:
+    """Burst page frames to numbered files under ``burst/``; a no-op when
+    the directory already holds one file per page (upstream marie's
+    ``burst_frames``)."""
+    output_dir = ensure_exists(os.path.join(root_asset_dir, "burst"))
+    filename, prefix, suffix = split_filename(ref_id)
+    namer = partial(filename_supplier_page, filename, prefix, suffix or "tif")
+    if not force and get_file_count(output_dir) == len(frames):
+        logger.debug(f"burst skipped (count match) for {ref_id}")
+        return output_dir
+    for i, frame in enumerate(frames):
+        save_frame(frame, os.path.join(output_dir, namer(i)))
+    return output_dir
 
 
 def restore_assets(

@@ -1,9 +1,12 @@
 """Host image resizes and the grayscale conversion that give cv2's bits,
 in numpy (the card has no cv2).
 
-The JAX package resizes with cv2 in two places: an oversize page is
+The JAX package resizes with cv2 in these places: an oversize page is
 downscaled to the largest bucket with ``INTER_AREA``
-(``marie_tpu/boxes/craft_box_processor.py:292-297``), and a host fragment
+(``marie_tpu/boxes/craft_box_processor.py:292-297``,
+``marie_tpu/utils/image_utils.py:38``, ``marie_tpu/overlay/overlay.py:168``),
+the overlay's cleaned page and mask go back up with ``INTER_LINEAR`` and
+``INTER_NEAREST`` (``marie_tpu/overlay/overlay.py:190,307``), and a host fragment
 is resized to the recogniser's height with ``INTER_LINEAR``
 (``marie_tpu/document/trocr_ocr_processor.py:223-225``,
 ``marie_tpu/document/crnn_ocr_processor.py:143``), after
@@ -25,6 +28,8 @@ take uint8 ``[H, W]`` or ``[H, W, C]`` images and a target size
   cell, summed in float32 in cv2's order, rounded half to even.  Growing
   either side is cv2's area-mode bilinear, which the port never asks for
   and which is refused here.
+* :func:`resize_nearest_u8`: target index ``d`` reads source
+  ``min(floor(d * (1 / (dst / src))), src - 1)`` in double precision.
 * :func:`rgb2gray_u8`: ``(9798 R + 19235 G + 3735 B + 2^14) >> 15``, the
   15-bit fixed point of cv2's vectorised uint8 path (cv2's 14-bit scalar
   coefficients give the same bytes only on some inputs).
@@ -172,6 +177,19 @@ def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     b1 = b1.reshape((dh, 1) + chan)
     out = (((b0 * rows(y0)) >> 16) + ((b1 * rows(y1)) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_nearest_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_NEAREST)``
+    (``size`` = (width, height))."""
+    dw, dh = _check(img, size)
+    h, w = img.shape[:2]
+
+    def taps(src: int, dst: int) -> np.ndarray:
+        inv = 1.0 / (dst / src)  # cv2: ifx = 1 / inv_scale_x, in double
+        return np.minimum(np.floor(np.arange(dst) * inv).astype(np.int64), src - 1)
+
+    return img[taps(h, dh)[:, None], taps(w, dw)[None, :]]
 
 
 def rgb2gray_u8(img: np.ndarray) -> np.ndarray:

@@ -11,6 +11,11 @@ extra):
   ``axis=(-2, -1)`` kernels ``[H, dh, out]`` -> ``[out, H*dh]`` (both
   are the row-major ``[in..., out...]`` kernel read as ``[in, out]``);
 * Conv ``[kh, kw, I, O]`` -> ``[O, I, kh, kw]``;
+* ConvTranspose ``[kh, kw, I, O]`` -> ``[I, O, kh, kw]`` flipped in kh
+  and kw: flax correlates the dilated input with the kernel as stored
+  (``transpose_kernel=False``), torch's transposed convolution with the
+  kernel flipped (``models/pix2pix.py``);
+* GroupNorm (a module with ``flax_norm``) ``scale`` -> weight;
 * BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
   weight, bias, running_mean, running_var;
 * LayerNorm ``scale`` -> weight; Embed ``embedding`` -> weight;
@@ -34,9 +39,15 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from marie_tpu_torch.models.configs import CraftConfig, CRNNConfig, LayoutLMConfig, TrOCRConfig
+from marie_tpu_torch.models.configs import (
+    CraftConfig,
+    CRNNConfig,
+    LayoutLMConfig,
+    Pix2PixConfig,
+    TrOCRConfig,
+)
 
-Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig]
+Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig, Pix2PixConfig]
 #: the LayoutLM heads by name ("encoder": the bare encoder, no head)
 LAYOUT_HEADS = ("sequence", "token", "encoder")
 
@@ -59,6 +70,7 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         LayoutLMv3ForSequenceClassification,
         LayoutLMv3ForTokenClassification,
     )
+    from marie_tpu_torch.models.pix2pix import ResnetGenerator
     from marie_tpu_torch.models.trocr import TrOCRModel
 
     if isinstance(config, LayoutLMConfig):
@@ -77,6 +89,8 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         return TrOCRModel(config)
     if isinstance(config, CRNNConfig):
         return CRNN(config)
+    if isinstance(config, Pix2PixConfig):
+        return ResnetGenerator(config)
     raise TypeError(f"no port model for {type(config).__name__}")
 
 
@@ -102,7 +116,9 @@ def _convert_leaf(mod: nn.Module, coll: str, leaf: str, arr: np.ndarray):
         arr = arr.reshape(mod.in_features, mod.out_features).T
     elif leaf == "kernel" and isinstance(mod, nn.Conv2d):
         arr = arr.transpose(3, 2, 0, 1)
-    elif leaf == "bias" and isinstance(mod, (nn.Linear, nn.Conv2d)):
+    elif leaf == "kernel" and isinstance(mod, nn.ConvTranspose2d):
+        arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif leaf == "bias" and isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
         arr = arr.reshape(-1)
     return name, arr
 
@@ -193,7 +209,14 @@ def _flax_leaves(module: nn.Module):
                     leaf, shape, fan_in = "kernel", (kh, kw, i, o), kh * kw * i
                 else:
                     leaf = "bias"
-            elif isinstance(mod, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
+            elif isinstance(mod, nn.ConvTranspose2d):
+                if pname == "weight":
+                    i, o, kh, kw = shape
+                    leaf, shape, fan_in = "kernel", (kh, kw, i, o), kh * kw * i
+                else:
+                    leaf = "bias"
+            elif (isinstance(mod, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm))
+                  or getattr(mod, "flax_norm", False)):
                 leaf = "scale" if pname == "weight" else "bias"
             elif isinstance(mod, nn.Embedding):
                 leaf = "embedding"

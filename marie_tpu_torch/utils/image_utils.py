@@ -1,8 +1,10 @@
-"""Image helpers (copy of ``hash_frames_fast`` of
-``marie_tpu/utils/image_utils.py``)."""
+"""Image helpers (copy of ``hash_frames_fast`` and ``ensure_max_page_size``
+of ``marie_tpu/utils/image_utils.py``; the resize is
+:func:`marie_tpu_torch.preprocess.resize.resize_area_u8`, cv2's
+``INTER_AREA`` bits in numpy)."""
 
 import hashlib
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -17,3 +19,16 @@ def hash_frames_fast(frames: Sequence[np.ndarray]) -> str:
         h.update(np.ascontiguousarray(f[:: max(f.shape[0] // 64, 1)]).tobytes())
         h.update(str(f.shape).encode())
     return h.hexdigest()[:32]
+
+
+def ensure_max_page_size(
+    image: np.ndarray, max_h: int = 3000, max_w: int = 3000
+) -> Tuple[np.ndarray, float]:
+    """Downscale oversized pages; returns (image, scale_applied<=1)."""
+    from marie_tpu_torch.preprocess.resize import resize_area_u8
+
+    h, w = image.shape[:2]
+    scale = min(max_h / h, max_w / w, 1.0)
+    if scale >= 1.0:
+        return image, 1.0
+    return resize_area_u8(image, (int(w * scale), int(h * scale))), scale

@@ -11,6 +11,7 @@ the DejaVu font (the JAX package's own environment)::
     python scripts/export_torch_zoo.py --best   # only crnn-synth.npz and
                                                 # golden_best.json
     python scripts/export_torch_zoo.py --classify  # only golden_classify.json
+    python scripts/export_torch_zoo.py --extract   # only golden_extract.json
 
 It writes
 
@@ -44,6 +45,18 @@ It writes
   ``LayoutEmbeddingsModel`` at base width (its encoder tree likewise) on
   the first 4 pages' texts (golden words joined by spaces), rounded to 6
   decimals.  The file stays under 100 KB.
+* ``golden_extract.json``: the JAX ``ExtractPipeline`` on the 16 pages
+  with an engine that replays ``golden.json``'s OCR results
+  (``chip_smoke.py::ReplayOcr``), no overlay, all four renderers, the
+  classifier of ``golden_classify.json`` and a
+  ``LayoutDocumentIndexer`` at ``LayoutLMConfig.base(5)`` (both from the
+  port's ``init_flax_layout`` at the seeds the file states): the page
+  labels, scores and entities, and ``chip_smoke.py::asset_digest`` of the
+  asset directory (renderer hashes and the listing); and the JAX
+  ``OverlayProcessor`` at ``Pix2PixConfig()`` (the port's seeded tree) in
+  float32 ``segment_batch`` (``gan_scale`` 2) on pages 12-15 made dirty
+  by ``chip_smoke.py::dirty_pages``: per page the mask pixels, the
+  blended pixels that differ from the input and the blended page's sum.
 """
 
 import argparse
@@ -353,6 +366,89 @@ def export_classify() -> None:
         json.dump(golden, f, default=_json_default, separators=(",", ":"))
 
 
+#: the indexer of golden_extract.json: chip_smoke.py's layoutlm_base
+#: draws its base-width indexer from this seed
+EXTRACT_SEEDS = {"classifier": CLASSIFY_SEEDS["classifier"], "indexer": 11, "generator": 0}
+NER_LABELS = ("O", "B-KEY", "I-KEY", "B-VALUE", "I-VALUE")
+
+
+def export_extract() -> None:
+    """golden_extract.json, from the shipped pages and golden.json."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    from chip_smoke import DIRTY_PAGES, DIRTY_SEED, ReplayOcr, asset_digest, dirty_pages
+    from marie_tpu.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu.models.configs import LayoutLMConfig, Pix2PixConfig
+    from marie_tpu.overlay.overlay import OverlayProcessor, _segment_batch_gray_jit
+    from marie_tpu.pipe import ExtractPipeline
+    from marie_tpu_torch.models.configs import LayoutLMConfig as PortConfig
+    from marie_tpu_torch.models.configs import Pix2PixConfig as PortPix2Pix
+    from marie_tpu_torch.overlay.overlay import SEED as GENERATOR_SEED
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    def tree(config, seed, head=None):
+        return jax.tree_util.tree_map(jnp.asarray, init_flax_layout(config, seed, head))
+
+    assert GENERATOR_SEED == EXTRACT_SEEDS["generator"]
+    with np.load(os.path.join(ZOO, "pages.npz")) as data:
+        stack = data["pages"]
+    with open(os.path.join(ZOO, "golden.json")) as f:
+        ocr = json.load(f)["pages"]
+    seeds = EXTRACT_SEEDS
+    t0 = time.time()
+    classifier = LayoutDocumentClassifier(
+        labels=CLASSIFY_LABELS, config=LayoutLMConfig.base(num_labels=3),
+        params=tree(PortConfig.base(num_labels=3), seeds["classifier"], "sequence"))
+    indexer = LayoutDocumentIndexer(
+        labels=NER_LABELS, config=LayoutLMConfig.base(num_labels=5),
+        params=tree(PortConfig.base(num_labels=5), seeds["indexer"], "token"))
+    with tempfile.TemporaryDirectory() as work_dir:
+        meta = ExtractPipeline(ocr_engine=ReplayOcr(ocr), classifiers=[classifier],
+                               indexers=[indexer], work_dir=work_dir).execute(
+            "shipped.tif", "extract", list(stack))
+        (checksum,) = os.listdir(work_dir)
+        digest = asset_digest(os.path.join(work_dir, checksum))
+    print(f"golden_extract pipeline: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    dirty = np.stack(dirty_pages(stack[list(DIRTY_PAGES)], DIRTY_SEED))
+    proc = OverlayProcessor(config=Pix2PixConfig(),
+                            variables=tree(PortPix2Pix(), seeds["generator"]))
+    mask, blended = jax.device_get(_segment_batch_gray_jit(
+        proc.model, proc.variables, jnp.asarray(dirty), compute_dtype=jnp.float32, gan_scale=2))
+    overlay = [{"page": p, "mask_pixels": int((m > 0).sum()),
+                "changed_pixels": int((b != d).sum()), "sum": int(b.astype(np.int64).sum())}
+               for p, m, b, d in zip(DIRTY_PAGES, mask, blended, dirty)]
+    print(f"golden_extract overlay: {time.time() - t0:.1f} s", flush=True)
+    golden = {
+        "settings": {
+            "pipeline": "ExtractPipeline(ocr_engine=ReplayOcr(golden.json pages), no overlay, "
+                        "renderers text/pdf/blobs/adlib), ref_id shipped.tif, frames = "
+                        "pages.npz pages",
+            "classifier": "LayoutDocumentClassifier(labels, LayoutLMConfig.base(num_labels=3)),"
+                          " use_image, init_flax_layout(config, seed, 'sequence')",
+            "indexer": "LayoutDocumentIndexer(ner_labels, LayoutLMConfig.base(num_labels=5)), "
+                       "init_flax_layout(config, seed, 'token')",
+            "overlay": "OverlayProcessor(Pix2PixConfig(), init_flax_layout(config, seed)), "
+                       "_segment_batch_gray_jit float32, gan_scale 2, on the dirty pages",
+            "dirty_pages": {"pages": list(DIRTY_PAGES), "seed": DIRTY_SEED},
+            "seeds": seeds,
+            "labels": list(CLASSIFY_LABELS),
+            "ner_labels": list(NER_LABELS),
+        },
+        "page_classifier": meta["page_classifier"],
+        "page_indexer": meta["page_indexer"],
+        "digest": digest,
+        "overlay": overlay,
+    }
+    with open(os.path.join(ZOO, "golden_extract.json"), "w") as f:
+        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+
+
 def _cut(page, box):
     x, y, w, h = box
     return np.ascontiguousarray(page[y:y + h, x:x + w])
@@ -374,6 +470,8 @@ def main() -> None:
                     help="write only crnn-synth.npz and golden_best.json")
     ap.add_argument("--classify", action="store_true",
                     help="write only golden_classify.json")
+    ap.add_argument("--extract", action="store_true",
+                    help="write only golden_extract.json")
     args = ap.parse_args()
 
     import jax
@@ -384,6 +482,9 @@ def main() -> None:
         return
     if args.classify:
         export_classify()
+        return
+    if args.extract:
+        export_extract()
         return
     from bench import make_pages
     from marie_tpu.enums import PSMode
@@ -426,6 +527,7 @@ def main() -> None:
             json.dump(obj, f, default=_json_default, separators=(",", ":"))
     export_best()
     export_classify()
+    export_extract()
     sizes = {n: os.path.getsize(os.path.join(ZOO, n)) for n in sorted(os.listdir(ZOO))}
     print(json.dumps({"bytes": sizes, "total": sum(sizes.values())}))
 

@@ -7,6 +7,8 @@ it, with the JAX-side ``conftest.py`` left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -563,3 +565,120 @@ def test_cuda_layout_embeddings_match_cpu_and_launch_on_embeddings(cuda_device):
     want = LayoutEmbeddingsModel(config, tree, device="cpu").get_embeddings(texts)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     assert launches == config.num_layers
+
+
+@pytest.mark.cuda
+def test_cuda_overlay_matches_cpu(cuda_device):
+    """The seeded ``synth``-width generator in float32 ``segment_batch`` at
+    ``gan_scale`` 1 and 2, card against CPU: masks and blended pixels
+    equal in >= 99.9% (a float32 value on a rounding boundary of
+    ``clip((fake + 1) * 127.5)`` moves a pixel by one level), never more
+    than one level apart where the masks agree; bfloat16 on the card
+    runs and agrees with float32 on >= 99% of the masks."""
+    from marie_tpu_torch.models.configs import Pix2PixConfig
+    from marie_tpu_torch.overlay.overlay import OverlayProcessor, _segment_batch_gray
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    tree = init_flax_layout(Pix2PixConfig.synth(), 6)
+    pages = np.stack([_ink_page(40 + s, 256, 192, n_words=8) for s in range(2)])
+    pages[:, 60:64, :] = np.minimum(pages[:, 60:64, :], 160)  # a form rule
+    procs = [OverlayProcessor(config=Pix2PixConfig.synth(), variables=tree, device=dev)
+             for dev in (cuda_device, torch.device("cpu"))]
+    for gan_scale in (1, 2):
+        (m, b), (mc, bc) = [
+            [t.cpu().numpy() for t in p._forward(_segment_batch_gray, "float32",
+                                                  torch.from_numpy(pages).to(p.device),
+                                                  gan_scale)]
+            for p in procs]
+        d = np.abs(b.astype(np.int16) - bc)
+        assert np.mean(m == mc) >= 0.999 and np.mean(d == 0) >= 0.999
+        assert d[m == mc].max() <= 1
+        m16, _ = procs[0]._forward(_segment_batch_gray, "bfloat16",
+                                   torch.from_numpy(pages).to(cuda_device), gan_scale)
+        assert np.mean(m16.cpu().numpy() == m) >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_extract_pipeline_matches_cpu(cuda_device, tmp_path):
+    """``ExtractPipeline`` with a tiny engine, tiny heads and the tiny
+    generator (float32) on the card against the CPU run, on a clean page
+    and a dirty one: the dirty page's cleaned image within the overlay
+    test's limits; the clean page's OCR result dict (confidences within
+    1e-3), label and entities (scores within 1e-3) equal; the same asset
+    listing; K1 and K2 launch on the card.  (The dirty page's OCR reads
+    the generator's output, where a pixel one level off may move an ink
+    box, so it is not compared.)"""
+    import json
+
+    import chip_smoke
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.components.document_classifier import LayoutDocumentClassifier
+    from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.models.configs import (
+        CraftConfig,
+        LayoutLMConfig,
+        Pix2PixConfig,
+        TrOCRConfig,
+    )
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.ops.kernels import _build
+    from marie_tpu_torch.overlay.overlay import OverlayProcessor
+    from marie_tpu_torch.pipe import ExtractPipeline
+    from marie_tpu_torch.registry.convert import init_flax_layout
+    from marie_tpu_torch.utils.image_io import read_png
+
+    trees = {"craft": init_flax_layout(CraftConfig.tiny(), 1),
+             "trocr": init_flax_layout(TrOCRConfig.tiny(), 2),
+             "cls": init_flax_layout(LayoutLMConfig.tiny(3), 3, "sequence"),
+             "ner": init_flax_layout(LayoutLMConfig.tiny(3), 4, "token"),
+             "gen": init_flax_layout(Pix2PixConfig.tiny(), 5)}
+    frames = [_ink_page(50 + s, 192, 256, n_words=8) for s in range(2)]
+    frames[1] = chip_smoke.dirty_pages([frames[1]], seed=3)[0]
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        _build.reset_counts(k1.crop_resize, k2.flash_attention)
+        engine = PipelineOcrEngine(
+            BoxProcessorCraft(CraftConfig.tiny(), trees["craft"], box_source="ink",
+                              max_components=64, min_area=4, device=dev),
+            TrOcrProcessor(TrOCRConfig.tiny(), trees["trocr"], device=dev))
+        pipe = ExtractPipeline(
+            ocr_engine=engine,
+            classifiers=[LayoutDocumentClassifier(("a", "b", "c"), LayoutLMConfig.tiny(3),
+                                                  trees["cls"], device=dev)],
+            indexers=[LayoutDocumentIndexer(("O", "B-K", "I-K"), LayoutLMConfig.tiny(3),
+                                            trees["ner"], window=16, stride=8, device=dev)],
+            overlay_processor=OverlayProcessor(config=Pix2PixConfig.tiny(),
+                                               variables=trees["gen"],
+                                               compute_dtype="float32", device=dev),
+            work_dir=str(tmp_path / dev.type), device=dev)
+        meta = json.loads(json.dumps(pipe.execute("doc.tif", "extract", frames)))
+        (checksum,) = os.listdir(tmp_path / dev.type)
+        root = tmp_path / dev.type / checksum
+        runs.append((meta, read_png(str(root / "clean" / "doc_00001.png")),
+                     sorted(os.path.relpath(os.path.join(b, f), root)
+                            for b, _, fs in os.walk(root) for f in fs),
+                     k1.crop_resize.launches, k2.flash_attention.launches))
+    (got, got_clean, got_assets, k1_n, k2_n), (want, want_clean, want_assets, _, _) = runs
+    assert k1_n > 0 and k2_n > 0
+    d = np.abs(got_clean.astype(np.int16) - want_clean)
+    assert np.mean(d == 0) >= 0.999 and not np.array_equal(got_clean, frames[1])
+    assert got_assets == want_assets
+
+    def split(obj):
+        if isinstance(obj, dict):
+            return {k: split(v) for k, v in obj.items()}
+        if isinstance(obj, list):
+            return [split(v) for v in obj]
+        return None if isinstance(obj, float) else obj
+
+    def floats(obj):
+        if isinstance(obj, dict):
+            return [x for _, v in sorted(obj.items()) for x in floats(v)]
+        if isinstance(obj, list):
+            return [x for v in obj for x in floats(v)]
+        return [obj] if isinstance(obj, float) else []
+
+    for key in ("ocr", "page_classifier", "page_indexer"):
+        assert split(got[key][0]) == split(want[key][0])
+        np.testing.assert_allclose(floats(got[key][0]), floats(want[key][0]), rtol=0, atol=1e-3)
