@@ -1,9 +1,11 @@
 """Model size configs — the presets of ``marie_tpu/models/configs.py``
 that the port runs: CRAFT ``fast_s2d2``, TrOCR ``fast_v3_g2_d6``, the
 LayoutLM ``base``, ``synth`` and ``tiny`` presets, the CRNN, the pix2pix
-generator (default, ``synth``, ``tiny``), and the ``tiny`` CPU-test
-presets of CRAFT, TrOCR and the CRNN.  Field names and defaults are the JAX
-package's, so a config means the same model on both sides."""
+generator (default, ``synth``, ``tiny``), CRAFT ``base`` (the template
+matchers' trunk), the boundary regressor (default, ``tiny``), and the
+``tiny`` CPU-test presets of CRAFT, TrOCR and the CRNN.  Field names
+and defaults are the JAX package's, so a config means the same model on
+both sides."""
 
 import dataclasses
 from typing import Optional, Tuple
@@ -122,6 +124,12 @@ class CraftConfig:
         return 2 if self.head_d2s else 2 * self.stem_stride
 
     @staticmethod
+    def base() -> "CraftConfig":
+        """The full-width trunk (``craft-synth``; the DIM and VQNNF
+        matchers' features)."""
+        return CraftConfig(base_channels=64)
+
+    @staticmethod
     def fast_s2d2() -> "CraftConfig":
         """The serving detector (``craft-s2d2-synth``): half-width trunk
         behind a 2x space-to-depth stem, 2x depth-to-space head."""
@@ -223,3 +231,17 @@ class Pix2PixConfig:
     @staticmethod
     def tiny() -> "Pix2PixConfig":
         return Pix2PixConfig(base_channels=8, num_res_blocks=2)
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundaryConfig:
+    """The document-boundary corner regressor (``models/boundary.py``)."""
+
+    input_hw: Tuple[int, int] = (192, 256)
+    base_channels: int = 24
+    num_stages: int = 5
+    mlp_dim: int = 256
+
+    @staticmethod
+    def tiny() -> "BoundaryConfig":
+        return BoundaryConfig(input_hw=(48, 64), base_channels=8, num_stages=3, mlp_dim=32)

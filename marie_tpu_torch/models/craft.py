@@ -193,14 +193,20 @@ class CRAFT(nn.Module):
         self.head_out = nn.Conv2d(c // 2 or 1, nc * f * f if cfg.head_d2s else nc, 1)
         self.eval()
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def _stem(self, images: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> the NCHW input of stage1 (space-to-depth first
+        when the config has the stem)."""
         f = self.cfg.stem_stride
         if f > 1:
             b, h, w, ch = images.shape
             images = images.reshape(b, h // f, f, w // f, f, ch)
             images = images.permute(0, 1, 3, 2, 4, 5).reshape(
                 b, h // f, w // f, f * f * ch)
-        x = images.permute(0, 3, 1, 2)
+        return images.permute(0, 3, 1, 2)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        f = self.cfg.stem_stride
+        x = self._stem(images)
         s1 = self.stage1(x)
         s2 = self.stage2(F.max_pool2d(s1, 2, 2))
         s3 = self.stage3(F.max_pool2d(s2, 2, 2))
@@ -221,6 +227,25 @@ class CRAFT(nn.Module):
             out = out.reshape(b, hh, ww, f, f, nc).permute(0, 1, 3, 2, 4, 5)
             out = out.reshape(b, f * hh, f * ww, nc)
         return out
+
+    #: the VGG stages :meth:`trunk` can stop at
+    TRUNK_STAGES = ("stage1", "stage2", "stage3", "stage4", "stage5")
+
+    def trunk(self, images: torch.Tensor, layer: str = "stage3") -> torch.Tensor:
+        """[B, H, W, C] float in [0, 1] -> the named VGG stage's output
+        [B, h, w, C'] (NHWC), the feature grid the template matchers read
+        (flax's ``capture_intermediates`` of that stage); ``stage3`` is at
+        stride 4 (times the stem's) with ``4 * base_channels`` channels."""
+        if layer not in self.TRUNK_STAGES:
+            raise ValueError(f"layer is one of {self.TRUNK_STAGES}, got {layer!r}")
+        x = self._stem(images)
+        for i, name in enumerate(self.TRUNK_STAGES):
+            if i:
+                x = F.max_pool2d(x, 2, 2)
+            x = getattr(self, name)(x)
+            if name == layer:
+                return x.permute(0, 2, 3, 1)
+        raise AssertionError(layer)
 
     def set_cpu_bf16_rounding(self, mode: str) -> "CRAFT":
         """Where a bf16 forward on the CPU rounds: ``"xla"`` (default)

@@ -5,15 +5,19 @@ overlays, OCR, classify and index, render the text, searchable-PDF,
 BLOBS and Adlib artifacts, pack the delivery assets and store them, all
 rooted in a checksum-keyed asset directory that a rerun of the same
 document reuses.  Runtime feature flags follow upstream's
-``runtime_conf`` shape (``page_classifier.enabled`` ...).
+``runtime_conf`` shape (``page_classifier.enabled`` ...).  Two optional
+stages run as in the JAX pipeline: boundary registration before the
+overlay (``page_boundary``, off by default: each frame is replaced by the
+registered page, the predictions go to ``metadata["boundary"]``), and
+template matching on the cleaned frames after OCR (``template_matching``,
+on when a matcher is given).
 
-The engine, the overlay and the heads run where they were built (the
-card unless they were given ``device="cpu"``); the pipeline's own
-threads (burst, ``results.tif``, render) are host code on numpy frames
-and result dicts and touch no CUDA tensor.  Files go through
-:mod:`marie_tpu_torch.utils.image_io` (PNG, TIFF, JPEG in numpy), not
-PIL.  The JAX pipeline's boundary and template-matching stages wait for
-their processors (ROADMAP §1 item 6).
+The engine, the overlay, the registration, the matchers and the heads
+run where they were built (the card unless they were given
+``device="cpu"``); the pipeline's own threads (burst, ``results.tif``,
+render) are host code on numpy frames and result dicts and touch no CUDA
+tensor.  Files go through :mod:`marie_tpu_torch.utils.image_io` (PNG,
+TIFF, JPEG in numpy), not PIL.
 """
 
 import json
@@ -72,9 +76,8 @@ class ExtractPipeline(BasePipeline):
         **kwargs,
     ):
         super().__init__(classifiers=classifiers, indexers=indexers, **kwargs)
-        if boundary_processor is not None or template_matcher is not None:
-            raise NotImplementedError(
-                "the boundary and template-matching stages are ROADMAP §1 item 6")
+        self.template_matcher = template_matcher
+        self.boundary_processor = boundary_processor
         self.device = resolve_device(device)
         if ocr_engine is None:
             from marie_tpu_torch.ocr.default_ocr_engine import DefaultOcrEngine
@@ -143,6 +146,7 @@ class ExtractPipeline(BasePipeline):
         # overlay cleanup runs by default, as upstream's standard segment
         # stage; the blend is mask-gated, so clean pages pass unchanged
         cleaner_enabled = flag("page_cleaner", True)
+        boundary_enabled = flag("page_boundary", False)
 
         metadata: Dict[str, Any] = {
             "ref_id": ref_id,
@@ -168,6 +172,18 @@ class ExtractPipeline(BasePipeline):
         burst_thread.start()
 
         stage_times: Dict[str, float] = {}
+        if boundary_enabled and self.boundary_processor is not None:
+            # the registered pages go into a new list: the burst thread
+            # writes the incoming ones
+            frames = list(frames)
+            with TimeContext("boundary", self.logger) as tc, record_function("marie.boundary"):
+                boundary_meta = []
+                for i, f in enumerate(frames):
+                    res = self.boundary_processor.run(f)
+                    boundary_meta.append({"page": i, **res.get("meta", {})})
+                    frames[i] = res.get("aligned", f)
+                metadata["boundary"] = boundary_meta
+            stage_times["boundary"] = round(tc.duration, 4)
         metadata["stage_times_s"] = stage_times
 
         clean_frames = frames
@@ -251,6 +267,17 @@ class ExtractPipeline(BasePipeline):
             render_q.put(None)  # always unblock the consumer
         metadata["ocr"] = ocr_results
         render_t0 = time.perf_counter()
+
+        if self.template_matcher is not None and flag("template_matching", True):
+            with TimeContext("template-matching", self.logger) as tc, \
+                    record_function("marie.template_matching"):
+                matches = self.template_matcher.match(clean_frames)
+                metadata["template_matching"] = [
+                    {"frame_index": m.frame_index, "label": m.label, "bbox": m.bbox,
+                     "score": round(m.score, 4)}
+                    for m in matches
+                ]
+            stage_times["template_matching"] = round(tc.duration, 4)
 
         with TimeContext("classify-index", self.logger) as tc, \
                 record_function("marie.classify_index"):

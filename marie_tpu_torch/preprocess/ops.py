@@ -65,6 +65,33 @@ def otsu_binarize(gray: torch.Tensor) -> torch.Tensor:
     return (g <= t[:, None]).reshape(*lead, *gray.shape[-2:])
 
 
+def _bilinear_hwc(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of ``img`` [H, W, C] float32 at float coordinates
+    ``ys``, ``xs`` (any equal shape S) -> [*S, C]; coordinates clamp to the
+    border.  The JAX version's four-term sum, rounded as XLA's CPU backend
+    contracts it (three fused multiply-adds, :func:`fma`), so that the two
+    agree to the bit on equal coordinates."""
+    h, w = img.shape[0], img.shape[1]
+    ys = torch.clamp(ys, 0.0, h - 1.0)
+    xs = torch.clamp(xs, 0.0, w - 1.0)
+    y0 = torch.floor(ys).to(torch.int64)
+    x0 = torch.floor(xs).to(torch.int64)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    ly = (ys - y0)[..., None]
+    lx = (xs - x0)[..., None]
+    flat = img.reshape(h * w, img.shape[2])
+
+    def px(yi, xi):
+        return flat[yi * w + xi]
+
+    a, b = 1 - ly, 1 - lx
+    # v00 a b + v01 a lx + v10 ly b + v11 ly lx
+    acc = fma(px(y0, x0) * a, b, px(y0, x1) * a * lx)
+    acc = fma(px(y1, x0) * ly, b, acc)
+    return fma(px(y1, x1) * ly, lx, acc)
+
+
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a * b + c with one rounding (the product is exact in
     float64), as XLA's CPU backend contracts the JAX code's multiply-adds."""

@@ -40,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from marie_tpu_torch.models.configs import (
+    BoundaryConfig,
     CraftConfig,
     CRNNConfig,
     LayoutLMConfig,
@@ -47,7 +48,8 @@ from marie_tpu_torch.models.configs import (
     TrOCRConfig,
 )
 
-Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig, Pix2PixConfig]
+Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig, Pix2PixConfig,
+               BoundaryConfig]
 #: the LayoutLM heads by name ("encoder": the bare encoder, no head)
 LAYOUT_HEADS = ("sequence", "token", "encoder")
 
@@ -63,6 +65,7 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
     classification), ``"token"`` (NER) or ``"encoder"`` (the encoder
     alone, whose flax tree has its modules at the top); other configs
     take none."""
+    from marie_tpu_torch.models.boundary import BoundaryNet
     from marie_tpu_torch.models.craft import CRAFT
     from marie_tpu_torch.models.crnn import CRNN
     from marie_tpu_torch.models.layoutlm import (
@@ -91,6 +94,8 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         return CRNN(config)
     if isinstance(config, Pix2PixConfig):
         return ResnetGenerator(config)
+    if isinstance(config, BoundaryConfig):
+        return BoundaryNet(config)
     raise TypeError(f"no port model for {type(config).__name__}")
 
 

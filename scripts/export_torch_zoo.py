@@ -12,6 +12,7 @@ the DejaVu font (the JAX package's own environment)::
                                                 # golden_best.json
     python scripts/export_torch_zoo.py --classify  # only golden_classify.json
     python scripts/export_torch_zoo.py --extract   # only golden_extract.json
+    python scripts/export_torch_zoo.py --register  # only golden_register.json
 
 It writes
 
@@ -57,6 +58,19 @@ It writes
   float32 ``segment_batch`` (``gan_scale`` 2) on pages 12-15 made dirty
   by ``chip_smoke.py::dirty_pages``: per page the mask pixels, the
   blended pixels that differ from the input and the blended page's sum.
+* ``golden_register.json`` (~4 min): the JAX boundary registration and
+  template matchers on the ``register`` phase's inputs, which
+  ``chip_smoke.py`` makes with the port from the shipped pages and a
+  seed: the deskew path on the 16 pages rotated by known angles (angle,
+  box, score and the input and aligned pages' sums); the model path
+  (``BoundaryConfig()`` from the port's ``init_flax_layout``) on 4
+  scanner canvases, with and without the edge snap (the network's
+  normalised corners, the snap, box, angle, score, sums); NCC, DIM, VQNNF
+  (``CraftConfig.base()`` likewise) and their composite on the 16 pages
+  with 4 word crops and a noise template; and on the pages of
+  ``golden_extract.json``'s dirty set registered by the deskew path: the
+  boundary metadata, NCC, DIM, VQNNF and their composite, and the serving
+  engine's words.  No pixels.
 """
 
 import argparse
@@ -449,6 +463,142 @@ def export_extract() -> None:
         json.dump(golden, f, default=_json_default, separators=(",", ":"))
 
 
+def export_register() -> None:
+    """golden_register.json: the JAX boundary registration and template
+    matchers on the ``register`` phase's inputs (``chip_smoke.py``)."""
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke as cs
+    from marie_tpu.components.document_registration import boundary as jbd
+    from marie_tpu.components.template_matching import (
+        BaseTemplateMatcher, CompositeTemplateMatcher, DIMTemplateMatcher, NCCTemplateMatcher,
+        TemplateMatchResult, VQNNFTemplateMatcher)
+    from marie_tpu.models.configs import BoundaryConfig, CraftConfig
+    from marie_tpu_torch.components.document_registration.boundary import SEED as BOUNDARY_SEED
+    from marie_tpu_torch.components.template_matching.dim_matcher import SEED as TRUNK_SEED
+    from marie_tpu_torch.models.configs import BoundaryConfig as PortBoundary
+    from marie_tpu_torch.models.configs import CraftConfig as PortCraft
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    def tree(config, seed):
+        return jax.tree_util.tree_map(jnp.asarray, init_flax_layout(config, seed))
+
+    def page_sum(img):
+        return int(np.asarray(img).astype(np.int64).sum())
+
+    class Replay(BaseTemplateMatcher):
+        """A child of the composite that answers with given rows."""
+
+        def __init__(self, rows):
+            super().__init__()
+            self.rows = rows
+
+        def match(self, frames, score_threshold=0.8, **kwargs):
+            return [TemplateMatchResult(bbox=list(b), label=lbl, score=sc, similarity=sc,
+                                        frame_index=f)
+                    for f, lbl, b, sc in self.rows if sc >= score_threshold]
+
+    shipped = cs.load_shipped()
+    pages = list(shipped["pages"])
+    t0 = time.time()
+    deskew = []
+    reg = jbd.DocumentBoundaryRegistration(use_model=False)
+    for page in cs.skewed_pages(pages, "cpu"):
+        pred = reg.register(page)
+        deskew.append({"input_sum": page_sum(page), **pred.to_dict(),
+                       "aligned_sum": page_sum(pred.aligned)})
+    print(f"golden_register deskew: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    btree = tree(PortBoundary(), BOUNDARY_SEED)
+    model = {}
+    for refine in (True, False):
+        reg = jbd.DocumentBoundaryRegistration(model_variables=btree,
+                                               model_config=BoundaryConfig(),
+                                               edge_refine=refine)
+        rows = []
+        for scan, quad in cs.scans(pages, "cpu"):
+            h, w = scan.shape[:2]
+            small = jax.image.resize(jnp.asarray(scan, jnp.float32), (192, 256, 3),
+                                     "bilinear") / 255.0
+            norm = np.asarray(jax.jit(reg.model.apply)(btree, small[None])[0])
+            corners = norm.reshape(4, 2) * np.asarray([w - 1.0, h - 1.0], np.float32)
+            snapped = jbd.refine_quad_corners(scan, corners) if refine else corners
+            pred = reg.register(scan)
+            rows.append({"scan_sum": page_sum(scan), "pred": norm.tolist(),
+                         "refined": bool(np.any(snapped != corners)),
+                         "corners": np.asarray(snapped).tolist(), **pred.to_dict(),
+                         "aligned_sum": page_sum(pred.aligned)})
+        model["edge_refine" if refine else "no_refine"] = rows
+    print(f"golden_register model: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    templates = cs.register_templates(shipped)
+    ctree = tree(PortCraft.base(), TRUNK_SEED)
+
+    def run(matchers, frames):
+        out = {}
+        for name, m in matchers.items():
+            for label, img in templates:
+                m.add_template(label, img)
+            out[name] = cs.match_rows(m.match(frames))
+        out["composite"] = cs.match_rows(CompositeTemplateMatcher(
+            [Replay(out[name]) for name in matchers]).match(frames))
+        return out
+
+    matching = run({"ncc": NCCTemplateMatcher(),
+                    "dim": DIMTemplateMatcher(variables=ctree, config=CraftConfig.base()),
+                    "vqnnf": VQNNFTemplateMatcher(variables=ctree, config=CraftConfig.base())},
+                   pages)
+    print(f"golden_register matching: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    frames = list(pages)
+    for i, d in zip(cs.DIRTY_PAGES, cs.dirty_pages([pages[i] for i in cs.DIRTY_PAGES])):
+        frames[i] = d
+    reg = jbd.DocumentBoundaryRegistration(use_model=False)
+    boundary, registered = [], []
+    for i, f in enumerate(frames):
+        pred = reg.register(f)
+        boundary.append({"page": i, **pred.to_dict()})
+        registered.append(np.asarray(pred.aligned))
+    pipeline = {"boundary": boundary, "aligned_sums": [page_sum(r) for r in registered]}
+    pipeline.update(run({"ncc": NCCTemplateMatcher(),
+                         "dim": DIMTemplateMatcher(variables=ctree, config=CraftConfig.base()),
+                         "vqnnf": VQNNFTemplateMatcher(variables=ctree,
+                                                       config=CraftConfig.base())},
+                        registered))
+    pipeline["ocr"] = [[[w["text"], w["box"]] for w in page["words"]]
+                       for page in serving_engine().extract(registered)]
+    print(f"golden_register pipeline: {time.time() - t0:.1f} s", flush=True)
+    golden = {
+        "settings": {
+            "deskew": "DocumentBoundaryRegistration(use_model=False) on chip_smoke.skewed_pages "
+                      "(the 16 pages rotated by skew_angles)",
+            "model": "DocumentBoundaryRegistration(BoundaryNet(BoundaryConfig()), "
+                     "init_flax_layout(config, seed)), edge_refine on and off, on "
+                     "chip_smoke.scans; pred: the network's normalised corners",
+            "matching": "NCC, DIM and VQNNF (CraftConfig.base(), init_flax_layout(config, "
+                        "seed)) at their default thresholds on the 16 pages with "
+                        "chip_smoke.register_templates; composite: CompositeTemplateMatcher "
+                        "of the three at 0.8",
+            "pipeline": "the 16 pages with DIRTY_PAGES made dirty, each registered by "
+                        "DocumentBoundaryRegistration(use_model=False): the boundary "
+                        "metadata, NCC, DIM, VQNNF and their composite on the registered "
+                        "pages, and golden.json's serving engine's words on them",
+            "seeds": {"boundary": BOUNDARY_SEED, "trunk": TRUNK_SEED,
+                      "register": cs.REGISTER_SEED, "dirty": cs.DIRTY_SEED},
+        },
+        "deskew": deskew,
+        "model": model,
+        "matching": matching,
+        "pipeline": pipeline,
+    }
+    with open(os.path.join(ZOO, "golden_register.json"), "w") as f:
+        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+
+
 def _cut(page, box):
     x, y, w, h = box
     return np.ascontiguousarray(page[y:y + h, x:x + w])
@@ -472,6 +622,8 @@ def main() -> None:
                     help="write only golden_classify.json")
     ap.add_argument("--extract", action="store_true",
                     help="write only golden_extract.json")
+    ap.add_argument("--register", action="store_true",
+                    help="write only golden_register.json")
     args = ap.parse_args()
 
     import jax
@@ -485,6 +637,9 @@ def main() -> None:
         return
     if args.extract:
         export_extract()
+        return
+    if args.register:
+        export_register()
         return
     from bench import make_pages
     from marie_tpu.enums import PSMode
@@ -528,6 +683,7 @@ def main() -> None:
     export_best()
     export_classify()
     export_extract()
+    export_register()
     sizes = {n: os.path.getsize(os.path.join(ZOO, n)) for n in sorted(os.listdir(ZOO))}
     print(json.dumps({"bytes": sizes, "total": sum(sizes.values())}))
 

@@ -682,3 +682,68 @@ def test_cuda_extract_pipeline_matches_cpu(cuda_device, tmp_path):
     for key in ("ocr", "page_classifier", "page_indexer"):
         assert split(got[key][0]) == split(want[key][0])
         np.testing.assert_allclose(floats(got[key][0]), floats(want[key][0]), rtol=0, atol=1e-3)
+
+
+def _registered_inputs():
+    from marie_tpu_torch.components.document_registration.boundary import rotate_page
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+
+    with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
+        pages = [data["pages"][i] for i in (0, 1)]
+    return pages, [rotate_page(torch.from_numpy(np.stack([p] * 3, -1)),
+                               np.float32(np.radians(a))).numpy()
+                   for p, a in zip(pages, (2.3, -4.1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_model", [False, True])
+def test_cuda_registration_matches_cpu(cuda_device, use_model):
+    """Both registration paths on the card against the CPU path: box,
+    angle and detection equal, scores within 1e-4; the deskewed pages
+    equal (the same emulated fused multiply-adds on both); the model
+    path's warped pages equal on >= 95% of pixels and more than 1 level
+    apart on <= 1% (the network's float32 corners differ by ~1e-7 and
+    the seeded regressor's small quad magnifies: measured 99.07%, 0.93%
+    off by up to 7)."""
+    from marie_tpu_torch.components.document_registration import (
+        DocumentBoundaryRegistration,
+    )
+
+    _, pages = _registered_inputs()
+    card = DocumentBoundaryRegistration(use_model=use_model, device="cuda")
+    cpu = DocumentBoundaryRegistration(use_model=use_model, device="cpu")
+    for page in pages:
+        got, want = card.register(page), cpu.register(page)
+        g, w = got.to_dict(), want.to_dict()
+        assert abs(g.pop("score") - w.pop("score")) <= 1e-4
+        assert g == w
+        if not use_model:
+            np.testing.assert_array_equal(got.aligned, want.aligned)
+            continue
+        d = np.abs(got.aligned.astype(np.int16) - want.aligned)
+        assert np.mean(d == 0) >= 0.95 and np.mean(d > 1) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["NCCTemplateMatcher", "DIMTemplateMatcher",
+                                  "VQNNFTemplateMatcher"])
+def test_cuda_matchers_match_cpu(cuda_device, name):
+    """Each matcher on the card against the CPU on two shipped pages and
+    word crops: the same matches, scores within 1e-3."""
+    import json
+
+    from marie_tpu_torch.components import template_matching as tm
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+
+    pages, _ = _registered_inputs()
+    with open(os.path.join(ZOO_DIR, "truth.json")) as f:
+        truth = json.load(f)["pages"][0]
+    card, cpu = getattr(tm, name)(device="cuda"), getattr(tm, name)(device="cpu")
+    for k, (_, (x, y, w, h)) in enumerate(truth[:3]):
+        for m in (card, cpu):
+            m.add_template(f"w{k}", pages[0][y:y + h, x:x + w])
+    got, want = card.match(pages, score_threshold=0.5), cpu.match(pages, score_threshold=0.5)
+    assert got
+    assert [(m.frame_index, m.label, m.bbox) for m in got] == [
+        (m.frame_index, m.label, m.bbox) for m in want]
+    assert max(abs(a.score - b.score) for a, b in zip(got, want)) <= 1e-3

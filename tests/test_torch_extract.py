@@ -420,5 +420,86 @@ def test_entry_points_default_to_the_card(tmp_path):
     engine = DefaultOcrEngine(device="cpu")
     assert engine.trained == {"detector": "craft-s2d2-synth",
                               "recognizer": "trocr-fast3g2d6ov-synth"}
-    with pytest.raises(NotImplementedError):
-        ExtractPipeline(ocr_engine=engine, template_matcher=object(), device="cpu")
+    # the boundary and template-matching stages take their processors
+    pipe = ExtractPipeline(ocr_engine=engine, boundary_processor=object(),
+                           template_matcher=object(), device="cpu")
+    assert pipe.boundary_processor is not None and pipe.template_matcher is not None
+
+
+def _ncc_rounding(page, box):
+    """The relative error of an NCC score whose window statistics are
+    summed in float32, at its typical size: sqrt(n) * eps * sum(x^2) over
+    the window's variance sum((x - mean)^2), halved by the square root."""
+    x, y, w, h = box
+    win = chip_smoke._gray64(page)[y:y + h, x:x + w]
+    var = ((win - win.mean()) ** 2).sum()
+    return float(np.sqrt(win.size) * np.finfo(np.float32).eps * (win * win).sum() / (2 * var))
+
+
+def test_boundary_and_template_stages_match_jax(tmp_path, no_s3):
+    """Both optional stages on, OCR replayed: ``metadata["boundary"]`` (the
+    deskew registration) and ``metadata["template_matching"]`` (NCC, and
+    DIM and VQNNF on a seeded tiny trunk, composed, over the registered pages;
+    patches of the first registered page and of an original page) as the
+    JAX pipeline's: the same matches, scores within 2e-4 and, for JAX's NCC
+    rows, also within the float32 rounding of their window statistics
+    (``_ncc_rounding``: 1.7e-3 measured on the paper-coloured patch, whose
+    variance is small); the port's stage times hold both stages."""
+    from marie_tpu.components.document_registration import (
+        DocumentBoundaryRegistration as JaxRegistration,
+    )
+    from marie_tpu.components import template_matching as J
+    from marie_tpu_torch.components import template_matching as T
+    from marie_tpu_torch.components.document_registration import (
+        DocumentBoundaryRegistration,
+    )
+    from marie_tpu_torch.components.document_registration.boundary import rotate_page
+
+    pages, ocr = _shipped([0, 1])
+    frames = [rotate_page(torch.from_numpy(np.stack([p[:256, :320]] * 3, -1)),
+                          np.float32(np.radians(a))).numpy() for p, a in zip(pages, (2.2, -3.1))]
+    registered = [DocumentBoundaryRegistration(use_model=False, device="cpu").register(f).aligned
+                  for f in frames]
+    trunk = init_flax_layout(tcfg.CraftConfig.tiny(), 12)
+    metas = []
+    for port in (True, False):
+        if port:
+            matcher = T.CompositeTemplateMatcher([T.NCCTemplateMatcher(device="cpu")] + [
+                cls(variables=trunk, config=tcfg.CraftConfig.tiny(), device="cpu")
+                for cls in (T.DIMTemplateMatcher, T.VQNNFTemplateMatcher)])
+            registration = DocumentBoundaryRegistration(use_model=False, device="cpu")
+        else:
+            jax_ncc = J.NCCTemplateMatcher()
+            matcher = J.CompositeTemplateMatcher([jax_ncc] + [
+                cls(variables=_jnp(trunk), config=jcfg.CraftConfig.tiny())
+                for cls in (J.DIMTemplateMatcher, J.VQNNFTemplateMatcher)])
+            registration = JaxRegistration(use_model=False)
+        for k, (x, y) in enumerate(((40, 40), (150, 120), (60, 200))):
+            matcher.add_template(f"patch{k}", registered[0][y:y + 32, x:x + 64])
+        matcher.add_template("original", pages[0][40:72, 40:120])
+        kwargs = dict(ocr_engine=chip_smoke.ReplayOcr(ocr), classifiers=[], indexers=[],
+                      boundary_processor=registration, template_matcher=matcher,
+                      work_dir=str(tmp_path / str(port)))
+        cls = ExtractPipeline if port else JaxExtractPipeline
+        metas.append(cls(**kwargs, **({"device": "cpu"} if port else {})).execute(
+            "doc.tif", "extract", frames, runtime_conf={"page_boundary": {"enabled": True}}))
+    got, want = metas
+    assert [b["page"] for b in got["boundary"]] == [0, 1]
+    _close(_json(got["boundary"]), _json(want["boundary"]), 1e-4)
+    assert len(got["template_matching"]) >= 3
+
+    def ordered(rows):  # matches whose scores tie within the limit come in either order
+        return sorted(_json(rows), key=lambda m: (m["frame_index"], m["label"], m["bbox"]))
+
+    got_tm, want_tm = ordered(got["template_matching"]), ordered(want["template_matching"])
+    assert [{**m, "score": None} for m in got_tm] == [{**m, "score": None} for m in want_tm]
+    ncc_rows = {(m.frame_index, m.label, tuple(m.bbox)) for m in jax_ncc.match(registered)}
+    assert ncc_rows
+    for g, w in zip(got_tm, want_tm):
+        key = (w["frame_index"], w["label"], tuple(w["bbox"]))
+        limit = 2e-4
+        if key in ncc_rows:  # JAX's NCC window statistics are float32, the port's float64
+            limit += w["score"] * _ncc_rounding(registered[key[0]], key[2])
+        assert abs(g["score"] - w["score"]) <= limit, (key, g["score"], w["score"])
+    assert {"boundary", "template_matching"} <= set(got["stage_times_s"])
+    assert set(want["stage_times_s"]) == set(got["stage_times_s"]) - {"boundary"}

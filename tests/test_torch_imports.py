@@ -61,6 +61,35 @@ def test_importing_the_package_builds_nothing():
     assert out.stdout.strip() == "{}"
 
 
+_NEW_MODULES = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "PIL", "cv2"):
+    sys.modules[name] = None
+from marie_tpu_torch.components.document_registration import DocumentBoundaryRegistration
+from marie_tpu_torch.components.template_matching import (
+    CompositeTemplateMatcher, DIMTemplateMatcher, NCCTemplateMatcher, OcrConditionedMatcher,
+    VQNNFTemplateMatcher)
+from marie_tpu_torch.models.boundary import BoundaryNet, warp_quad_to_page
+from marie_tpu_torch.ops.nms import batched_nms, nms
+from marie_tpu_torch.ops.box_ops import box_iou
+reg = DocumentBoundaryRegistration(use_model=False, device="cpu")
+m = NCCTemplateMatcher(device="cpu")
+m.add_template("t", __import__("numpy").zeros((4, 4), "uint8"))
+print(reg.model is None, len(m.match([__import__("numpy").full((16, 16), 255, "uint8")])))
+"""
+
+
+def test_registration_and_matching_import_with_jax_blocked():
+    """The boundary and template-matching modules import and run (on the
+    CPU) with JAX, flax, orbax, PIL and cv2 blocked."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _NEW_MODULES], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["True", "0"]
+
+
 def test_pipeline_and_embeddings_default_to_the_card():
     """The classification pipeline and the layout embeddings are the
     port's; the embeddings (like the heads the pipeline runs) are built on
