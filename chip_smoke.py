@@ -35,9 +35,14 @@ generator alone at full width (``extract``); runs the boundary
 registration (the deskew sweep and the full-width corner regressor) and
 the NCC, DIM and VQNNF template matchers against their JAX golden and the
 CPU, and the ``full_pipeline`` job with both stages on (``register``);
-traces one more run per box source, of the chained engine, of the trained
-engine, of the ``best`` engine, of the extract job and its generator and
-of the job with both stages, with torch.profiler (``profile``).  It prints one JSON
+runs the other word detectors against their JAX golden and the CPU: the
+weight-free ink detector in the engine on the shipped pages, the DiT
+detector at ``dit_synth_s1`` width and its no-tree configuration and
+TextFuseNet at ``synth_s2`` (seeded weights), and the trained engine
+under each CC stats variant (``detectors``); traces one more run per
+box source, of the chained engine, of the trained engine, of the
+``best`` engine, of the extract job and its generator and of the job
+with both stages, with torch.profiler (``profile``).  It prints one JSON
 line per phase; the last two lines are the kernel table and
 ``{"ok": true, "device": {...}}``.  Every phase raises on failure; the
 script exits nonzero, with no result line, without a CUDA device or
@@ -319,6 +324,10 @@ K2_CASES = [
     # the base indexer of the extract phase on a shipped page: one window
     # of 512, kv_len = page 0's word count
     ("layoutlm_base_ner_page_fp32", (1, 12, 512, 512, 64), "fp32", False, EMBEDDINGS, True),
+    # the DiT detector's encoder on one page: dit_synth_s1 (512x384 in
+    # 16x16 patches) and the no-tree configuration (1024x768)
+    ("dit_s1_fp32", (1, 4, 768, 768, 64), "fp32", False, None, True),
+    ("dit_default_fp32", (1, 6, 3072, 3072, 64), "fp32", False, None, True),
 ]
 
 INDEXER_WORDS = 1200  # the long page of phase_layoutlm_base
@@ -708,7 +717,9 @@ def phase_profile(setups):
     ``slice``'s two box sources, ``chain``'s heatmap engine, the
     ``trained`` engine, the ``best`` engine on one page, a first pass of
     the ``extract`` phase's ``full_pipeline`` job on its last 8 pages and
-    its generator on the 4 dirty pages), on every thread; wall time,
+    its generator on the 4 dirty pages, the job with both optional stages,
+    the ink, DiT and TextFuseNet engines of ``detectors`` on 2 pages), on
+    every thread; wall time,
     device busy time, the
     ``marie.*`` stage ranges (counts and times summed over threads;
     ``marie.heads`` for the chained heads) and the kernels with the most
@@ -2595,6 +2606,604 @@ def phase_register(shipped):
     return launches, {"extract_register": (_Calls(job), frames[:4])}
 
 
+#: the ``detectors`` phase: seeds of the seeded detector trees (the
+#: trained trees are not shipped), the shipped pages each part runs, the
+#: block size of the heatmap means held against the golden
+DETECTOR_SEEDS = {"dit_s1": SEED + 60, "dit_default": SEED + 61, "textfusenet": SEED + 62}
+DIT_PAGES = (0, 5, 10, 15)
+DIT_DEFAULT_PAGES = (0, 5)
+TFN_PAGES = (0, 5, 10, 15)
+DETECTOR_CPU_PAGES = 2
+HEAT_BLOCK = 16
+CC_TIMED_CALLS = 5  # calls of each CC stats variant on the 16 pages, timed together
+
+
+def block_means(heat, block: int = HEAT_BLOCK):
+    """[h, w] or [h, w, c] map -> the means of its block x block tiles,
+    float64 rounded to 6 decimals (what the golden keeps of a heatmap)."""
+    import numpy as np
+
+    a = np.asarray(heat, np.float64)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, c = a.shape
+    m = a.reshape(h // block, block, w // block, block, c).mean(axis=(1, 3))
+    return np.round(m, 6)
+
+
+def detector_thresholds(maps, quantiles):
+    """Thresholds at the given quantiles of the pooled maps (the golden's
+    rule where a seeded model's map gives no box at the defaults)."""
+    import numpy as np
+
+    pooled = np.concatenate([np.asarray(m, np.float32).ravel() for m in maps])
+    return [float(np.quantile(pooled, q)) for q in quantiles]
+
+
+#: card against golden: heatmap block means (float32 through 6 layers or
+#: the FPN, TF32 kept out; the attention's 3xTF32 within 1e-5)
+DETECTOR_BLOCK_LIMIT = 1e-4
+#: card against the port's CPU: TextFuseNet's fused scores and refined
+#: boxes (stride-4 cells) on valid slots both sides share
+TFN_FUSE_LIMIT = 1e-3
+#: the port's CPU against JAX on the heatmaps (tests/test_torch_detectors.py;
+#: measured 3.6e-7 on DiT-s1's, 1.8e-7 on TextFuseNet's word and char maps)
+CPU_HEAT_LIMIT = 2e-6
+#: card against the port's CPU: the largest map difference each detector
+#: may show (float32 with TF32 kept out, the attention's 3xTF32).  Measured
+#: on an H100 (PERF.md): 4.8e-6 (dit_s1), 1.5e-5 (dit_default), 2.4e-7
+#: (TextFuseNet's word and char maps); each limit is about four times it
+CARD_CPU_GAP_LIMIT = {"dit_s1": 2e-5, "dit_default": 6e-5, "textfusenet": 1e-6}
+#: boxes of one page that may depart from a reference's, each through a map
+#: pixel that crossed, or can cross, a threshold: one such pixel gains or
+#: loses a part (1 box on one side only), grows or cuts a box (2), merges
+#: or splits two (3).  Measured against the golden: 1 on 2 of DiT-s1's 4
+#: pages, none elsewhere
+DEPARTURE_CAP = 3
+
+
+def _xyxy(xywh):
+    import numpy as np
+
+    b = np.asarray(xywh, np.float64).reshape(-1, 4)
+    return np.concatenate([b[:, :2], b[:, :2] + b[:, 2:]], axis=1)
+
+
+def _pair_boxes(got, want, close):
+    """Pairs (i, j) of [N, 4] and [M, 4] boxes whose coordinates differ
+    by at most ``close``, each box in one pair at most (the first free
+    match, in order)."""
+    import numpy as np
+
+    if not len(got) or not len(want):
+        return []
+    near = np.abs(got[:, None, :] - want[None, :, :]).max(axis=-1) <= close
+    pairs, used = [], np.zeros(len(want), bool)
+    for i in range(len(got)):
+        free = np.flatnonzero(near[i] & ~used)
+        if len(free):
+            used[free[0]] = True
+            pairs.append((i, int(free[0])))
+    return pairs
+
+
+def _lone(got, want, pairs):
+    """The boxes of either side in no pair."""
+    gi, wj = {i for i, _ in pairs}, {j for _, j in pairs}
+    return ([b for i, b in enumerate(got) if i not in gi]
+            + [b for j, b in enumerate(want) if j not in wj])
+
+
+def _covers(box, pixels, to_map) -> bool:
+    """Whether an xyxy box, scaled by ``to_map`` into the map and grown by
+    one pixel, covers a pixel of the bool map ``pixels``."""
+    import numpy as np
+
+    h, w = pixels.shape
+    x0, y0 = (max(int(np.floor(v * to_map)) - 1, 0) for v in box[:2])
+    x1 = min(int(np.ceil(box[2] * to_map)) + 1, w)
+    y1 = min(int(np.ceil(box[3] * to_map)) + 1, h)
+    return bool(pixels[y0:y1, x0:x1].any())
+
+
+def threshold_pixels(card, thresholds, ref=None, tol=0.0):
+    """The map pixels through which a box may depart from a reference's:
+    with the reference's map ``ref``, those on the other side of a
+    threshold than it; without (a reference known to within ``tol``),
+    those within ``tol`` of a threshold."""
+    import numpy as np
+
+    card = np.asarray(card, np.float32)
+    out = np.zeros(card.shape, bool)
+    for t in thresholds:
+        if ref is None:
+            out |= np.abs(card.astype(np.float64) - t) <= tol
+        else:
+            out |= (card > np.float32(t)) != (np.asarray(ref, np.float32) > np.float32(t))
+    return out
+
+
+def _paired_boxes(got, want, close):
+    """Boxes (xywh, scores) of one page against a reference's: (the boxes
+    of either side in no pair, xyxy; the largest score difference of a
+    pair)."""
+    import numpy as np
+
+    gb, wb = _xyxy(got[0]), _xyxy(want[0])
+    gs, ws = np.asarray(got[1], np.float64), np.asarray(want[1], np.float64)
+    pairs = _pair_boxes(gb, wb, close)
+    return _lone(gb, wb, pairs), float(max((abs(gs[i] - ws[j]) for i, j in pairs),
+                                           default=0.0))
+
+
+def detector_page_rule(got, want, pixels, to_map, tol):
+    """One page of detector boxes (xywh page coordinates, scores) against a
+    reference's (the port's CPU or the JAX golden): boxes paired where
+    equal; every box on one side only covers a pixel of ``pixels``
+    (:func:`threshold_pixels`; page to map by ``to_map``), at most
+    DEPARTURE_CAP of them; paired scores within ``tol``.  A row with
+    ``within_limits``."""
+    lone, score_err = _paired_boxes(got, want, 0.0)
+    unexplained = sum(not _covers(b, pixels, to_map) for b in lone)
+    return {"boxes": len(got[0]), "ref_boxes": len(want[0]), "departures": len(lone),
+            "unexplained": unexplained, "threshold_pixels": int(pixels.sum()),
+            "score_err": score_err,
+            "within_limits": unexplained == 0 and len(lone) <= DEPARTURE_CAP
+            and score_err <= tol}
+
+
+def tfn_page_rule(got, want, word_pixels, char_pixels, to_map, limit):
+    """TextFuseNet's valid word slots of one page (``heat_boxes``, fused
+    ``scores``, ``refined`` boxes) against a reference's, paired by heat
+    box: a slot on one side only covers a pixel of ``word_pixels``; a
+    paired slot's score and refined box lie within ``limit``, or its heat
+    box covers a pixel of ``char_pixels`` (a char candidate that may have
+    changed); at most DEPARTURE_CAP of both.  A row with ``within_limits``
+    and ``word_departures``, the ``detect_words`` boxes these may move
+    (one per lone slot, two per changed one)."""
+    import numpy as np
+
+    gh, wh = (np.asarray(x["heat_boxes"], np.float64).reshape(-1, 4) for x in (got, want))
+    pairs = _pair_boxes(gh, wh, 0.0)
+    lone = _lone(gh, wh, pairs)
+    unexplained = sum(not _covers(b, word_pixels, to_map) for b in lone)
+    changed, fuse_err = 0, 0.0
+    for i, j in pairs:
+        err = max(abs(float(got["scores"][i]) - float(want["scores"][j])), float(np.abs(
+            np.asarray(got["refined"][i]) - np.asarray(want["refined"][j])).max()))
+        if err <= limit:
+            fuse_err = max(fuse_err, err)
+        else:
+            changed += 1
+            unexplained += not _covers(gh[i], char_pixels, to_map)
+    return {"slots": len(gh), "ref_slots": len(wh), "lone_slots": len(lone),
+            "changed_slots": changed, "unexplained": unexplained, "fuse_err": fuse_err,
+            "word_departures": len(lone) + 2 * changed,
+            "within_limits": unexplained == 0 and len(lone) + changed <= DEPARTURE_CAP}
+
+
+def tfn_words_rule(got, want, allowed, limit):
+    """TextFuseNet's ``detect_words`` boxes (xywh, scores) against a
+    reference's: paired within 4 x ``limit`` (refined boxes are stride-4
+    cells), at most ``allowed`` boxes on one side only
+    (:func:`tfn_page_rule`'s ``word_departures``), paired scores within
+    ``limit``.  A row with ``within_limits``."""
+    lone, score_err = _paired_boxes(got, want, 4 * limit)
+    return {"boxes": len(got[0]), "ref_boxes": len(want[0]), "departures": len(lone),
+            "allowed": allowed, "score_err": score_err,
+            "within_limits": len(lone) <= allowed and score_err <= limit}
+
+
+def dit_golden_rule(name, found, heats, g, to_map):
+    """The DiT part's hold on the golden: on each page, the card's boxes
+    against the golden's by :func:`detector_page_rule`, through the
+    card's map pixels within the card-to-JAX tolerance of a threshold.
+    Returns (within the rule, rows)."""
+    tol = CARD_CPU_GAP_LIMIT[name] + CPU_HEAT_LIMIT
+    thresholds = [g["low_text"], g["text_threshold"]]
+    rows = [{"page": gp["page"], **detector_page_rule(
+        found[k], (gp["boxes"], gp["scores"]),
+        threshold_pixels(heats[k][..., 0], thresholds, tol=tol), to_map, tol)}
+        for k, gp in enumerate(g["pages"])]
+    return all(r["within_limits"] for r in rows), rows
+
+
+def tfn_golden_rule(found, card, g, to_map):
+    """TextFuseNet's hold on the golden: on each page, the card's valid
+    slots by :func:`tfn_page_rule` and its ``detect_words`` boxes by
+    :func:`tfn_words_rule`, through the card's map pixels within the
+    card-to-JAX tolerance of a threshold.  ``card``: per page (word and
+    char maps, the valid slots' stats).  Returns (within the rule, rows)."""
+    import numpy as np
+
+    tol = CARD_CPU_GAP_LIMIT["textfusenet"] + CPU_HEAT_LIMIT
+    rows = []
+    for k, gp in enumerate(g["pages"]):
+        maps, slots = card[k]
+        word_px = threshold_pixels(maps["word"][..., 0], [g["low_text"], g["word_threshold"]],
+                                   tol=tol)
+        char_px = threshold_pixels(maps["char"][..., 0], [g["char_threshold"]], tol=tol)
+        want = {"heat_boxes": gp["heat_boxes"], "scores": gp["fused_scores"],
+                "refined": np.asarray(gp["refined"], np.float64).reshape(-1, 4)}
+        slot_row = tfn_page_rule(slots, want, word_px, char_px, to_map, TFN_FUSE_LIMIT)
+        words = tfn_words_rule(found[k], (gp["boxes"], gp["scores"]),
+                               slot_row["word_departures"], TFN_FUSE_LIMIT)
+        rows.append({"page": gp["page"], "slots": slot_row, "words": words,
+                     "within_limits": slot_row["within_limits"] and words["within_limits"]})
+    return all(r["within_limits"] for r in rows), rows
+
+
+def _valid_slots(st):
+    """TextFuseNet's stats on their valid word slots, as
+    :func:`tfn_page_rule` takes them."""
+    v = st["valid"]
+    return {"heat_boxes": st["heat_boxes"][v], "scores": st["scores"][v],
+            "refined": st["boxes"][v]}
+
+
+def _words_compare(card, cpu, allowed):
+    """Engine results, card against CPU, page by page: a card word at IoU
+    >= BOX_IOU_LIMIT for a CPU word, boxes moved plus words on one side
+    only at most ``allowed[page]`` (the detector's boxes that departed
+    there, card against CPU), texts equal wherever boxes are.  Returns
+    (within the rule, boxes moved, words on one side only, words whose
+    equal boxes carry different texts)."""
+    from marie_tpu_torch.check import match_words
+
+    ok, moved, one_sided, text_off = True, 0, 0, 0
+    for p, (a, b) in enumerate(zip(card, cpu)):
+        pairs = match_words(b["words"], a["words"], BOX_IOU_LIMIT - 1e-9)
+        lone = len(a["words"]) + len(b["words"]) - 2 * len(pairs)
+        page_moved = sum(a["words"][ai]["box"] != b["words"][bi]["box"] for bi, ai in pairs)
+        one_sided += lone
+        moved += page_moved
+        text_off += sum(a["words"][ai]["text"] != b["words"][bi]["text"] for bi, ai in pairs
+                        if a["words"][ai]["box"] == b["words"][bi]["box"])
+        ok &= lone + page_moved <= allowed[p]
+    return ok and text_off == 0, moved, one_sided, text_off
+
+
+def _float32_recognizers():
+    """The trained TrOCR in float32 on the card and on the CPU: the
+    detectors' engine checks compare their paths, not bf16 near-ties of
+    the recogniser on the noise crops of seeded detectors."""
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.models.configs import TrOCRConfig
+    from marie_tpu_torch.ocr.util import RECOGNIZER_TREE
+    from marie_tpu_torch.registry.zoo import zoo_params
+
+    params = zoo_params(RECOGNIZER_TREE)
+    if params is None:
+        raise AssertionError(f"torch_zoo/ lacks {RECOGNIZER_TREE}")
+    return {dev: TrOcrProcessor(config=TrOCRConfig.fast_v3_g2_d6(), params=params,
+                                param_dtype="float32", batch_sizes=(32, 128, 256), device=dev)
+            for dev in ("cuda", "cpu")}
+
+
+def _timed_pages(fn, items):
+    """(outputs, wall ms per item) of ``fn`` on each item, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [fn(x) for x in items]
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / len(items)
+
+
+def phase_detectors(shipped, trained_engine):
+    """The other word detectors on the card, each against the JAX golden
+    (``golden_detectors.json``) and the port's CPU path, and the CC stats
+    variants:
+
+    (a) ``PipelineOcrEngine(InkBoxProcessor(), trained TrOCR)`` on the 16
+    pages, twice (the page-resident path: RGB device pages, crops by stock
+    ops, so no K1): boxes equal the golden's, text agreement and CER
+    within the ``trained`` limits, card equal to the CPU on 2 pages
+    (scores within ``BF16_SCORE_LIMIT``); recall, precision, IoU and CER
+    against the truth are reported.
+    (b) The DiT detector at ``dit_synth_s1`` width on 4 pages and at the
+    no-tree configuration on 2 (seeded): heatmap block means within
+    DETECTOR_BLOCK_LIMIT of the golden; the card's heatmaps within
+    CARD_CPU_GAP_LIMIT of the CPU's; ``detect_words`` against the golden's
+    on every page and the CPU's on the first (2 and 1) by
+    :func:`detector_page_rule` (every departing box through a map pixel
+    that can cross, or did cross, a threshold; at most DEPARTURE_CAP a
+    page); K2 float32 6 times a page on ``"detectors"``; the engine over
+    it (host fragments, the trained TrOCR in float32), card against CPU
+    on the 2 pages of the CPU check: boxes at IoU >= 0.9, moved boxes and
+    words on one side only at most the detector's departures of that page,
+    texts equal where boxes are.
+    (c) The trained serving engine under each ``cc_stats``: every
+    variant's stats on the 16 pages equal ``runs_cc``'s, the engine's
+    results equal, K1 and K2 launched on ``"fused"``; CC-and-stats ms a
+    page of each.
+    (d) TextFuseNet at ``synth_s2`` (seeded) on 4 pages: dense maps' block
+    means against the golden, the word and char maps within
+    CARD_CPU_GAP_LIMIT of the CPU's, the valid slots (fused scores,
+    refined boxes) and ``detect_words`` against the golden and the CPU by
+    :func:`tfn_page_rule` and :func:`tfn_words_rule`; the engine card
+    against CPU on 2 pages, as (b)'s.
+
+    Every part prints its mask pixels and boxes and fails on none.
+    Returns (the launches of each part by path, {name: (card engine,
+    pages)} for ``phase_profile``)."""
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.boxes import (
+        BoxProcessorTextFuseNet,
+        BoxProcessorUlimDit,
+        InkBoxProcessor,
+    )
+    from marie_tpu_torch.boxes.box_processor import fit_page
+    from marie_tpu_torch.boxes.craft_box_processor import (
+        CC_STATS,
+        cc_component_stats,
+        craft_heatmap,
+        detect_core,
+        heat_masks,
+    )
+    from marie_tpu_torch.boxes.dit_box_processor import DEFAULT_CONFIG, dit_heatmap
+    from marie_tpu_torch.boxes.textfusenet_box_processor import tfn_detect
+    from marie_tpu_torch.check import agreement
+    from marie_tpu_torch.models.configs import TextFuseNetConfig, ViTConfig
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.ocr.util import trocr_processor
+    from marie_tpu_torch.preprocess.ops import normalize_page
+    from marie_tpu_torch.registry.convert import init_flax_layout
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.utils.device import float32_precision
+
+    with open(os.path.join(ZOO_DIR, "golden_detectors.json")) as f:
+        golden = json.load(f)
+    pages = list(shipped["pages"])
+    n, (h, w) = len(pages), pages[0].shape
+    rgb = [np.stack([p] * 3, axis=-1) for p in pages]
+    truth = shipped["truth"]["pages"]
+    cpu_pages = pages[:DETECTOR_CPU_PAGES]
+    ops = {dev: trocr_processor(device=dev, batch_sizes=(32, 128, 256))
+           for dev in ("cuda", "cpu")}
+    launches, failed = {}, []
+
+    def check(part, ok, row):
+        emit({"phase": "detectors", "part": part, "within_limits": bool(ok), **row})
+        if not ok:
+            failed.append(part)
+
+    # (a) ink, the page-resident path
+    engines = {dev: PipelineOcrEngine(InkBoxProcessor(device=dev), ops[dev])
+               for dev in ("cuda", "cpu")}
+    engines["cuda"].extract(pages)
+    _reset_counts()
+    results, ms = _timed_pages(lambda ps: engines["cuda"].extract(ps), [pages])
+    results = results[0]
+    launches["ink"] = _read_counts()
+    gold = [{"words": [{"text": t, "box": b, "confidence": c} for t, b, c in page]}
+            for page in golden["ink"]["pages"]]
+    box_pages = [p for p, (a, g) in enumerate(zip(results, gold))
+                 if [wd["box"] for wd in a["words"]] != [wd["box"] for wd in g["words"]]]
+    row = _against_golden(results, gold, truth, (h, w))
+    cpu = engines["cpu"].extract(cpu_pages)
+    equal, score_err = _results_equal(results[:len(cpu)], cpu)
+    words = sum(len(r["words"]) for r in results)
+    check("ink", not box_pages and row["within_limits"] and equal
+          and score_err <= BF16_SCORE_LIMIT and words > 0 and
+          launches["ink"]["flash_attention"].get("two_phase", 0) > 0
+          and launches["ink"]["crop_resize"]["all"] == 0,
+          {"pages": n, "ms_per_page": ms / n, "words": words,
+           "pages_with_other_boxes": box_pages, "card_equals_cpu": equal,
+           "cpu_pages": len(cpu), "max_score_err": score_err, "launches": launches["ink"],
+           **row})
+
+    # (b) DiT at both widths
+    def dit_part(name, config, ids, cpu_ids):
+        g = golden[name]
+        tree = init_flax_layout(config, DETECTOR_SEEDS[name])
+        bps = {dev: BoxProcessorUlimDit(config=config, variables=tree, device=dev,
+                                        low_text=g["low_text"],
+                                        text_threshold=g["text_threshold"],
+                                        min_area=g["min_area"])
+               for dev in ("cuda", "cpu")}
+        thresholds = [g["low_text"], g["text_threshold"]]
+        imgs = [rgb[i] for i in ids]
+        bps["cuda"].detect_words(imgs[0])
+        _reset_counts()
+        found, det_ms = _timed_pages(bps["cuda"].detect_words, imgs)
+        counts = _read_counts()
+        # page coordinates to heatmap pixels
+        to_map = bps["cuda"].buckets.fit_with_scale(h, w)[1] / config.head_stride
+
+        def heatmap(bpd, img):
+            return dit_heatmap(bpd.model, fit_page(img, bpd.buckets, bpd.device)[0]).cpu().numpy()
+
+        heats = [heatmap(bps["cuda"], im) for im in imgs]
+        block_err = max(float(np.abs(block_means(hm) - np.asarray(gp["block_means"])).max())
+                        for hm, gp in zip(heats, g["pages"]))
+        cpu_heats = [heatmap(bps["cpu"], rgb[i]) for i in cpu_ids]
+        gap = max(float(np.abs(heats[k] - c).max()) for k, c in enumerate(cpu_heats))
+        limit = CARD_CPU_GAP_LIMIT[name]
+        cpu_rows = [{"page": i, **detector_page_rule(
+            found[k], bps["cpu"].detect_words(rgb[i]),
+            threshold_pixels(heats[k][..., 0], thresholds, ref=cpu_heats[k][..., 0]),
+            to_map, limit)} for k, i in enumerate(cpu_ids)]
+        golden_ok, golden_rows = dit_golden_rule(name, found, heats, g, to_map)
+        mask_px = [int((hm[..., 0] > g["low_text"]).sum()) for hm in heats]
+        k2 = counts["flash_attention"].get("detectors", 0)
+        ok = (block_err <= DETECTOR_BLOCK_LIMIT and gap <= limit
+              and all(r["within_limits"] for r in cpu_rows) and golden_ok
+              and min(mask_px) > 0 and sum(len(b) for b, _ in found) > 0
+              and k2 == config.num_layers * len(ids))
+        return bps, ok, {"config": name, "tokens": config.seq_len, "pages": list(ids),
+                         "detector_ms_per_page": det_ms, "thresholds": g["thresholds"],
+                         "low_text": g["low_text"], "text_threshold": g["text_threshold"],
+                         "min_area": g["min_area"],
+                         "block_err": block_err, "block_limit": DETECTOR_BLOCK_LIMIT,
+                         "card_cpu_heat_gap": gap, "gap_limit": limit,
+                         "departure_cap": DEPARTURE_CAP, "mask_pixels": mask_px,
+                         "cpu": cpu_rows, "golden": golden_rows, "k2_detectors": k2,
+                         "launches": counts}
+
+    dit_ids = DIT_PAGES[:DETECTOR_CPU_PAGES]
+    dit_bps, ok, row = dit_part("dit_s1", ViTConfig.dit_synth_s1(), DIT_PAGES, dit_ids)
+    launches["dit_s1"] = row["launches"]
+    recognizers = _float32_recognizers()
+    dit_engines = {dev: PipelineOcrEngine(dit_bps[dev], recognizers[dev])
+                   for dev in ("cuda", "cpu")}
+    eng_pages = [pages[i] for i in dit_ids]
+    dit_engines["cuda"].extract(eng_pages[:1])
+    _reset_counts()
+    card, eng_ms = _timed_pages(lambda ps: dit_engines["cuda"].extract(ps), [eng_pages])
+    card = card[0]
+    launches["dit_engine"] = _read_counts()
+    cpu = dit_engines["cpu"].extract(eng_pages)
+    same, moved, one_sided, text_off = _words_compare(
+        card, cpu, [r["departures"] for r in row["cpu"]])
+    eng_ok = (same and sum(len(r["words"]) for r in card) > 0
+              and launches["dit_engine"]["flash_attention"].get("detectors", 0)
+              == 6 * len(eng_pages)
+              and launches["dit_engine"]["flash_attention"].get("fragments", 0) > 0)
+    check("dit_s1", ok and eng_ok, {**row, "engine_ms_per_page": eng_ms / len(eng_pages),
+                                    "engine_recognizer": "trained TrOCR, float32",
+                                    "engine_words": sum(len(r["words"]) for r in card),
+                                    "engine_within_rule": same, "engine_boxes_moved": moved,
+                                    "engine_one_sided": one_sided,
+                                    "engine_text_off": text_off,
+                                    "engine_launches": launches["dit_engine"]})
+    setups = {"detectors_dit_s1": (dit_engines["cuda"], eng_pages)}
+    _, ok, row = dit_part("dit_default", DEFAULT_CONFIG, DIT_DEFAULT_PAGES,
+                          DIT_DEFAULT_PAGES[:1])
+    launches["dit_default"] = row["launches"]
+    check("dit_default", ok, row)
+
+    # (c) the CC stats variants on the trained serving engine
+    bp = trained_engine.box_processor
+    dev_pages = torch.from_numpy(np.stack(pages)).cuda()
+    rgb_pages, heat = craft_heatmap(bp.model, dev_pages)
+    mask, scores, _ = heat_masks(heat, rgb_pages, bp.low_text, bp.link_threshold,
+                                 bp.model.cfg.out_stride, bp.box_source)
+    ref = trained_engine.extract(pages)
+    base = None
+    variant_rows = {}
+    for name in ["runs_cc"] + sorted(set(CC_STATS) - {"runs_cc"}):
+        cc_component_stats(mask, scores, bp.max_components, name, bp.cc_runs)
+        stats, cc_ms = _timed_pages(
+            lambda _: cc_component_stats(mask, scores, bp.max_components, name, bp.cc_runs),
+            range(CC_TIMED_CALLS))
+        stats = {k: v.cpu() for k, v in stats[0].items()}
+        core = detect_core(bp.model, dev_pages, bp.text_threshold, bp.low_text,
+                           bp.link_threshold, bp.max_components, bp.box_source,
+                           cc_stats=name, cc_runs=bp.cc_runs)
+        if base is None:
+            base = stats
+        bp.cc_stats = name
+        _reset_counts()
+        try:
+            got = trained_engine.extract(pages)
+            torch.cuda.synchronize()
+        finally:
+            bp.cc_stats = "runs_cc"
+        counts = _read_counts()
+        launches[f"cc_{name}"] = counts
+        stats_equal = all(torch.equal(stats[k], base[k]) for k in base) and all(
+            torch.equal(core[k].cpu(), base[k]) for k in base)
+        equal, score_err = _results_equal(got, ref)
+        variant_rows[name] = {"cc_ms_per_page": cc_ms / n, "stats_equal": stats_equal,
+                              "results_equal": equal, "max_score_err": score_err,
+                              "valid": int(stats["valid"].sum()),
+                              "k1_fused": counts["crop_resize"].get("fused", 0),
+                              "k2_fused": counts["flash_attention"].get("fused", 0)}
+    ok = all(r["stats_equal"] and r["results_equal"] and r["max_score_err"] == 0.0
+             and r["k1_fused"] > 0 and r["k2_fused"] > 0 and r["valid"] > 0
+             for r in variant_rows.values())
+    check("cc_stats", ok, {"pages": n, "mask_pixels": int(mask.sum()),
+                           "variants": variant_rows})
+    del dev_pages, rgb_pages, heat, mask, scores
+
+    # (d) TextFuseNet
+    g = golden["textfusenet"]
+    config = TextFuseNetConfig.synth_s2()
+    tree = init_flax_layout(config, DETECTOR_SEEDS["textfusenet"])
+    bps = {dev: BoxProcessorTextFuseNet(config=config, variables=tree, device=dev,
+                                        low_text=g["low_text"],
+                                        word_threshold=g["word_threshold"],
+                                        char_threshold=g["char_threshold"],
+                                        fuse_threshold=g["fuse_threshold"],
+                                        min_area=g["min_area"])
+           for dev in ("cuda", "cpu")}
+    imgs = [rgb[i] for i in TFN_PAGES]
+    bps["cuda"].detect_words(imgs[0])
+    found, det_ms = _timed_pages(bps["cuda"].detect_words, imgs)
+
+    def dense_and_stats(dev, img):
+        bpd = bps[dev]
+        page = fit_page(img, bpd.buckets, bpd.device)[0]
+        with torch.no_grad(), float32_precision(False):
+            dense = bpd.model.dense(normalize_page(page)[None])
+        st = tfn_detect(bpd.model, page, bpd.word_threshold, bpd.low_text, bpd.char_threshold)
+        return ({k: v[0].cpu().numpy() for k, v in dense.items() if k in ("word", "char")},
+                {k: v.cpu().numpy() for k, v in st.items()})
+
+    card = [dense_and_stats("cuda", im) for im in imgs]
+    block_err = 0.0
+    for (dense, st), gp in zip(card, g["pages"]):
+        for key, got in (("word_means", dense["word"]), ("char_means", dense["char"]),
+                         ("seg_means", st["seg"])):
+            block_err = max(block_err, float(np.abs(block_means(got)
+                                                    - np.asarray(gp[key])).max()))
+    thresholds = {"word": [g["low_text"], g["word_threshold"]], "char": [g["char_threshold"]]}
+    to_map = 4.0 / config.head_stride  # stride-4 cells to map pixels
+    limit = CARD_CPU_GAP_LIMIT["textfusenet"]
+    cpu_rows, gap = [], 0.0
+    for k in range(DETECTOR_CPU_PAGES):
+        dense_c, st_c = dense_and_stats("cpu", imgs[k])
+        dense, st = card[k]
+        gap = max(gap, *(float(np.abs(dense[m] - dense_c[m]).max()) for m in ("word", "char")))
+        word_px, char_px = (threshold_pixels(dense[m][..., 0], thresholds[m],
+                                             ref=dense_c[m][..., 0]) for m in ("word", "char"))
+        slots = tfn_page_rule(_valid_slots(st), _valid_slots(st_c), word_px, char_px, to_map,
+                              TFN_FUSE_LIMIT)
+        words = tfn_words_rule(found[k], bps["cpu"].detect_words(imgs[k]),
+                               slots["word_departures"], TFN_FUSE_LIMIT)
+        cpu_rows.append({"page": TFN_PAGES[k], "word_pixels_off": int(word_px.sum()),
+                         "char_pixels_off": int(char_px.sum()), "slots": slots,
+                         "words": words,
+                         "within_limits": slots["within_limits"] and words["within_limits"]})
+    golden_ok, golden_rows = tfn_golden_rule(
+        found, [(dense, _valid_slots(st)) for dense, st in card], g, to_map)
+    tfn_engines = {dev: PipelineOcrEngine(bps[dev], recognizers[dev])
+                   for dev in ("cuda", "cpu")}
+    eng_pages = imgs[:DETECTOR_CPU_PAGES]
+    _reset_counts()
+    card_res, eng_ms = _timed_pages(lambda ps: tfn_engines["cuda"].extract(ps), [eng_pages])
+    card_res = card_res[0]
+    launches["textfusenet"] = _read_counts()
+    cpu_res = tfn_engines["cpu"].extract(eng_pages)
+    same, moved, one_sided, text_off = _words_compare(
+        card_res, cpu_res, [r["words"]["departures"] for r in cpu_rows])
+    mask_px = [int((c[0]["word"][..., 0] > g["low_text"]).sum()) for c in card]
+    cpu_ok = gap <= limit and all(r["within_limits"] for r in cpu_rows)
+    check("textfusenet", block_err <= DETECTOR_BLOCK_LIMIT and cpu_ok and golden_ok
+          and min(mask_px) > 0 and sum(len(b) for b, _ in found) > 0 and same
+          and sum(len(r["words"]) for r in card_res) > 0,
+          {"pages": list(TFN_PAGES), "detector_ms_per_page": det_ms,
+           "engine_ms_per_page": eng_ms / len(eng_pages),
+           "engine_recognizer": "trained TrOCR, float32", "thresholds": g["thresholds"],
+           "block_err": block_err, "block_limit": DETECTOR_BLOCK_LIMIT,
+           "card_cpu_map_gap": gap, "gap_limit": limit, "departure_cap": DEPARTURE_CAP,
+           "mask_pixels": mask_px,
+           "boxes": [len(b) for b, _ in found], "cpu": cpu_rows, "golden": golden_rows,
+           "engine_words": sum(len(r["words"]) for r in card_res),
+           "engine_within_rule": same, "engine_boxes_moved": moved,
+           "engine_one_sided": one_sided, "engine_text_off": text_off,
+           "launches": launches["textfusenet"]})
+    if failed:
+        raise AssertionError(f"detectors outside their limits: {failed}")
+    setups.update(detectors_ink=(engines["cuda"], pages[:DETECTOR_CPU_PAGES]),
+                  detectors_textfusenet=(tfn_engines["cuda"], eng_pages))
+    return launches, setups
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -2639,13 +3248,16 @@ def main() -> int:
                                            ner_tree)
     del cls_tree, ner_tree
     register_launches, register_setups = run("register", phase_register, shipped)
+    detector_launches, detector_setups = run("detectors", phase_detectors, shipped,
+                                             trained_engine)
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
          "trained": (trained_engine, shipped["pages"]),
          # one page: tracing the best engine's ~8,700 launches a page
          # costs the profiler ~8 s a page
-         "best": (best, list(shipped["pages"][:1])), **extract_setups, **register_setups})
+         "best": (best, list(shipped["pages"][:1])), **extract_setups, **register_setups,
+         **detector_setups})
     # the trained engine's 16-page run is the main path (OCR program and
     # chained heads); the forms phase adds the fragments path, the best
     # phase the voting engine's recognisers
@@ -2661,6 +3273,8 @@ def main() -> int:
             **{f"extract_{part}_{k}": v for part, counts in extract_launches.items()
                for k, v in counts[name].items() if k != "all"},
             **{f"extract_register_{p}_{k}": v for p, counts in register_launches.items()
+               for k, v in counts[name].items() if k != "all"},
+            **{f"detectors_{part}_{k}": v for part, counts in detector_launches.items()
                for k, v in counts[name].items() if k != "all"}}
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)

@@ -12,9 +12,13 @@ from abc import ABC, abstractmethod
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
+from torch.profiler import record_function
 
 from marie_tpu_torch.boxes.line_processor import assign_line_numbers, line_merge
 from marie_tpu_torch.enums import PSMode
+from marie_tpu_torch.preprocess.buckets import BucketSpec, pad_to
+from marie_tpu_torch.preprocess.resize import resize_area_u8
 
 
 def estimate_character_width(boxes: Sequence[Sequence[float]], texts: Sequence[str]) -> int:
@@ -145,3 +149,22 @@ def np_rgb(image: np.ndarray) -> np.ndarray:
     if image.shape[-1] == 4:
         return image[..., :3]
     return image
+
+
+def fit_to_bucket(image: np.ndarray, buckets: BucketSpec) -> Tuple[np.ndarray, float]:
+    """A host page in its bucket: (padded [bh, bw(, C)] uint8, scale).  A
+    page over the largest bucket is scaled down with cv2's ``INTER_AREA``
+    arithmetic (:func:`resize_area_u8`), as the JAX detectors do with cv2."""
+    h, w = image.shape[:2]
+    (bh, bw), scale = buckets.fit_with_scale(h, w)
+    if scale < 1.0:
+        image = resize_area_u8(image, (int(w * scale), int(h * scale)))
+    return pad_to(image, bh, bw), scale
+
+
+def fit_page(image: np.ndarray, buckets: BucketSpec, device) -> Tuple[torch.Tensor, float]:
+    """A page as RGB in its bucket (:func:`fit_to_bucket`), uploaded:
+    ([bh, bw, 3] uint8 on ``device``, scale)."""
+    with record_function("marie.upload"):
+        padded, scale = fit_to_bucket(np_rgb(image), buckets)
+        return torch.from_numpy(np.ascontiguousarray(padded)).to(device), scale

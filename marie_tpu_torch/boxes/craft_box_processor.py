@@ -6,7 +6,9 @@ package's detector API (page prep, dispatch, host collect).
 The JAX version reads ``MARIE_CC_STATS``, ``MARIE_CC_MASK`` and
 ``MARIE_CC_RUNS`` from the environment while it traces; here they are the
 keyword arguments ``cc_stats``, ``cc_mask`` and ``cc_runs`` with the same
-defaults.  Only the ``runs_cc`` stats variant is ported.
+defaults.  ``cc_stats`` names one of the five stats variants of
+:mod:`marie_tpu_torch.ops.connected_components`: ``runs_cc`` works on the
+mask, the other four on its pixel label map.
 """
 
 from typing import Dict, Optional, Tuple
@@ -17,16 +19,30 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from marie_tpu_torch.boxes.box_processor import BoxProcessor, np_rgb
+from marie_tpu_torch.boxes.box_processor import BoxProcessor, fit_to_bucket, np_rgb
 from marie_tpu_torch.models.configs import CraftConfig
-from marie_tpu_torch.ops.connected_components import component_boxes_runs_cc
-from marie_tpu_torch.preprocess.buckets import BucketSpec, pad_to
+from marie_tpu_torch.ops.connected_components import (
+    component_boxes,
+    component_boxes_reduce,
+    component_boxes_reduce2,
+    component_boxes_runs,
+    component_boxes_runs_cc,
+    connected_components,
+)
+from marie_tpu_torch.preprocess.buckets import BucketSpec
 from marie_tpu_torch.preprocess.ops import normalize_page, otsu_binarize, to_grayscale
-from marie_tpu_torch.preprocess.resize import resize_area_u8
 from marie_tpu_torch.registry.convert import init_flax_layout, load_model
 from marie_tpu_torch.utils.device import float32_precision, resolve_device
 
-CC_STATS = ("runs_cc",)
+#: the stats variants by their ``MARIE_CC_STATS`` names (all give the same
+#: stats; ``runs`` while rows hold at most 48 components)
+CC_STATS = {
+    "runs_cc": component_boxes_runs_cc,
+    "runs": component_boxes_runs,
+    "reduce": component_boxes_reduce,
+    "reduce2": component_boxes_reduce2,
+    "sort": component_boxes,
+}
 CC_MASKS = ("region", "region+affinity")
 
 
@@ -106,19 +122,28 @@ def detect_core(
     ``text_threshold`` is applied later, by the keep predicate."""
     del text_threshold
     if cc_stats not in CC_STATS:
-        raise NotImplementedError(
-            f"cc_stats={cc_stats!r}: only {CC_STATS} is ported; the other "
-            "variants are ROADMAP §1 item 8")
+        raise ValueError(f"cc_stats must be one of {tuple(CC_STATS)}, got {cc_stats!r}")
     rgb, heat = craft_heatmap(model, pages_u8, allow_tf32)
     with record_function("marie.cc"):
         mask, scores, stride = heat_masks(
             heat, rgb, low_text, link_threshold, model.cfg.out_stride,
             box_source, cc_mask)
-        stats = component_boxes_runs_cc(
-            mask, scores, max_components=max_components, max_runs_per_row=cc_runs)
+        stats = cc_component_stats(mask, scores, max_components, cc_stats, cc_runs)
     stats["stride"] = torch.full((pages_u8.shape[0],), stride, dtype=torch.int32,
                                  device=pages_u8.device)
     return stats
+
+
+def cc_component_stats(mask: torch.Tensor, scores: torch.Tensor, max_components: int,
+                       cc_stats: str = "runs_cc", cc_runs: int = 48) -> Dict[str, torch.Tensor]:
+    """[B, h, w] mask and score map -> per-page component stats by the
+    ``cc_stats`` variant: ``runs_cc`` on the mask with ``cc_runs`` runs a
+    row, the others on :func:`connected_components`' labels (``runs`` at
+    its own default budget, as the JAX detector calls it)."""
+    fn = CC_STATS[cc_stats]
+    if fn is component_boxes_runs_cc:
+        return fn(mask, scores, max_components=max_components, max_runs_per_row=cc_runs)
+    return fn(connected_components(mask), scores, max_components=max_components)
 
 
 def is_grayscale(stack: np.ndarray) -> bool:
@@ -135,6 +160,12 @@ def is_grayscale(stack: np.ndarray) -> bool:
                 and np.array_equal(stack[..., 0], stack[..., 2]))
 
 
+def cc_kwargs(bp) -> Dict[str, object]:
+    """The keywords of :func:`detect_core` that a :class:`BoxProcessorCraft`
+    sets beside its thresholds."""
+    return {"cc_stats": bp.cc_stats, "cc_runs": bp.cc_runs, "allow_tf32": bp.allow_tf32}
+
+
 class BoxProcessorCraft(BoxProcessor):
     """Word detector over the port's CRAFT model (the JAX package's
     ``BoxProcessorCraft``).
@@ -143,7 +174,8 @@ class BoxProcessorCraft(BoxProcessor):
     (:mod:`marie_tpu_torch.registry.convert`); without one the weights are
     drawn from seed 0.  ``param_dtype="bfloat16"`` casts every float leaf,
     the batch statistics too, as the JAX processor does.  Port-only
-    keywords: ``device``; ``cc_runs``, the run-domain CC's per-row run
+    keywords: ``device``; ``cc_stats``, the component stats variant (the
+    JAX ``MARIE_CC_STATS``); ``cc_runs``, the run-domain CC's per-row run
     budget (the JAX ``MARIE_CC_RUNS``); ``allow_tf32``, whether float32
     convolutions may run in TF32 (the engine sets this for each forward
     and leaves the global flags as it found them); ``cpu_bf16_rounding``,
@@ -168,6 +200,7 @@ class BoxProcessorCraft(BoxProcessor):
         param_dtype: str = "float32",
         *,
         device="cuda",
+        cc_stats: str = "runs_cc",
         cc_runs: int = 48,
         allow_tf32: bool = False,
         cpu_bf16_rounding: str = "xla",
@@ -176,6 +209,8 @@ class BoxProcessorCraft(BoxProcessor):
             raise ValueError(f"param_dtype must be float32 or bfloat16, got {param_dtype!r}")
         if box_source not in ("heatmap", "ink"):
             raise ValueError(f"box_source must be 'heatmap' or 'ink', got {box_source!r}")
+        if cc_stats not in CC_STATS:
+            raise ValueError(f"cc_stats must be one of {tuple(CC_STATS)}, got {cc_stats!r}")
         self.device = resolve_device(device)
         self.config = config or CraftConfig.fast_s2d2()
         self.text_threshold = text_threshold
@@ -188,6 +223,7 @@ class BoxProcessorCraft(BoxProcessor):
         # ink boxes are exact
         self.box_expand = box_expand if box_source == "heatmap" else 0.0
         self.buckets = bucket_spec or BucketSpec()
+        self.cc_stats = cc_stats
         self.cc_runs = cc_runs
         self.allow_tf32 = allow_tf32
         if variables is None:
@@ -218,20 +254,14 @@ class BoxProcessorCraft(BoxProcessor):
 
     def prep_page(self, image: np.ndarray):
         """Bucket-fit + pad a page for detection: (padded [bh, bw] or
-        [bh, bw, 3] uint8, scale, (h, w)).  A [H, W, 4] page loses its
-        fourth channel; a page over the largest bucket is scaled down
-        with cv2's ``INTER_AREA`` arithmetic (:func:`resize_area_u8`),
-        as the JAX processor does with cv2."""
+        [bh, bw, 3] uint8, scale, (h, w)) by :func:`fit_to_bucket`.  A
+        [H, W, 4] page loses its fourth channel."""
         if image.dtype != np.uint8 or image.ndim not in (2, 3):
             raise ValueError(f"pages are uint8 [H, W] or [H, W, 3|4], got "
                              f"{image.dtype} {image.shape}")
         if image.ndim == 3:
             image = np_rgb(image)
-        h, w = image.shape[:2]
-        (bh, bw), scale = self.buckets.fit_with_scale(h, w)
-        if scale < 1.0:
-            image = resize_area_u8(image, (int(w * scale), int(h * scale)))
-        return pad_to(image, bh, bw), scale, (h, w)
+        return (*fit_to_bucket(image, self.buckets), image.shape[:2])
 
     def detect_dispatch(self, image: np.ndarray):
         """Phase 1: upload the page and launch detection; the handle
@@ -245,7 +275,7 @@ class BoxProcessorCraft(BoxProcessor):
         stats = detect_core(
             self.model, page_dev[None], self.text_threshold, self.low_text,
             self.link_threshold, self.max_components, self.box_source,
-            cc_runs=self.cc_runs, allow_tf32=self.allow_tf32)
+            **cc_kwargs(self))
         return ({k: v[0] for k, v in stats.items()}, page_dev, scale, (h, w))
 
     def detect_collect(self, handle, stats=None, return_rows: bool = False):

@@ -4,7 +4,7 @@
 :class:`BoundaryNet` regresses the page quad's four corners from a small
 RGB image: strided ``"SAME"`` 3x3 convolutions (flax pads a stride-2
 convolution (0, 1) on an even side: ``models/pix2pix.py::SameConv2d``),
-per-channel GroupNorm (``InstanceNorm``: epsilon 1e-6, ``E[x^2] -
+per-channel GroupNorm (``pix2pix.GroupNorm``: epsilon 1e-6, ``E[x^2] -
 E[x]^2``), a global average pool and a two-layer MLP with a sigmoid.
 
 The warps sample a page through a 3x3 homography.  Its 8x8 solve is
@@ -22,7 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from marie_tpu_torch.models.configs import BoundaryConfig
-from marie_tpu_torch.models.pix2pix import InstanceNorm, SameConv2d
+from marie_tpu_torch.models.pix2pix import GroupNorm, SameConv2d
 from marie_tpu_torch.preprocess.ops import _bilinear_hwc, fma
 from marie_tpu_torch.utils.device import resolve_device
 
@@ -38,7 +38,7 @@ class BoundaryNet(nn.Module):
         for i in range(cfg.num_stages):
             cout = c * (2 ** min(i, 3))
             self.add_module(f"Conv_{i}", SameConv2d(cin, cout, 3, 2))
-            self.add_module(f"GroupNorm_{i}", InstanceNorm(cout))
+            self.add_module(f"GroupNorm_{i}", GroupNorm(cout))
             cin = cout
         self.Dense_0 = nn.Linear(cin, cfg.mlp_dim)
         self.Dense_1 = nn.Linear(cfg.mlp_dim, 8)

@@ -1,5 +1,7 @@
 """Model size configs — the presets of ``marie_tpu/models/configs.py``
-that the port runs: CRAFT ``fast_s2d2``, TrOCR ``fast_v3_g2_d6``, the
+that the port runs: the DiT detector's ViT (``dit_synth``,
+``dit_synth_s1``), TextFuseNet (``synth``,
+``synth_s2``), CRAFT ``fast_s2d2``, TrOCR ``fast_v3_g2_d6``, the
 LayoutLM ``base``, ``synth`` and ``tiny`` presets, the CRNN, the pix2pix
 generator (default, ``synth``, ``tiny``), CRAFT ``base`` (the template
 matchers' trunk), the boundary regressor (default, ``tiny``), and the
@@ -23,6 +25,11 @@ class ViTConfig:
     mlp_dim: int = 3072
     channels: int = 3
     use_cls_token: bool = True
+    # the DiT detector's dense head: the patch grid is conv-upsampled to
+    # head_stride * subpixel, and the 1x1 head predicts subpixel^2 phase
+    # maps per channel, depth-to-spaced to head_stride
+    head_stride: int = 4
+    subpixel: int = 1
 
     @property
     def patch_hw(self) -> Tuple[int, int]:
@@ -35,6 +42,23 @@ class ViTConfig:
         ph, pw = self.patch_hw
         n = (h // ph) * (w // pw)
         return n + (1 if self.use_cls_token else 0)
+
+    @staticmethod
+    def dit_synth() -> "ViTConfig":
+        """The DiT detector of ``dit-synth``: 512x384 pages in 16x16
+        patches (768 tokens), 256 wide, 6 layers of 4 heads, stride-2
+        head."""
+        return ViTConfig(
+            image_size=(512, 384), patch_size=16, hidden_dim=256,
+            num_layers=6, num_heads=4, mlp_dim=1024, use_cls_token=False,
+            head_stride=2,
+        )
+
+    @staticmethod
+    def dit_synth_s1() -> "ViTConfig":
+        """``dit_synth`` with a 2x2 sub-pixel head: the stride-1 grid off
+        the stride-2 conv stack (``dit-s1-synth``)."""
+        return dataclasses.replace(ViTConfig.dit_synth(), head_stride=1, subpixel=2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,3 +269,26 @@ class BoundaryConfig:
     @staticmethod
     def tiny() -> "BoundaryConfig":
         return BoundaryConfig(input_hw=(48, 64), base_channels=8, num_stages=3, mlp_dim=32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TextFuseNetConfig:
+    """TextFuseNet (``marie_tpu/models/textfusenet.py``'s config)."""
+
+    channels: int = 64  # FPN / fuse-module channel width
+    backbone_widths: Tuple[int, int, int] = (32, 64, 128)
+    pool: int = 7  # ROI pooler resolution
+    max_words: int = 128  # K word-instance slots
+    max_chars: int = 512  # M char-instance slots
+    contain_thresh: float = 0.9  # a char is a word's when inter / char area > this
+    head_stride: int = 4  # word/char map stride: 4 (P3) or 2 (sub-pixel head)
+
+    @staticmethod
+    def synth() -> "TextFuseNetConfig":
+        """``textfusenet-synth``."""
+        return TextFuseNetConfig()
+
+    @staticmethod
+    def synth_s2() -> "TextFuseNetConfig":
+        """``textfusenet-s2-synth``: the stride-2 sub-pixel head."""
+        return TextFuseNetConfig(head_stride=2)

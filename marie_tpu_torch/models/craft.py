@@ -153,6 +153,17 @@ def _resize_axis_bf16(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
     return y.to(torch.bfloat16)
 
 
+def depth_to_space(x: torch.Tensor, r: int, nc: int) -> torch.Tensor:
+    """NHWC [B, h, w, r*r*nc] -> [B, h*r, w*r, nc] as the flax heads do it:
+    reshape to [B, h, w, r, r, nc], axes (0, 1, 3, 2, 4, 5) (channel
+    ``(sy * r + sx) * nc + c``; not ``F.pixel_shuffle``'s order)."""
+    if r == 1:
+        return x
+    b, hh, ww, _ = x.shape
+    out = x.reshape(b, hh, ww, r, r, nc).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(b, r * hh, r * ww, nc)
+
+
 class UpBlock(nn.Module):
     """Upsample to the skip's size, concat [x, skip], 1x1 then 3x3 conv."""
 
@@ -222,10 +233,7 @@ class CRAFT(nn.Module):
             out = torch.sigmoid(self.head_out(h))
         out = out.permute(0, 2, 3, 1)
         if self.cfg.head_d2s:
-            nc = self.cfg.num_classes
-            b, hh, ww, _ = out.shape
-            out = out.reshape(b, hh, ww, f, f, nc).permute(0, 1, 3, 2, 4, 5)
-            out = out.reshape(b, f * hh, f * ww, nc)
+            out = depth_to_space(out, f, self.cfg.num_classes)
         return out
 
     #: the VGG stages :meth:`trunk` can stop at

@@ -94,24 +94,36 @@ class SameConvTranspose2d(nn.ConvTranspose2d):
         return super().forward(x)[:, :, :-1, :-1]
 
 
-class InstanceNorm(nn.Module):
-    """flax ``nn.GroupNorm(num_groups=None, group_size=1)`` on NCHW."""
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on NCHW: ``groups`` groups of channels, or one
+    channel a group (``groups=None``: flax's ``group_size=1``, an instance
+    norm), epsilon 1e-6, statistics in float32 as ``E[x^2] - E[x]^2``
+    clipped at 0, ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    float32, rounded to the input's dtype once."""
 
     #: the bridge names this module's weight ``scale`` in the flax tree
     flax_norm = True
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, groups=None):
         super().__init__()
+        self.groups = groups
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        g = self.groups or c
         x32 = x.float()
-        mean = x32.mean(dim=(2, 3), keepdim=True)
-        mean2 = (x32 * x32).mean(dim=(2, 3), keepdim=True)
+        grouped = x32.reshape(b, g, c // g, h, w)
+        mean = grouped.mean(dim=(2, 3, 4), keepdim=True)
+        mean2 = (grouped * grouped).mean(dim=(2, 3, 4), keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + GN_EPS) * self.weight.float()[None, :, None, None]
-        y = (x32 - mean) * mul + self.bias.float()[None, :, None, None]
+
+        def per_channel(v):
+            return v.expand(b, g, c // g, 1, 1).reshape(b, c, 1, 1)
+
+        mul = per_channel(torch.rsqrt(var + GN_EPS)) * self.weight.float()[None, :, None, None]
+        y = (x32 - per_channel(mean)) * mul + self.bias.float()[None, :, None, None]
         return y.to(x.dtype)
 
 
@@ -119,9 +131,9 @@ class ResnetBlock(nn.Module):
     def __init__(self, features: int):
         super().__init__()
         self.Conv_0 = SameConv2d(features, features, 3)
-        self.GroupNorm_0 = InstanceNorm(features)
+        self.GroupNorm_0 = GroupNorm(features)
         self.Conv_1 = SameConv2d(features, features, 3)
-        self.GroupNorm_1 = InstanceNorm(features)
+        self.GroupNorm_1 = GroupNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.GroupNorm_0(self.Conv_0(x)))
@@ -137,17 +149,17 @@ class ResnetGenerator(nn.Module):
         self.cfg = cfg
         f = cfg.base_channels
         self.Conv_0 = SameConv2d(cfg.in_channels, f, 7)
-        self.GroupNorm_0 = InstanceNorm(f)
+        self.GroupNorm_0 = GroupNorm(f)
         self.Conv_1 = SameConv2d(f, 2 * f, 3, 2)
-        self.GroupNorm_1 = InstanceNorm(2 * f)
+        self.GroupNorm_1 = GroupNorm(2 * f)
         self.Conv_2 = SameConv2d(2 * f, 4 * f, 3, 2)
-        self.GroupNorm_2 = InstanceNorm(4 * f)
+        self.GroupNorm_2 = GroupNorm(4 * f)
         for i in range(cfg.num_res_blocks):
             self.add_module(f"res_{i}", ResnetBlock(4 * f))
         self.ConvTranspose_0 = SameConvTranspose2d(4 * f, 2 * f)
-        self.GroupNorm_3 = InstanceNorm(2 * f)
+        self.GroupNorm_3 = GroupNorm(2 * f)
         self.ConvTranspose_1 = SameConvTranspose2d(2 * f, f)
-        self.GroupNorm_4 = InstanceNorm(f)
+        self.GroupNorm_4 = GroupNorm(f)
         self.Conv_3 = SameConv2d(f, cfg.out_channels, 7)
 
     def forward(self, x: torch.Tensor, out_dtype=None) -> torch.Tensor:

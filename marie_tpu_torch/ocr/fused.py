@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
-from marie_tpu_torch.boxes.craft_box_processor import detect_core, is_grayscale
+from marie_tpu_torch.boxes.craft_box_processor import cc_kwargs, detect_core, is_grayscale
 from marie_tpu_torch.models.trocr import greedy_decode
 from marie_tpu_torch.ops.kernels._build import launch_path
 from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
@@ -132,6 +132,7 @@ def compact_program(
     dtype: torch.dtype,
     max_steps: int,
     packed: int = 0,
+    cc_stats: str = "runs_cc",
     cc_runs: int = 48,
     allow_tf32: bool = False,
 ):
@@ -151,7 +152,7 @@ def compact_program(
     p = pages_u8.shape[0]
     stats = detect_core(craft_model, pages_u8, text_threshold, low_text,
                         link_threshold, max_components, box_source,
-                        cc_runs=cc_runs, allow_tf32=allow_tf32)
+                        cc_stats=cc_stats, cc_runs=cc_runs, allow_tf32=allow_tf32)
     m = stats["boxes"].shape[1]
     stride = stats["stride"][0].to(torch.float32)
     keep = keep_predicate(stats, box_source, text_threshold, min_area)
@@ -229,7 +230,7 @@ def fused_ocr_pages(
     Returns (stats, tokens, conf) on the device (row alignment contract
     in the module docstring)."""
     if mesh is not None:
-        raise NotImplementedError("a device mesh is ROADMAP §1 item 16")
+        raise NotImplementedError("a device mesh is ROADMAP §1 item 7")
     bp, op = box_processor, ocr_processor
     pack_bits = _norm_pack_bits(packed)
     p = int(pages.shape[0])
@@ -244,7 +245,7 @@ def fused_ocr_pages(
         return fused_pages_compact(
             bp.model, op.model, pages, clip_whs, p if n_real is None else int(n_real),
             *program_args(bp, op, total_slots),
-            packed=pack_bits, cc_runs=bp.cc_runs, allow_tf32=bp.allow_tf32)
+            packed=pack_bits, **cc_kwargs(bp))
 
 
 def supports_fused_page(box_processor, ocr_processor) -> bool:
@@ -411,7 +412,7 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
     from marie_tpu_torch.ocr.fused_chain import fused_ocr_chain
 
     if mesh is not None:
-        raise NotImplementedError("a device mesh is ROADMAP §1 item 16")
+        raise NotImplementedError("a device mesh is ROADMAP §1 item 7")
     if upload_format not in UPLOAD_FORMATS:
         raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "
                          f"got {upload_format!r}")

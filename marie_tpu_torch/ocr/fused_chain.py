@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
+from marie_tpu_torch.boxes.craft_box_processor import cc_kwargs
 from marie_tpu_torch.components.word_tokenizer import _RESERVED
 from marie_tpu_torch.ocr.fused import _norm_pack_bits, compact_program, program_args
 from marie_tpu_torch.ops.kernels._build import launch_path
@@ -93,7 +94,7 @@ def fused_ocr_chain(box_processor, ocr_processor, classifier, indexer, pages, cl
     Returns (stats, tokens, conf, cls_logits, ner_labels, ner_scores) on
     the device."""
     if mesh is not None:
-        raise NotImplementedError("a device mesh is ROADMAP §1 item 16")
+        raise NotImplementedError("a device mesh is ROADMAP §1 item 7")
     bp, op = box_processor, ocr_processor
     if classifier.config.vocab_size != indexer.config.vocab_size:
         raise ValueError("the classifier and the indexer must share one word vocabulary")
@@ -114,7 +115,7 @@ def fused_ocr_chain(box_processor, ocr_processor, classifier, indexer, pages, cl
         return fused_pages_chain(
             bp.model, op.model, classifier.model, indexer.model, pages, clip_whs,
             p if n_real is None else int(n_real), *program_args(bp, op, total_slots),
-            packed=pack_bits, cc_runs=bp.cc_runs, allow_tf32=bp.allow_tf32,
+            packed=pack_bits, **cc_kwargs(bp),
             seq_len_cap=min(classifier.config.max_seq_len, indexer.config.max_seq_len),
             word_vocab=int(classifier.config.vocab_size),
             coord_buckets=int(classifier.config.max_2d_pos))

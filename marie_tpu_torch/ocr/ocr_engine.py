@@ -4,9 +4,15 @@ processor (recognition) over full pages, returning one result dict per
 page in the JAX package's schema (``words``, ``lines``, ``meta.lines``,
 ``meta.lines_bboxes``, ``meta.format``; boxes xywh or xyxy).
 
-SPARSE and LINE pages take the fused path of :mod:`marie_tpu_torch.ocr.fused`
-(``single_program=True``, streamed group by group) or the two-phase path
-(detect every page, then recognise every page's boxes).  With both a
+SPARSE and LINE pages take one of the JAX engine's three paths, by what
+the processors offer: the fused path of :mod:`marie_tpu_torch.ocr.fused`
+(``single_program=True``, streamed group by group); else, for a detector
+with ``detect_with_page`` (the page stays on the device) and a recogniser
+with ``recognize_dispatch``, the page-resident path (detect every page,
+then recognise every page's boxes from its device page; a detector with
+``detect_dispatch`` dispatches every page's detection first); else host
+fragments, as the other modes.  Kernel launches of the page-resident
+recognition count on the ``"two_phase"`` path.  With both a
 ``classifier`` and an ``indexer``, the fused path runs the LayoutLM heads
 in each group's program (:mod:`marie_tpu_torch.ocr.fused_chain`) and
 adds ``classification`` to each page and ``ner_label`` to its words.
@@ -15,7 +21,7 @@ WORD, RAW_LINE and MULTI_LINE pages are cut into host fragments
 (``TrOcrProcessor.recognize_from_fragments``).  ``regions`` cuts each
 region out of its page and extracts it in its own mode.
 
-Left for later: a device mesh (ROADMAP §1 item 16).
+Left for later: a device mesh (ROADMAP §1 item 7).
 """
 
 from typing import Any, Dict, List, Optional
@@ -23,6 +29,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from marie_tpu_torch.boxes.box_processor import np_rgb
 from marie_tpu_torch.document.ocr_processor import assemble_page_result
 from marie_tpu_torch.enums import CoordinateFormat, PSMode
 from marie_tpu_torch.ocr.fused import (
@@ -32,6 +39,7 @@ from marie_tpu_torch.ocr.fused import (
     handle_page_count,
     supports_fused_page,
 )
+from marie_tpu_torch.ops.kernels._build import launch_path
 
 
 class PipelineOcrEngine:
@@ -74,7 +82,7 @@ class PipelineOcrEngine:
         indexer=None,
     ):
         if mesh is not None:
-            raise NotImplementedError("a device mesh is ROADMAP §1 item 16")
+            raise NotImplementedError("a device mesh is ROADMAP §1 item 7")
         if upload_format not in UPLOAD_FORMATS:
             raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "
                              f"got {upload_format!r}")
@@ -114,9 +122,11 @@ class PipelineOcrEngine:
 
     def _extract_fullpage(self, frames, pms_mode, coordinate_format, queue_id, **kwargs):
         """SPARSE and LINE: the fused path, or the two-phase one when the
-        processors do not fit it; the other modes: host fragments."""
+        processors do not fit it, or host fragments for a detector that
+        only has ``detect_words``; the other modes: host fragments."""
         bp, op = self.box_processor, self.ocr_processor
-        if pms_mode in (PSMode.SPARSE, PSMode.LINE):
+        page_resident = hasattr(bp, "detect_with_page") and hasattr(op, "recognize_dispatch")
+        if pms_mode in (PSMode.SPARSE, PSMode.LINE) and page_resident:
             if self.single_program and supports_fused_page(bp, op):
                 return self._extract_fused(frames, pms_mode, coordinate_format, **kwargs)
             return self._extract_two_phase(frames, pms_mode, coordinate_format)
@@ -168,14 +178,31 @@ class PipelineOcrEngine:
                                                     pms_mode)))
         return pages
 
+    def _detect_with_pages(self, frames, pms_mode):
+        """:meth:`_detect_pages` for a detector without ``detect_dispatch``:
+        ``detect_with_page`` on each page as RGB, as the JAX engine calls
+        it; the handles hold (None, device page, scale)."""
+        bp = self.box_processor
+        pages = []
+        for frame in frames:
+            raw_boxes, scores, page_dev, scale = bp.detect_with_page(np_rgb(frame))
+            pages.append(((None, page_dev, scale),
+                          bp.organize_boxes(raw_boxes, scores, frame.shape[:2], pms_mode)))
+        return pages
+
     def _extract_two_phase(self, frames, pms_mode, coordinate_format):
-        """Dispatch every page's detection first, fetch all stats at once,
-        organize the boxes, dispatch every page's recognition, then fetch
-        all tokens at once."""
+        """Detect every page (dispatching every page's detection first and
+        fetching all stats at once, where the detector can), organize the
+        boxes, dispatch every page's recognition from its device page, then
+        fetch all tokens at once."""
         op = self.ocr_processor
-        pages = self._detect_pages(frames, pms_mode)
-        words = op.recognize_collect_many([
-            op.recognize_dispatch(handle[1], page[0], handle[2]) for handle, page in pages])
+        if hasattr(self.box_processor, "detect_dispatch"):
+            pages = self._detect_pages(frames, pms_mode)
+        else:
+            pages = self._detect_with_pages(frames, pms_mode)
+        with launch_path("two_phase"):
+            words = op.recognize_collect_many([
+                op.recognize_dispatch(handle[1], page[0], handle[2]) for handle, page in pages])
         return [
             self._assemble_result(frame, i, (*page, page_words, None), coordinate_format)
             for i, (frame, (_, page), page_words) in enumerate(zip(frames, pages, words))

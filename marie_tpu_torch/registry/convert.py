@@ -45,11 +45,13 @@ from marie_tpu_torch.models.configs import (
     CRNNConfig,
     LayoutLMConfig,
     Pix2PixConfig,
+    TextFuseNetConfig,
     TrOCRConfig,
+    ViTConfig,
 )
 
 Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig, Pix2PixConfig,
-               BoundaryConfig]
+               BoundaryConfig, ViTConfig, TextFuseNetConfig]
 #: the LayoutLM heads by name ("encoder": the bare encoder, no head)
 LAYOUT_HEADS = ("sequence", "token", "encoder")
 
@@ -60,8 +62,9 @@ _LSTM_GATES = ("i", "f", "g", "o")
 
 
 def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
-    """The port's module for a config (on the current default device).
-    A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
+    """The port's module for a config (on the current default device); a
+    bare :class:`ViTConfig` builds the DiT detector (its ``backbone``,
+    ``up{i}`` and ``head``).  A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
     classification), ``"token"`` (NER) or ``"encoder"`` (the encoder
     alone, whose flax tree has its modules at the top); other configs
     take none."""
@@ -74,7 +77,9 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         LayoutLMv3ForTokenClassification,
     )
     from marie_tpu_torch.models.pix2pix import ResnetGenerator
+    from marie_tpu_torch.models.textfusenet import TextFuseNet
     from marie_tpu_torch.models.trocr import TrOCRModel
+    from marie_tpu_torch.models.vit import DiTDetector
 
     if isinstance(config, LayoutLMConfig):
         if head not in LAYOUT_HEADS:
@@ -96,6 +101,10 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         return ResnetGenerator(config)
     if isinstance(config, BoundaryConfig):
         return BoundaryNet(config)
+    if isinstance(config, ViTConfig):
+        return DiTDetector(config)
+    if isinstance(config, TextFuseNetConfig):
+        return TextFuseNet(config)
     raise TypeError(f"no port model for {type(config).__name__}")
 
 

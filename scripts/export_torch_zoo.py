@@ -13,6 +13,7 @@ the DejaVu font (the JAX package's own environment)::
     python scripts/export_torch_zoo.py --classify  # only golden_classify.json
     python scripts/export_torch_zoo.py --extract   # only golden_extract.json
     python scripts/export_torch_zoo.py --register  # only golden_register.json
+    python scripts/export_torch_zoo.py --detectors  # only golden_detectors.json
 
 It writes
 
@@ -71,6 +72,21 @@ It writes
   ``golden_extract.json``'s dirty set registered by the deskew path: the
   boundary metadata, NCC, DIM, VQNNF and their composite, and the serving
   engine's words.  No pixels.
+* ``golden_detectors.json`` (~3 min): the other word detectors on the
+  shipped pages.  The JAX engine over the weight-free ``InkBoxProcessor``
+  and the trained TrOCR of ``golden.json`` on the 16 pages (each word's
+  text, box and confidence); ``BoxProcessorUlimDit`` at
+  ``ViTConfig.dit_synth_s1()`` on ``chip_smoke.DIT_PAGES`` and at the
+  configuration it builds without a tree on ``DIT_DEFAULT_PAGES``, and
+  ``BoxProcessorTextFuseNet`` at ``TextFuseNetConfig.synth_s2()`` on
+  ``TFN_PAGES``, each from the port's ``init_flax_layout`` at the seeds of
+  ``chip_smoke.DETECTOR_SEEDS`` (the trained trees are not shipped): the
+  16x16 block means of the heatmaps (TextFuseNet: word, char and seg
+  maps), the thresholds used (the defaults where they give boxes, else
+  quantiles of the pooled maps, and where those give none either, the
+  least ``min_area``), ``detect_words``' boxes and scores, and
+  TextFuseNet's fused scores and refined boxes on its valid slots.  No
+  pixels and no trees.
 """
 
 import argparse
@@ -599,6 +615,147 @@ def export_register() -> None:
         json.dump(golden, f, default=_json_default, separators=(",", ":"))
 
 
+def export_detectors() -> None:
+    """golden_detectors.json: the JAX ink engine and the seeded DiT and
+    TextFuseNet detectors on the ``detectors`` phase's pages."""
+    import cv2
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke as cs
+    from marie_tpu.boxes.dit_box_processor import BoxProcessorUlimDit
+    from marie_tpu.boxes.ink_box_processor import InkBoxProcessor
+    from marie_tpu.boxes.textfusenet_box_processor import (
+        BoxProcessorTextFuseNet, _tfn_detect_jit)
+    from marie_tpu.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu.models.configs import TrOCRConfig, ViTConfig
+    from marie_tpu.models.textfusenet import TextFuseNetConfig
+    from marie_tpu.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu.preprocess import pad_to
+    from marie_tpu.preprocess.ops import normalize_page
+    from marie_tpu_torch.boxes.dit_box_processor import DEFAULT_CONFIG
+    from marie_tpu_torch.models.configs import TextFuseNetConfig as PortTfn
+    from marie_tpu_torch.models.configs import ViTConfig as PortViT
+    from marie_tpu_torch.registry.checkpoints import load_params
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    shipped = cs.load_shipped()
+    pages = list(shipped["pages"])
+    rgb = [np.stack([p] * 3, axis=-1) for p in pages]
+
+    def tree(config, seed):
+        return jax.tree_util.tree_map(jnp.asarray, init_flax_layout(config, seed))
+
+    def padded(bp, img):
+        h, w = img.shape[:2]
+        (bh, bw), scale = bp.buckets.fit_with_scale(h, w)
+        if scale < 1.0:
+            img = cv2.resize(img, (int(w * scale), int(h * scale)),
+                             interpolation=cv2.INTER_AREA)
+        return jnp.asarray(pad_to(img, bh, bw))
+
+    t0 = time.time()
+    icr = TrOcrProcessor(config=TrOCRConfig.fast_v3_g2_d6(),
+                         params=load_params(os.path.join(ZOO, "trocr-fast3g2d6ov-synth.npz")),
+                         beam_size=1, param_dtype="bfloat16", batch_sizes=(32, 128, 256))
+    ink = [[[w["text"], w["box"], w["confidence"]] for w in r["words"]]
+           for r in PipelineOcrEngine(InkBoxProcessor(), icr).extract(pages)]
+    print(f"golden_detectors ink: {time.time() - t0:.1f} s", flush=True)
+
+    def detections(bp, ids):
+        return [bp.detect_words(rgb[i]) for i in ids]
+
+    def dit(name, config, ids):
+        t0 = time.time()
+        kw = dataclasses.asdict(config)
+        kw["image_size"] = tuple(kw["image_size"])
+        bp = BoxProcessorUlimDit(config=ViTConfig(**kw),
+                                 variables=tree(config, cs.DETECTOR_SEEDS[name]))
+        apply = jax.jit(bp.model.apply)
+        heats = [np.asarray(apply(bp.variables, normalize_page(padded(bp, rgb[i]))[None])[0])
+                 for i in ids]
+        found = detections(bp, ids)
+        rule = "defaults"
+        if not any(len(b) for b, _ in found):
+            rule = "quantiles 0.90 / 0.95 of the pooled region maps"
+            bp.low_text, bp.text_threshold = cs.detector_thresholds(
+                [h[..., 0] for h in heats], (0.90, 0.95))
+            found = detections(bp, ids)
+        if not any(len(b) for b, _ in found):
+            # a seeded sub-pixel head's phases never touch: one-pixel parts
+            rule += ", min_area 1"
+            bp.min_area = 1
+            found = detections(bp, ids)
+        print(f"golden_detectors {name}: {time.time() - t0:.1f} s", flush=True)
+        return {"low_text": bp.low_text, "text_threshold": bp.text_threshold,
+                "min_area": bp.min_area, "thresholds": rule,
+                "pages": [{"page": i, "block_means": cs.block_means(h), "boxes": b,
+                           "scores": sc} for i, h, (b, sc) in zip(ids, heats, found)]}
+
+    dit_s1 = dit("dit_s1", PortViT.dit_synth_s1(), cs.DIT_PAGES)
+    dit_default = dit("dit_default", DEFAULT_CONFIG, cs.DIT_DEFAULT_PAGES)
+
+    t0 = time.time()
+    seed = cs.DETECTOR_SEEDS["textfusenet"]
+    bp = BoxProcessorTextFuseNet(config=TextFuseNetConfig.synth_s2(),
+                                 variables=tree(PortTfn.synth_s2(), seed))
+    apply = jax.jit(bp.model.apply)
+    dense = [apply(bp.variables, normalize_page(padded(bp, rgb[i]))[None]) for i in cs.TFN_PAGES]
+    found = detections(bp, cs.TFN_PAGES)
+    rule = "defaults"
+    if not any(len(b) for b, _ in found):
+        rule = ("quantiles 0.90 / 0.95 of the pooled word maps (low_text, word_threshold), "
+                "0.90 of the char maps, fuse_threshold 0")
+        bp.low_text, bp.word_threshold = cs.detector_thresholds(
+            [d["word"][0, ..., 0] for d in dense], (0.90, 0.95))
+        bp.char_threshold, = cs.detector_thresholds([d["char"][0, ..., 0] for d in dense],
+                                                    (0.90,))
+        bp.fuse_threshold = 0.0
+        found = detections(bp, cs.TFN_PAGES)
+    if not any(len(b) for b, _ in found):
+        rule += ", min_area 0"
+        bp.min_area = 0
+        found = detections(bp, cs.TFN_PAGES)
+    rows = []
+    for i, d, (b, sc) in zip(cs.TFN_PAGES, dense, found):
+        st = jax.device_get(_tfn_detect_jit(bp.model, bp.variables, padded(bp, rgb[i]),
+                                            bp.word_threshold, bp.low_text,
+                                            bp.char_threshold))
+        valid = np.nonzero(st["valid"])[0]
+        rows.append({"page": i, "word_means": cs.block_means(d["word"][0]),
+                     "char_means": cs.block_means(d["char"][0]),
+                     "seg_means": cs.block_means(st["seg"]), "valid": valid,
+                     "heat_boxes": st["heat_boxes"][valid],
+                     "fused_scores": st["scores"][valid], "refined": st["boxes"][valid],
+                     "boxes": b, "scores": sc})
+    print(f"golden_detectors textfusenet: {time.time() - t0:.1f} s", flush=True)
+    golden = {
+        "settings": {
+            "ink": "JAX PipelineOcrEngine(InkBoxProcessor(), trocr-fast3g2d6ov-synth greedy "
+                   "bfloat16, batch sizes 32/128/256) on the 16 pages, SPARSE: [text, box, "
+                   "confidence] per word",
+            "dit": "BoxProcessorUlimDit at ViTConfig.dit_synth_s1() (dit_s1) and at the "
+                   "no-tree configuration (dit_default), init_flax_layout(config, seed); "
+                   "block_means: 16x16 means of the [h, w, 2] heatmap",
+            "textfusenet": "BoxProcessorTextFuseNet at TextFuseNetConfig.synth_s2(), "
+                           "init_flax_layout(config, seed); word/char/seg means: 16x16 means "
+                           "of the dense maps (seg: the sigmoid); heat_boxes, fused_scores and "
+                           "refined (stride-4 grid) on the valid slots",
+            "seeds": cs.DETECTOR_SEEDS,
+        },
+        "ink": {"pages": ink},
+        "dit_s1": dit_s1,
+        "dit_default": dit_default,
+        "textfusenet": {"low_text": bp.low_text, "word_threshold": bp.word_threshold,
+                        "char_threshold": bp.char_threshold,
+                        "fuse_threshold": bp.fuse_threshold, "min_area": bp.min_area,
+                        "thresholds": rule,
+                        "pages": rows},
+    }
+    with open(os.path.join(ZOO, "golden_detectors.json"), "w") as f:
+        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+
+
 def _cut(page, box):
     x, y, w, h = box
     return np.ascontiguousarray(page[y:y + h, x:x + w])
@@ -624,6 +781,8 @@ def main() -> None:
                     help="write only golden_extract.json")
     ap.add_argument("--register", action="store_true",
                     help="write only golden_register.json")
+    ap.add_argument("--detectors", action="store_true",
+                    help="write only golden_detectors.json")
     args = ap.parse_args()
 
     import jax
@@ -640,6 +799,9 @@ def main() -> None:
         return
     if args.register:
         export_register()
+        return
+    if args.detectors:
+        export_detectors()
         return
     from bench import make_pages
     from marie_tpu.enums import PSMode
@@ -684,6 +846,7 @@ def main() -> None:
     export_classify()
     export_extract()
     export_register()
+    export_detectors()
     sizes = {n: os.path.getsize(os.path.join(ZOO, n)) for n in sorted(os.listdir(ZOO))}
     print(json.dumps({"bytes": sizes, "total": sum(sizes.values())}))
 

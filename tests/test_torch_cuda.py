@@ -747,3 +747,103 @@ def test_cuda_matchers_match_cpu(cuda_device, name):
     assert [(m.frame_index, m.label, m.bbox) for m in got] == [
         (m.frame_index, m.label, m.bbox) for m in want]
     assert max(abs(a.score - b.score) for a, b in zip(got, want)) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s", [(1, 4, 768), (1, 6, 3072)], ids=["dit_s1", "dit_default"])
+def test_cuda_attention_at_dit_shapes_matches_plain(cuda_device, b, h, s):
+    """K2 float32 at the DiT encoder's shapes (one page: 768 tokens at
+    ``dit_synth_s1``, 3,072 at the no-tree default; D=64) on the
+    projections' layout, within 1e-4 of its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(b, s, h, 64, device=cuda_device, generator=g).transpose(1, 2)
+               for _ in range(3))
+    got = k2.flash_attention(q, k, v)
+    want = k2.attention_reference(q, k, v, sm_scale=1.0 / 8.0)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def _shipped_pages(n):
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+
+    with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
+        return [np.stack([p] * 3, axis=-1) for p in data["pages"][:n]]
+
+
+@pytest.mark.cuda
+def test_cuda_ink_detector_matches_cpu(cuda_device):
+    """The weight-free ink detector: the same boxes on the card as on the
+    CPU (Otsu, the closing and the components are exact)."""
+    from marie_tpu_torch.boxes import InkBoxProcessor
+
+    card, cpu = InkBoxProcessor(device="cuda"), InkBoxProcessor(device="cpu")
+    for page in _shipped_pages(2):
+        got, want = card.detect_words(page), cpu.detect_words(page)
+        assert len(want[0]) > 10
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_cuda_dit_detector_matches_cpu_and_launches_on_detectors(cuda_device):
+    """DiT at ``dit_synth_s1`` width from a seed: the heatmap within 1e-4
+    of the CPU's (float32, TF32 kept out), K2 launched 6 times a page on
+    the ``"detectors"`` path."""
+    from marie_tpu_torch.boxes import BoxProcessorUlimDit
+    from marie_tpu_torch.boxes.box_processor import fit_page
+    from marie_tpu_torch.boxes.dit_box_processor import dit_heatmap
+    from marie_tpu_torch.models.configs import ViTConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    cfg = ViTConfig.dit_synth_s1()
+    tree = init_flax_layout(cfg, 0)
+    card = BoxProcessorUlimDit(config=cfg, variables=tree, device="cuda")
+    cpu = BoxProcessorUlimDit(config=cfg, variables=tree, device="cpu")
+    page = _shipped_pages(1)[0]
+    before = dict(k2.flash_attention.launches_by_path)
+    got = dit_heatmap(card.model, fit_page(page, card.buckets, "cuda")[0]).cpu()
+    want = dit_heatmap(cpu.model, fit_page(page, cpu.buckets, "cpu")[0])
+    torch.cuda.synchronize()
+    after = k2.flash_attention.launches_by_path
+    assert after.get("detectors", 0) - before.get("detectors", 0) == cfg.num_layers
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_textfusenet_matches_cpu(cuda_device):
+    """TextFuseNet at ``synth_s2`` from a seed: dense maps within 1e-4 of
+    the CPU's."""
+    from marie_tpu_torch.boxes import BoxProcessorTextFuseNet
+    from marie_tpu_torch.boxes.box_processor import fit_page
+    from marie_tpu_torch.models.configs import TextFuseNetConfig
+    from marie_tpu_torch.preprocess.ops import normalize_page
+    from marie_tpu_torch.registry.convert import init_flax_layout
+    from marie_tpu_torch.utils.device import float32_precision
+
+    cfg = TextFuseNetConfig.synth_s2()
+    tree = init_flax_layout(cfg, 0)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        bp = BoxProcessorTextFuseNet(config=cfg, variables=tree, device=dev)
+        with torch.no_grad(), float32_precision(False):
+            page = fit_page(_shipped_pages(1)[0], bp.buckets, dev)[0]
+            out = bp.model.dense(normalize_page(page)[None])
+        outs.append({k: v.cpu() for k, v in out.items()})
+    for key in outs[1]:
+        assert float((outs[0][key] - outs[1][key]).abs().max()) <= 1e-4, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cc_stats", ["reduce", "reduce2", "runs", "sort"])
+def test_cuda_cc_stats_variants_equal_runs_cc(cuda_device, cc_stats):
+    """Each stats variant on the card gives ``runs_cc``'s stats on random
+    masks with non-negative scores."""
+    from marie_tpu_torch.boxes.craft_box_processor import cc_component_stats
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mask = torch.rand(4, 96, 128, device=cuda_device, generator=g) < 0.3
+    scores = torch.rand(4, 96, 128, device=cuda_device, generator=g)
+    want = cc_component_stats(mask, scores, 256, "runs_cc")
+    got = cc_component_stats(mask, scores, 256, cc_stats)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

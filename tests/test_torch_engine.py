@@ -282,19 +282,21 @@ def test_dispatch_stream_propagates_worker_errors(processors, monkeypatch):
         list(tfused.fused_dispatch_stream(tbp, top, pages, page_batch=2))
 
 
-def test_engine_refuses_what_is_not_ported(processors):
+def test_engine_refuses_what_is_not_ported(processors, monkeypatch):
     """What the port does not take yet raises, naming its ROADMAP item:
-    a device mesh (item 16) and the other CC stats variants (item 8).
-    Beam search and the ``best`` engine are ported: a beam processor
-    builds (and is kept off the fused path, as in JAX) and the registry
-    builds ``best``; a bad beam size or engine name is refused."""
+    a device mesh (item 7).  The other CC stats variants are ported:
+    ``cc_stats="sort"`` gives the JAX detector's stats under
+    ``MARIE_CC_STATS=sort``.  Beam search and the ``best`` engine are
+    ported: a beam processor builds (and is kept off the fused path, as
+    in JAX) and the registry builds ``best``; a bad beam size or engine
+    name is refused."""
     from marie_tpu_torch.boxes.craft_box_processor import detect_core
     from marie_tpu_torch.ocr.fused import supports_fused_page
     from marie_tpu_torch.ocr.util import get_known_ocr_engines
     from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
 
-    _, (tbp, top) = processors
-    with pytest.raises(NotImplementedError, match="item 16"):
+    (jbp, _), (tbp, top) = processors
+    with pytest.raises(NotImplementedError, match="item 7"):
         PipelineOcrEngine(tbp, top, mesh="local")
     with pytest.raises(ValueError):
         PipelineOcrEngine(tbp, top, upload_format="u3")
@@ -302,9 +304,17 @@ def test_engine_refuses_what_is_not_ported(processors):
     assert beam.beam_size == 5 and not supports_fused_page(tbp, beam)
     with pytest.raises(ValueError):
         TrOcrProcessor(tcfg.TrOCRConfig.tiny(), beam_size=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        detect_core(tbp.model, torch.zeros(1, H, W, dtype=torch.uint8), 0.7, 0.4, 0.4, 8,
-                    cc_stats="sort")
+    from marie_tpu.boxes.craft_box_processor import _detect_core as jax_detect_core
+
+    pages = np.stack([_page(s) for s in (3, 4)])
+    got = detect_core(tbp.model, torch.from_numpy(pages), 0.7, 0.4, 0.4, 8, "ink",
+                      cc_stats="sort")
+    monkeypatch.setenv("MARIE_CC_STATS", "sort")
+    want = jax_detect_core(jbp.model, jbp.variables, jnp.asarray(pages), 0.7, 0.4, 0.4, 8,
+                           "ink")
+    assert int(np.asarray(want["valid"]).sum()) > 0
+    for key, v in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(v), err_msg=key)
     assert isinstance(get_known_ocr_engines("cpu", "best")["best"], VotingOcrEngine)
     with pytest.raises(ValueError):
         get_known_ocr_engines("cpu", "worst")

@@ -109,3 +109,56 @@ def test_pipeline_and_embeddings_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             LayoutEmbeddingsModel(LayoutLMConfig.tiny())
+
+
+_DETECTORS = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "PIL", "cv2"):
+    sys.modules[name] = None
+import numpy as np
+from marie_tpu_torch.boxes import (
+    BoxProcessorTextFuseNet, BoxProcessorUlimDit, InkBoxProcessor)
+from marie_tpu_torch.boxes.craft_box_processor import CC_STATS
+from marie_tpu_torch.models.configs import TextFuseNetConfig, ViTConfig
+from marie_tpu_torch.ops.roi_align import roi_align, roi_align_single
+page = np.full((64, 48), 255, np.uint8)
+page[20:30, 8:40] = 0
+ink = InkBoxProcessor(device="cpu", bucket_spec=None)
+print(len(ink.detect_words(page)[0]), sorted(CC_STATS))
+"""
+
+
+def test_detectors_import_with_jax_blocked():
+    """The ink, DiT and TextFuseNet detectors, ROIAlign and the CC stats
+    variants import (and the ink detector runs on the CPU) with JAX,
+    flax, orbax, PIL and cv2 blocked."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _DETECTORS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split("\n")[0] == "1 ['reduce', 'reduce2', 'runs', 'runs_cc', 'sort']"
+
+
+def test_detectors_default_to_the_card():
+    """Each new detector, ROIAlign and the page-resident engine path run
+    on the card unless the caller asks for the CPU, and refuse where CUDA
+    is absent rather than fall back."""
+    import inspect
+
+    import pytest
+    import torch
+
+    from marie_tpu_torch.boxes import (
+        BoxProcessorTextFuseNet, BoxProcessorUlimDit, InkBoxProcessor)
+    from marie_tpu_torch.ops.roi_align import roi_align, roi_align_single
+
+    entries = (InkBoxProcessor, BoxProcessorUlimDit, BoxProcessorTextFuseNet, roi_align,
+               roi_align_single)
+    for fn in entries:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            InkBoxProcessor()
+        with pytest.raises(RuntimeError):
+            roi_align_single(torch.zeros(1, 4, 4), torch.zeros(1, 4))

@@ -44,7 +44,7 @@ from marie_tpu.overlay.overlay import OverlayProcessor as JaxOverlay
 from marie_tpu.overlay.overlay import _segment_batch_gray_jit
 from marie_tpu.preprocess import BucketSpec as JaxBucketSpec
 from marie_tpu_torch.models.configs import Pix2PixConfig
-from marie_tpu_torch.models.pix2pix import InstanceNorm, SameConv2d, SameConvTranspose2d
+from marie_tpu_torch.models.pix2pix import GroupNorm, SameConv2d, SameConvTranspose2d
 from marie_tpu_torch.overlay.overlay import OverlayProcessor, _segment_batch_gray, resize_linear
 from marie_tpu_torch.preprocess.buckets import BucketSpec
 from marie_tpu_torch.preprocess.resize import resize_nearest_u8
@@ -113,7 +113,7 @@ def test_group_norm_group_size_1_matches_flax(dtype):
     m = fnn.GroupNorm(num_groups=None, group_size=1)
     want = np.asarray(m.apply(jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), tree),
                               jnp.asarray(x, jdt)).astype(jnp.float32))
-    norm = from_flax(tree, InstanceNorm(6)).to(tdt)
+    norm = from_flax(tree, GroupNorm(6)).to(tdt)
     got = _nhwc(norm(_nchw(x).to(tdt)).float())
     # bf16: the same float32 math, then one rounding: equal
     np.testing.assert_allclose(got, want, atol=F32_ATOL if dtype == "float32" else 0.0)
