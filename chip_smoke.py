@@ -39,7 +39,15 @@ runs the other word detectors against their JAX golden and the CPU: the
 weight-free ink detector in the engine on the shipped pages, the DiT
 detector at ``dit_synth_s1`` width and its no-tree configuration and
 TextFuseNet at ``synth_s2`` (seeded weights), and the trained engine
-under each CC stats variant (``detectors``); traces one more run per
+under each CC stats variant (``detectors``); orders the golden OCR words
+of the shipped pages and a 600-word page with the reading-order model at
+full width (seeded; K2 float32 at D=32) against its JAX golden, and the
+trained engine's results card against CPU (``reading_order``); checks
+the runtime glue (``mesh="local"``, ``TimeContextTPU``, the system
+metrics, the version table, and the numpy JPEG and G4 codecs against
+PIL's digests) (``runtime``); holds the rotated IoU, NMS and ROIAlign
+and the deformable convolution to the CPU (``rotated``); traces one more
+run per
 box source, of the chained engine, of the trained engine, of the
 ``best`` engine, of the extract job and its generator and of the job
 with both stages, with torch.profiler (``profile``).  It prints one JSON
@@ -328,6 +336,9 @@ K2_CASES = [
     # 16x16 patches) and the no-tree configuration (1024x768)
     ("dit_s1_fp32", (1, 4, 768, 768, 64), "fp32", False, None, True),
     ("dit_default_fp32", (1, 6, 3072, 3072, 64), "fp32", False, None, True),
+    # the reading-order model at base width on one page band: 256 boxes
+    # padded, kv_len = page 0's word count
+    ("reading_order_fp32", (1, 4, 256, 256, 32), "fp32", False, EMBEDDINGS, True),
 ]
 
 INDEXER_WORDS = 1200  # the long page of phase_layoutlm_base
@@ -392,7 +403,9 @@ def phase_k2():
     of ``phase_layoutlm_base``'s 1,200-word page), and the base-width
     layout embeddings of the 16 shipped pages' texts (512 tokens, kv_len
     the pages' word counts), and the base indexer on one shipped page
-    (the extract phase's shape: one window, kv_len its word count).  Times
+    (the extract phase's shape: one window, kv_len its word count), the
+    DiT encoder's two shapes, and the reading-order model's band (D=32:
+    4 heads, 256 boxes, kv_len page 0's word count).  Times
     are cold (see cold_device_ms) and warm; SDPA is timed on the same
     inputs, with the equivalent boolean ``attn_mask`` where K2 masks."""
     import torch
@@ -3204,6 +3217,321 @@ def phase_detectors(shipped, trained_engine):
     return launches, setups
 
 
+READING_ORDER_SEED = SEED + 70  # the seeded base-width reading-order tree
+LONG_PAGE_SEED = SEED + 71
+LONG_PAGE_WORDS = 600  # three bands of max_boxes 256
+READING_ORDER_LIMIT = 1e-4  # card vs golden scores (float32; K2 as 3xTF32)
+SWAP_GAP = 2e-4  # a swapped neighbour pair's golden scores differ by less
+
+
+def long_page_boxes(n: int = LONG_PAGE_WORDS, seed: int = LONG_PAGE_SEED):
+    """xyxy boxes of ``n`` words on a 768x1024 page in two columns of
+    lines, word widths and line heights drawn from ``seed``; each box is
+    a list of four floats."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    boxes, col, x, y = [], 0, 40.0, 30.0
+    for _ in range(n):
+        w = float(rng.integers(18, 70))
+        if x + w > 40 + 340 * col + 320:
+            x, y = 40.0 + 340 * col, y + float(rng.integers(14, 20))
+            if y > 1000:
+                col, x, y = col + 1, 40.0 + 340 * (col + 1), 30.0
+        h = float(rng.integers(10, 15))
+        boxes.append([x, y, x + w, y + h])
+        x += w + float(rng.integers(4, 12))
+    return boxes
+
+
+#: near-tie swaps allowed, at the counts the card showed: (a) against the
+#: golden over the 17 pages (the CPU port shows the same swap), (b) card
+#: against the CPU over the trained engine's 16 pages
+READING_ORDER_SWAPS = 1
+READING_ORDER_CPU_SWAPS = 0
+READING_ORDER_LAUNCHES = 4  # K2 calls a band: one a layer
+
+
+def _order_rows(layout, cases, wants, limit, gap):
+    """Order each (boxes, scale) of ``cases`` with ``layout`` and hold it
+    to ``wants`` ({"order", "scores"}): scores within ``limit``, orders
+    equal but for near-tie swaps (``check.order_swaps`` at ``gap``).
+    Returns (worst score gap, swaps, orders)."""
+    import numpy as np
+
+    from marie_tpu_torch.check import order_swaps
+
+    worst, swaps, orders = 0.0, 0, []
+    for (boxes, scale), want in zip(cases, wants):
+        got, scores = layout.order_and_scores(boxes, scale)
+        worst = max(worst, float(np.abs(scores - np.asarray(want["scores"], np.float32)).max()))
+        swaps += order_swaps(got, want["order"], want["scores"], gap)
+        orders.append(got)
+    if not worst <= limit:
+        raise AssertionError(f"reading-order scores off by {worst} > {limit}")
+    return worst, swaps, orders
+
+
+def phase_reading_order(shipped, trained_engine):
+    """The reading-order model at its full width (``ReadingOrderConfig.
+    base()``: hidden 128, 4 layers, 4 heads, so K2 float32 at D=32) with
+    the seeded tree of ``golden_reading_order.json`` (the trained tree is
+    not shipped): (a) on the card, the golden OCR words of the 16 shipped
+    pages and the 600-word page (three bands) against the JAX golden:
+    scores within READING_ORDER_LIMIT, orders equal but for adjacent swaps
+    of near ties (golden scores closer than SWAP_GAP), at most
+    READING_ORDER_SWAPS; (b) ``reorder_page_result`` on the trained
+    engine's results of the 16 pages, card against the CPU port under the
+    same rule; (c) ms/page, and K2 launched 4 times a band on the
+    ``"reading_order"`` path (64 for the 16 pages).  Returns the launches
+    of the 16-page run."""
+    import torch
+
+    from marie_tpu_torch.document.layoutreader import page_word_boxes, reorder_page_result
+    from marie_tpu_torch.models.reading_order import ReadingOrderConfig, TextLayout
+    from marie_tpu_torch.registry.convert import init_flax_layout
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+
+    with open(os.path.join(ZOO_DIR, "golden_reading_order.json")) as f:
+        golden = json.load(f)
+    if golden["settings"]["seed"] != READING_ORDER_SEED:
+        raise AssertionError("golden_reading_order.json is of another seed")
+    cfg = ReadingOrderConfig.base()
+    tree = init_flax_layout(cfg, READING_ORDER_SEED)
+    card = TextLayout(cfg, tree, device="cuda")
+    cpu = TextLayout(cfg, tree, device="cpu")
+    cases = [page_word_boxes(p) for p in shipped["golden"]["pages"]]
+    n = len(cases)
+    card.order(*cases[0])  # first call: builds the kernel
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for boxes, scale in cases:
+        card.order_and_scores(boxes, scale)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    ms_page = statistics.median(
+        _ms_per_call(lambda b=b, s=s: card.order(b, s), reps=3)[0] for b, s in cases)
+    long_boxes = long_page_boxes()
+    _reset_counts()
+    worst, swaps, _ = _order_rows(card, cases + [(long_boxes, 1024.0)],
+                                  golden["pages"] + [golden["long_page"]],
+                                  READING_ORDER_LIMIT, SWAP_GAP)
+    long_launches = _read_counts()["flash_attention"].get("reading_order", 0)
+    # (b): the trained engine's own results, card against the CPU port
+    results = trained_engine.extract(list(shipped["pages"]))
+    engine_cases = [page_word_boxes(r) for r in results]
+    cpu_rows = []
+    for boxes, scale in engine_cases:
+        order, scores = cpu.order_and_scores(boxes, scale)
+        cpu_rows.append({"order": order, "scores": scores})
+    cpu_worst, cpu_swaps, card_orders = _order_rows(card, engine_cases, cpu_rows,
+                                                    READING_ORDER_LIMIT, SWAP_GAP)
+    same_dicts = 0
+    for r, card_order, row in zip(results, card_orders, cpu_rows):
+        got, want = reorder_page_result(r, card), reorder_page_result(r, cpu)
+        if card_order == row["order"]:
+            if got != want:
+                raise AssertionError("reorder_page_result differs where the orders agree")
+            same_dicts += 1
+        if [w["id"] for w in got["words"]] != list(range(len(r["words"]))):
+            raise AssertionError("reorder_page_result gave the words other ids")
+    k2 = launches["flash_attention"]
+    bands = n  # every shipped page is one band (< 256 words)
+    emit({"phase": "reading_order", "config": "base (hidden 128, 4 layers, 4 heads, D=32)",
+          "seed": READING_ORDER_SEED, "pages": n,
+          "words": [len(b) for b, _ in cases], "long_page_words": len(long_boxes),
+          "ms_per_page": ms_page, "wall_ms_per_page": wall / n * 1e3,
+          "golden_max_score_err": worst, "golden_swaps": swaps,
+          "cpu_max_score_err": cpu_worst, "cpu_swaps": cpu_swaps,
+          "reorder_dicts_equal": same_dicts, "limit": READING_ORDER_LIMIT,
+          "swap_gap": SWAP_GAP, "launches": launches, "long_page_launches": long_launches})
+    if swaps > READING_ORDER_SWAPS or cpu_swaps > READING_ORDER_CPU_SWAPS:
+        raise AssertionError(f"reading order: {swaps} golden, {cpu_swaps} CPU near-tie swaps")
+    if (k2.get("reading_order", 0) != READING_ORDER_LAUNCHES * bands
+            or k2.get("all", 0) != k2.get("reading_order", 0)
+            or long_launches != READING_ORDER_LAUNCHES * (bands + 3)):
+        raise AssertionError(f"reading order K2 launches: {launches}, {long_launches}")
+    return launches
+
+
+def phase_runtime(shipped, trained_engine):
+    """The runtime glue on the card: an engine built with ``mesh="local"``
+    gives the result dicts of ``mesh=None`` on 2 pages; ``TimeContextTPU``
+    waits for work queued on the card (and ``TimeContext`` does not);
+    ``collect_system_metrics`` reports the card's allocated bytes;
+    ``get_full_version`` names the card; the numpy JPEG encoder and
+    decoder and the G4 writer reproduce the sha256 of PIL's outputs in
+    ``golden_reading_order.json``, and are timed."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.helper import get_full_version
+    from marie_tpu_torch.logging_core.profile import TimeContext, TimeContextTPU
+    from marie_tpu_torch.metrics import collect_system_metrics
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.utils import image_io
+
+    with open(os.path.join(ZOO_DIR, "golden_reading_order.json")) as f:
+        golden = json.load(f)
+    e = trained_engine
+    local = PipelineOcrEngine(e.box_processor, e.ocr_processor, upload_format=e.upload_format,
+                              compact_slots=e.compact_slots,
+                              page_fuse_batch=e.page_fuse_batch, mesh="local",
+                              classifier=e.classifier, indexer=e.indexer)
+    pages = list(shipped["pages"][:2])
+    if local.mesh is not None or local.extract(pages) != e.extract(pages):
+        raise AssertionError("mesh='local' does not give the mesh=None results")
+    # a ~50 ms sleep kernel, then a small op behind it
+    x = torch.ones(4, device="cuda")
+    torch.cuda.synchronize()
+    with TimeContext("no wait") as plain:
+        torch.cuda._sleep(100_000_000)
+        y = x + 1
+    busy_after_plain = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    with TimeContextTPU("wait", outputs_fn=lambda: [y]) as waited:
+        torch.cuda._sleep(100_000_000)
+        y = x + 2
+    idle_after_wait = torch.cuda.current_stream().query()
+    metrics = collect_system_metrics()
+    version = get_full_version()
+    name = torch.cuda.get_device_name(0)
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    digests, times = {}, {}
+    for key in ("page0", "rgb"):
+        img = shipped["pages"][0] if key == "page0" else shipped["rgb"]
+        t0 = time.perf_counter()
+        data = image_io.encode_jpeg(img)
+        t1 = time.perf_counter()
+        decoded = image_io.decode_jpeg(data)
+        t2 = time.perf_counter()
+        want = golden["jpeg"][key]
+        digests[f"jpeg_{key}"] = (sha(data) == want["bytes"]
+                                  and sha(np.ascontiguousarray(decoded).tobytes())
+                                  == want["decoded"]
+                                  and list(decoded.shape) == want["shape"])
+        times[f"jpeg_encode_{key}_ms"] = (t1 - t0) * 1e3
+        times[f"jpeg_decode_{key}_ms"] = (t2 - t1) * 1e3
+    for key in ("page0", "oversize"):
+        frame = (shipped["pages"][0] if key == "page0" else shipped["oversize"]) > 128
+        h, w = frame.shape
+        per = image_io.g4_rows_per_strip(w, h)
+        t0 = time.perf_counter()
+        strips = [image_io.encode_g4(frame[r:r + per]) for r in range(0, h, per)]
+        t1 = time.perf_counter()
+        back = np.concatenate([image_io.decode_g4(st, w, min(per, h - i * per))
+                               for i, st in enumerate(strips)])
+        t2 = time.perf_counter()
+        want = golden["g4"][key]
+        digests[f"g4_{key}"] = (sha(b"".join(strips)) == want["strips"]
+                                and len(strips) == want["count"]
+                                and per == want["rows_per_strip"]
+                                and bool(np.array_equal(back, frame)))
+        times[f"g4_encode_{key}_ms"] = (t1 - t0) * 1e3
+        times[f"g4_decode_{key}_ms"] = (t2 - t1) * 1e3
+    row = {"mesh_local_equal": True, "time_context_s": plain.duration,
+           "stream_busy_after_time_context": busy_after_plain,
+           "time_context_tpu_s": waited.duration,
+           "stream_idle_after_time_context_tpu": idle_after_wait,
+           "device_bytes_in_use": metrics.get("device.bytes_in_use"),
+           "metrics": sorted(metrics), "version": version, "digests": digests, **times}
+    emit({"phase": "runtime", **row})
+    failed = [k for k, ok in digests.items() if not ok]
+    if (not busy_after_plain or not idle_after_wait or waited.duration < 0.02
+            or not metrics.get("device.bytes_in_use", 0) > 0
+            or version.get("device") != name or version.get("device_count") != 1
+            or failed):
+        raise AssertionError(f"runtime checks failed: {row}")
+
+
+ROTATED_LIMIT = 1e-5
+ROTATED_SEED = SEED + 80
+
+
+def phase_rotated():
+    """The rotated ops and deformable convolution on the card against the
+    CPU port on the same inputs, within ROTATED_LIMIT (the NMS keep masks
+    equal), each timed (warm, device): ``pairwise_rotated_iou`` on
+    512 x 512 boxes at angles 0, 45, 90, -30 and drawn ones (with
+    identical, contained and disjoint pairs), ``rotated_nms`` over 512
+    boxes, ``roi_align_rotated`` of 256 rois on 2 maps of 64x100x100, and
+    ``deform_conv2d`` v1 and v2 (32 -> 64 channels, 3x3, 2x64x64)."""
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.ops.deform_conv import deform_conv2d
+    from marie_tpu_torch.ops.nms import rotated_nms
+    from marie_tpu_torch.ops.roi_align import roi_align_rotated
+    from marie_tpu_torch.ops.rotated_iou import pairwise_rotated_iou
+
+    rng = np.random.default_rng(ROTATED_SEED)
+    n = 512
+    angles = np.where(rng.random(n) < 0.5, rng.choice([0.0, 45.0, 90.0, -30.0], n),
+                      rng.uniform(-90, 90, n))
+    boxes = np.concatenate([rng.uniform(0, 400, (n, 2)), rng.uniform(4, 60, (n, 2)),
+                            angles[:, None]], 1).astype(np.float32)
+    boxes[1] = boxes[0]  # identical
+    boxes[3] = boxes[2] * np.float32([1, 1, 0.3, 0.3, 1])  # contained
+    boxes[5] = boxes[4] + np.float32([900, 900, 0, 0, 0])  # disjoint
+    scores = rng.random(n).astype(np.float32)
+    feats = rng.standard_normal((2, 64, 100, 100)).astype(np.float32)
+    rois = np.concatenate([rng.integers(0, 2, (256, 1)), rng.uniform(0, 100, (256, 2)),
+                           rng.uniform(2, 40, (256, 2)), rng.uniform(-90, 90, (256, 1))],
+                          1).astype(np.float32)
+    x = rng.standard_normal((2, 32, 64, 64)).astype(np.float32)
+    wgt = (rng.standard_normal((64, 32, 3, 3)) / np.sqrt(288)).astype(np.float32)
+    off = (rng.standard_normal((2, 18, 64, 64)) * 2).astype(np.float32)
+    mask = rng.random((2, 9, 64, 64)).astype(np.float32)
+    bias = rng.standard_normal(64).astype(np.float32)
+    cases = {
+        "pairwise_rotated_iou": lambda d: pairwise_rotated_iou(boxes, boxes, device=d),
+        "rotated_nms": lambda d: rotated_nms(boxes, scores, 0.3, device=d)[0],
+        "roi_align_rotated": lambda d: roi_align_rotated(feats, rois, 7, 0.5, 2, device=d),
+        "deform_conv2d_v1": lambda d: deform_conv2d(x, off, wgt, None, bias, device=d),
+        "deform_conv2d_v2": lambda d: deform_conv2d(x, off, wgt, mask, bias, device=d),
+    }
+    rows, failed = {}, []
+    for name, fn in cases.items():
+        got = fn("cuda")
+        want = fn("cpu")
+        torch.cuda.synchronize()
+        if got.dtype == torch.bool:
+            err = float((got.cpu() != want).sum())
+            ok = err == 0 and bool(want.any())
+        else:
+            err = float((got.cpu() - want).abs().max())
+            ok = err <= ROTATED_LIMIT
+        ins = {k: torch.from_numpy(v).cuda() for k, v in dict(
+            boxes=boxes, scores=scores, feats=feats, rois=rois, x=x, wgt=wgt, off=off,
+            mask=mask, bias=bias).items()}
+        dev_fn = {
+            "pairwise_rotated_iou": lambda: pairwise_rotated_iou(ins["boxes"], ins["boxes"]),
+            "rotated_nms": lambda: rotated_nms(ins["boxes"], ins["scores"], 0.3),
+            "roi_align_rotated": lambda: roi_align_rotated(ins["feats"], ins["rois"], 7, 0.5,
+                                                           2),
+            "deform_conv2d_v1": lambda: deform_conv2d(ins["x"], ins["off"], ins["wgt"], None,
+                                                      ins["bias"]),
+            "deform_conv2d_v2": lambda: deform_conv2d(ins["x"], ins["off"], ins["wgt"],
+                                                      ins["mask"], ins["bias"]),
+        }[name]
+        host_ms, _ = _ms_per_call(dev_fn, reps=5)
+        rows[name] = {"max_abs_err": err, "device_ms": device_ms(dev_fn, reps=10),
+                      "host_ms": host_ms, "shape": list(got.shape)}
+        if not ok:
+            failed.append(name)
+    emit({"phase": "rotated", "limit": ROTATED_LIMIT, "ops": rows})
+    if failed:
+        raise AssertionError(f"rotated ops card vs CPU: {failed}: {rows}")
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -3250,6 +3578,9 @@ def main() -> int:
     register_launches, register_setups = run("register", phase_register, shipped)
     detector_launches, detector_setups = run("detectors", phase_detectors, shipped,
                                              trained_engine)
+    reading_launches = run("reading_order", phase_reading_order, shipped, trained_engine)
+    run("runtime", phase_runtime, shipped, trained_engine)
+    run("rotated", phase_rotated)
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
@@ -3275,7 +3606,8 @@ def main() -> int:
             **{f"extract_register_{p}_{k}": v for p, counts in register_launches.items()
                for k, v in counts[name].items() if k != "all"},
             **{f"detectors_{part}_{k}": v for part, counts in detector_launches.items()
-               for k, v in counts[name].items() if k != "all"}}
+               for k, v in counts[name].items() if k != "all"},
+            "reading_order": reading_launches[name].get("reading_order", 0)}
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

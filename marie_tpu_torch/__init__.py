@@ -17,7 +17,9 @@ compiled with ``nvcc`` the first time a wrapper launches one
 (:mod:`marie_tpu_torch.ops.kernels._build`).
 """
 
-__all__ = ["PipelineOcrEngine"]
+__version__ = "0.1.0"  # the JAX package's version, which the port follows
+
+__all__ = ["PipelineOcrEngine", "__version__"]
 
 
 def __getattr__(name):

@@ -154,3 +154,27 @@ def agreement(golden: List[Dict[str, Any]], candidate: List[Dict[str, Any]],
         "ner_pages": ner_pages,
         "golden_words": n_words,
     }
+
+
+def order_swaps(got: Sequence[int], want: Sequence[int], want_scores: Sequence[float],
+                gap: float) -> int:
+    """How many adjacent pairs ``got`` has swapped against ``want`` (two
+    reading orders of one page), where each swapped pair's scores in
+    ``want_scores`` (by box index) differ by less than ``gap``: a near tie
+    that a rounding difference may flip.  Any other difference raises
+    AssertionError."""
+    if sorted(got) != sorted(want):
+        raise AssertionError("the two orders hold different boxes")
+    swaps, i, n = 0, 0, len(want)
+    while i < n:
+        if got[i] == want[i]:
+            i += 1
+            continue
+        a, b = want[i], want[i + 1] if i + 1 < n else None
+        if (b is None or got[i] != b or got[i + 1] != a
+                or not abs(float(want_scores[a]) - float(want_scores[b])) < gap):
+            raise AssertionError(f"orders differ at position {i} beyond a near-tie swap "
+                                 f"(gap {gap})")
+        swaps += 1
+        i += 2
+    return swaps

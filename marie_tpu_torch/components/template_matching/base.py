@@ -44,19 +44,13 @@ def top_peaks(score: torch.Tensor, th: int, tw: int, max_peaks: int):
 
 
 def read_template(path: str) -> np.ndarray:
-    """A template file as uint8 RGB [H, W, 3]: PNG, or a little-endian
-    TIFF's first page."""
-    from marie_tpu_torch.utils.image_io import read_png, read_tiff
+    """A template file as uint8 RGB [H, W, 3], as the JAX matcher's
+    ``Image.open(path).convert("RGB")`` gives it: PNG (alpha dropped), a
+    TIFF's first page, baseline JPEG or BMP, known by the file's first
+    bytes (:func:`marie_tpu_torch.utils.image_io.read_image`)."""
+    from marie_tpu_torch.utils.image_io import drop_alpha, read_image
 
-    with open(path, "rb") as f:
-        head = f.read(8)
-    if head == b"\x89PNG\r\n\x1a\n":
-        img = read_png(path)
-    elif head[:4] == b"II*\x00":
-        img = read_tiff(path)[0]
-    else:
-        raise ValueError(f"template {path!r}: only PNG and TIFF (little-endian) are "
-                         f"read, not a file starting {head!r}")
+    img = drop_alpha(read_image(path))
     return np.stack([img] * 3, axis=-1) if img.ndim == 2 else img
 
 

@@ -230,7 +230,7 @@ def fused_ocr_pages(
     Returns (stats, tokens, conf) on the device (row alignment contract
     in the module docstring)."""
     if mesh is not None:
-        raise NotImplementedError("a device mesh is ROADMAP §1 item 7")
+        raise NotImplementedError("a device mesh is ROADMAP §1 item 9")
     bp, op = box_processor, ocr_processor
     pack_bits = _norm_pack_bits(packed)
     p = int(pages.shape[0])
@@ -412,7 +412,7 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
     from marie_tpu_torch.ocr.fused_chain import fused_ocr_chain
 
     if mesh is not None:
-        raise NotImplementedError("a device mesh is ROADMAP §1 item 7")
+        raise NotImplementedError("a device mesh is ROADMAP §1 item 9")
     if upload_format not in UPLOAD_FORMATS:
         raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "
                          f"got {upload_format!r}")

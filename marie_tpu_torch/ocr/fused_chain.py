@@ -94,7 +94,7 @@ def fused_ocr_chain(box_processor, ocr_processor, classifier, indexer, pages, cl
     Returns (stats, tokens, conf, cls_logits, ner_labels, ner_scores) on
     the device."""
     if mesh is not None:
-        raise NotImplementedError("a device mesh is ROADMAP §1 item 7")
+        raise NotImplementedError("a device mesh is ROADMAP §1 item 9")
     bp, op = box_processor, ocr_processor
     if classifier.config.vocab_size != indexer.config.vocab_size:
         raise ValueError("the classifier and the indexer must share one word vocabulary")

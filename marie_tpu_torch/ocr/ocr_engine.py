@@ -21,7 +21,9 @@ WORD, RAW_LINE and MULTI_LINE pages are cut into host fragments
 (``TrOcrProcessor.recognize_from_fragments``).  ``regions`` cuts each
 region out of its page and extracts it in its own mode.
 
-Left for later: a device mesh (ROADMAP §1 item 7).
+``mesh="local"`` is taken as the JAX engine takes it: on one device (the
+CPU, or a machine with one card) it is no mesh at all.  A mesh over more
+than one card, or a mesh object, is refused (ROADMAP §1 item 9).
 """
 
 from typing import Any, Dict, List, Optional
@@ -40,6 +42,7 @@ from marie_tpu_torch.ocr.fused import (
     supports_fused_page,
 )
 from marie_tpu_torch.ops.kernels._build import launch_path
+from marie_tpu_torch.utils.device import resolve_mesh
 
 
 class PipelineOcrEngine:
@@ -81,8 +84,7 @@ class PipelineOcrEngine:
         classifier=None,
         indexer=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is ROADMAP §1 item 7")
+        self.mesh = resolve_mesh(mesh, getattr(box_processor, "device", "cuda"))
         if upload_format not in UPLOAD_FORMATS:
             raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "
                              f"got {upload_format!r}")

@@ -4,14 +4,15 @@ matrix once, then the sequential greedy keep over ranks, a fixed trip
 count of N small device ops with no host sync.  The keep mask comes back
 in input order.
 
-``rotated_nms`` needs the rotated-box IoU (``ops/rotated_iou.py``), which
-comes with TextFuseNet (ROADMAP §1 item 5)."""
+``rotated_nms`` runs the same greedy keep over the rotated-box IoU of
+:mod:`marie_tpu_torch.ops.rotated_iou`."""
 
 from typing import Optional, Tuple
 
 import torch
 
 from marie_tpu_torch.ops.box_ops import box_iou
+from marie_tpu_torch.ops.rotated_iou import pairwise_rotated_iou
 from marie_tpu_torch.utils.device import resolve_device
 
 
@@ -61,11 +62,33 @@ def _suppress(iou: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Te
     return keep
 
 
-def rotated_nms(boxes, scores, iou_threshold=0.5, valid_mask=None, max_outputs=None,
-                device="cuda"):
-    """Greedy NMS over rotated boxes: needs the rotated-box IoU, which is
-    ported with TextFuseNet."""
-    raise NotImplementedError("rotated_nms needs ops/rotated_iou.py: ROADMAP §1 item 5")
+def rotated_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    iou_threshold: float = 0.5,
+    valid_mask: Optional[torch.Tensor] = None,
+    max_outputs: Optional[int] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS over rotated boxes ``[N, 5]`` (cx, cy, w, h, angle in
+    degrees counter-clockwise), as :func:`nms` on ``device``."""
+    dev = resolve_device(device)
+    boxes = torch.as_tensor(boxes, dtype=torch.float32).to(dev)
+    scores = torch.as_tensor(scores).to(dev)
+    n = boxes.shape[0]
+    if valid_mask is None:
+        valid_mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    valid_mask = torch.as_tensor(valid_mask).to(dev)
+    masked = torch.where(valid_mask, scores, torch.full_like(scores, float("-inf")))
+    order = torch.argsort(-masked, stable=True)
+    iou = pairwise_rotated_iou(boxes[order], boxes[order], device=dev)
+    keep = _suppress(iou, valid_mask[order], iou_threshold)
+    if max_outputs is not None:
+        rank = torch.cumsum(keep.to(torch.int32), dim=0) - 1
+        keep = keep & (rank < max_outputs)
+    out = torch.zeros((n,), dtype=torch.bool, device=dev)
+    out[order] = keep
+    return out, order
 
 
 def batched_nms(boxes, scores, class_ids, iou_threshold=0.5, valid_mask=None,

@@ -13,12 +13,13 @@ makes :func:`roi_align_single` equal the JAX one to the bit; under
 ``vmap`` XLA fuses the batched JAX ``roi_align`` otherwise, and the two
 agree to a few float32 ulps.
 
-``roi_align_rotated`` needs the rotated ops of ROADMAP §1 item 5 and
-raises.
+:func:`roi_align_rotated` samples each rotated ROI's grid about its
+centre, turned by its angle, through the same gather.
 """
 
 import torch
 
+from marie_tpu_torch.ops.rotated_iou import cos_sin_degrees
 from marie_tpu_torch.preprocess.ops import fma
 from marie_tpu_torch.utils.device import resolve_device
 
@@ -130,7 +131,47 @@ def roi_align(
                       spatial_scale, sampling_ratio, aligned)
 
 
-def roi_align_rotated(*args, **kwargs):
-    """Rotated ROIAlign: not ported (ROADMAP §1 item 5, with the rotated
-    IoU and NMS)."""
-    raise NotImplementedError("roi_align_rotated is ROADMAP §1 item 5")
+def _recip(n: int, dev) -> torch.Tensor:
+    return torch.tensor(1.0 / n, dtype=torch.float32, device=dev)
+
+
+def roi_align_rotated(
+    features: torch.Tensor,
+    rois: torch.Tensor,
+    output_size: int = 7,
+    spatial_scale: float = 1.0,
+    sampling_ratio: int = 2,
+    *,
+    device="cuda",
+) -> torch.Tensor:
+    """ROIAlignRotated over maps [N, C, H, W] for rois [K, 6] (batch
+    index, cx, cy, w, h, angle in degrees counter-clockwise, in input
+    coordinates) -> [K, C, P, P]: the P x P bins of S x S samples of the
+    box's own frame, turned by its angle about its centre (half-pixel
+    aligned), averaged; on ``device``."""
+    dev = resolve_device(device)
+    features = torch.as_tensor(features).to(dev)
+    rois = torch.as_tensor(rois, dtype=torch.float32).to(dev)
+    p, s = output_size, max(sampling_ratio, 1)
+    n, c, h, w = features.shape
+    k = rois.shape[0]
+    cx = rois[:, 1] * spatial_scale - 0.5
+    cy = rois[:, 2] * spatial_scale - 0.5
+    rw = rois[:, 3] * spatial_scale
+    rh = rois[:, 4] * spatial_scale
+    cos_t, sin_t = cos_sin_degrees(rois[:, 5])
+    cos_t, sin_t = cos_t[:, None, None], sin_t[:, None, None]
+    # divisions by P and S as products with their float32 reciprocals (as
+    # XLA and torch's CUDA division by a scalar compute them; the CPU's
+    # would divide)
+    bins = torch.arange(p, dtype=torch.float32, device=dev)
+    samples = (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) * _recip(s, dev)
+    frac = ((bins[:, None] + samples[None, :]) * _recip(p, dev)).reshape(-1)  # [P*S]
+    off_y = ((frac[None] - 0.5) * rh[:, None])[:, :, None]  # [K, P*S, 1]
+    off_x = ((frac[None] - 0.5) * rw[:, None])[:, None, :]  # [K, 1, P*S]
+    xs = cx[:, None, None] + off_x * cos_t - off_y * sin_t  # [K, P*S, P*S]
+    ys = cy[:, None, None] + off_x * sin_t + off_y * cos_t
+    flat = features.to(torch.float32).reshape(n, c, h * w).transpose(1, 2)
+    vals = _bilinear_gather(flat, h, w, rois[:, 0].to(torch.int64), ys, xs)
+    vals = vals.reshape(k, p, s, p, s, c)
+    return vals.mean(dim=(2, 4)).permute(0, 3, 1, 2)

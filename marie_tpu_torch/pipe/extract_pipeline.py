@@ -314,7 +314,7 @@ class ExtractPipeline(BasePipeline):
         written to ``clean/`` as PNG and, when a prior run (local or
         restored) left one file per page, read back instead of running
         the generator again (upstream's skip on a count match)."""
-        from marie_tpu_torch.utils.image_io import read_png
+        from marie_tpu_torch.utils.image_io import drop_alpha, read_png
 
         clean_dir = ensure_exists(os.path.join(root_asset_dir, "clean"))
         _, prefix, _ = split_filename(ref_id)
@@ -325,7 +325,7 @@ class ExtractPipeline(BasePipeline):
                     n for n in os.listdir(clean_dir)
                     if os.path.isfile(os.path.join(clean_dir, n))
                 )
-                restored = [_in_layout(read_png(os.path.join(clean_dir, name)), ref)
+                restored = [_in_layout(drop_alpha(read_png(os.path.join(clean_dir, name))), ref)
                             for name, ref in zip(files, frames)]
                 if len(restored) == len(frames):
                     self.logger.info(f"Skipping segmentation for {ref_id}")

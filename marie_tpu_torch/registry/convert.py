@@ -50,6 +50,8 @@ from marie_tpu_torch.models.configs import (
     ViTConfig,
 )
 
+#: (and ``models.reading_order.ReadingOrderConfig``, which lives with its
+#: model as in the JAX package)
 Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig, Pix2PixConfig,
                BoundaryConfig, ViTConfig, TextFuseNetConfig]
 #: the LayoutLM heads by name ("encoder": the bare encoder, no head)
@@ -64,7 +66,9 @@ _LSTM_GATES = ("i", "f", "g", "o")
 def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
     """The port's module for a config (on the current default device); a
     bare :class:`ViTConfig` builds the DiT detector (its ``backbone``,
-    ``up{i}`` and ``head``).  A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
+    ``up{i}`` and ``head``), a ``models.reading_order.ReadingOrderConfig``
+    the reading-order ranker (``embed``, ``layer_{i}``, ``ln_f``,
+    ``head``).  A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
     classification), ``"token"`` (NER) or ``"encoder"`` (the encoder
     alone, whose flax tree has its modules at the top); other configs
     take none."""
@@ -77,6 +81,7 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         LayoutLMv3ForTokenClassification,
     )
     from marie_tpu_torch.models.pix2pix import ResnetGenerator
+    from marie_tpu_torch.models.reading_order import ReadingOrderConfig, ReadingOrderModel
     from marie_tpu_torch.models.textfusenet import TextFuseNet
     from marie_tpu_torch.models.trocr import TrOCRModel
     from marie_tpu_torch.models.vit import DiTDetector
@@ -105,6 +110,8 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         return DiTDetector(config)
     if isinstance(config, TextFuseNetConfig):
         return TextFuseNet(config)
+    if isinstance(config, ReadingOrderConfig):
+        return ReadingOrderModel(config)
     raise TypeError(f"no port model for {type(config).__name__}")
 
 

@@ -24,6 +24,23 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
+def resolve_mesh(mesh, device: DeviceLike = "cuda") -> None:
+    """The JAX engine's ``mesh`` argument on the port: ``None``, or
+    ``"local"`` where the device's kind has one device (the CPU, or a
+    machine with one card), is no mesh.  ``"local"`` over more cards, or a
+    mesh object, raises: a device mesh is ROADMAP §1 item 9."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, str) and mesh == "local":
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cpu" or torch.cuda.device_count() == 1:
+            return None
+        raise NotImplementedError(
+            f"mesh='local' over {torch.cuda.device_count()} cards: a device mesh is "
+            "ROADMAP §1 item 9")
+    raise NotImplementedError(f"a device mesh ({type(mesh).__name__}) is ROADMAP §1 item 9")
+
+
 def set_parity_precision() -> None:
     """Full float32 for matmuls and convolutions (TF32 off for both): a
     float32 comparison against a reference must not run in TF32, which

@@ -8,8 +8,11 @@ import numpy as np
 
 
 def save_frames_as_tiff(frames: Sequence[np.ndarray], path: str) -> None:
-    """Write frames as one multi-page PackBits TIFF (bool frames 1-bit;
-    the JAX package writes those as CCITT G4)."""
+    """Write frames as one multi-page TIFF: CCITT G4 when the first frame
+    is bool (the strips PIL writes), PackBits otherwise, as the JAX
+    package picks."""
     from marie_tpu_torch.utils.image_io import write_tiff
 
-    write_tiff(path, [np.asarray(f) for f in frames])
+    frames = [np.asarray(f) for f in frames]
+    write_tiff(path, frames,
+               compression="group4" if frames[0].dtype == np.bool_ else "packbits")

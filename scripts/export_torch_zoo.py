@@ -14,6 +14,7 @@ the DejaVu font (the JAX package's own environment)::
     python scripts/export_torch_zoo.py --extract   # only golden_extract.json
     python scripts/export_torch_zoo.py --register  # only golden_register.json
     python scripts/export_torch_zoo.py --detectors  # only golden_detectors.json
+    python scripts/export_torch_zoo.py --reading-order  # only golden_reading_order.json
 
 It writes
 
@@ -87,6 +88,17 @@ It writes
   least ``min_area``), ``detect_words``' boxes and scores, and
   TextFuseNet's fused scores and refined boxes on its valid slots.  No
   pixels and no trees.
+* ``golden_reading_order.json`` (~10 s): the JAX ``TextLayout`` at
+  ``ReadingOrderConfig.base()`` with the port's ``init_flax_layout`` tree
+  at ``chip_smoke.READING_ORDER_SEED`` (the trained
+  ``reading-order-synth`` is not shipped) on the golden OCR words of the
+  16 pages (``layoutreader.page_word_boxes``) and on the 600-word page of
+  ``chip_smoke.long_page_boxes`` (three bands): each order and each box's
+  score (9 significant digits, which give the float32 back); and the
+  sha256 of what PIL makes of the shipped pages for the ``runtime``
+  phase: its quality-80 JPEG of page 0 and of the RGB form (the bytes,
+  and their decode), and its G4 strips of page 0 and of the 3300x2550
+  page thresholded at 128 (the strips joined, and the strips' count).
 """
 
 import argparse
@@ -756,6 +768,102 @@ def export_detectors() -> None:
         json.dump(golden, f, default=_json_default, separators=(",", ":"))
 
 
+def _jax_order_and_scores(layout, boxes, scale):
+    """JAX ``TextLayout.order`` with each box's score (its bands, B=1)."""
+    import jax.numpy as jnp
+
+    from marie_tpu.models.reading_order import _score_boxes
+
+    arr = np.asarray(boxes, np.float32) / float(scale)
+    n, nb = len(arr), layout.cfg.max_boxes
+    bands = ([np.arange(n)] if n <= nb else
+             [np.argsort(arr[:, 1], kind="stable")[s:s + nb] for s in range(0, n, nb)])
+    scores, order = np.zeros(n, np.float32), []
+    for idx in bands:
+        k = len(idx)
+        padded = np.zeros((1, nb, 4), np.float32)
+        padded[0, :k] = arr[idx]
+        got = np.asarray(_score_boxes(layout.model, layout.params, jnp.asarray(padded),
+                                      jnp.asarray([k], jnp.int32)))[0, :k]
+        scores[idx] = got
+        order += [int(idx[i]) for i in np.argsort(got, kind="stable")]
+    if order != layout.order(boxes, scale=scale):
+        raise AssertionError("the banded scores do not give TextLayout.order")
+    return order, [float(f"{v:.9g}") for v in scores]
+
+
+def export_reading_order() -> None:
+    """golden_reading_order.json: the JAX reading order of the seeded
+    base tree, and PIL's JPEG and G4 digests of the shipped pages."""
+    import hashlib
+    import io
+
+    import jax
+    import jax.numpy as jnp
+    from PIL import Image
+
+    import chip_smoke as cs
+    from marie_tpu.models.reading_order import ReadingOrderConfig, TextLayout
+    from marie_tpu_torch.document.layoutreader import page_word_boxes
+    from marie_tpu_torch.models.reading_order import ReadingOrderConfig as PortConfig
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    tree = init_flax_layout(PortConfig.base(), cs.READING_ORDER_SEED)
+    layout = TextLayout(ReadingOrderConfig.base(), jax.tree_util.tree_map(jnp.asarray, tree))
+    with open(os.path.join(ZOO, "golden.json")) as f:
+        pages = json.load(f)["pages"]
+    rows = []
+    for page in pages:
+        order, scores = _jax_order_and_scores(layout, *page_word_boxes(page))
+        rows.append({"order": order, "scores": scores})
+    order, scores = _jax_order_and_scores(layout, cs.long_page_boxes(), 1024.0)
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    with np.load(os.path.join(ZOO, "pages.npz")) as data:
+        shipped = {"page0": data["pages"][0], "rgb": data["rgb"], "oversize": data["oversize"]}
+    jpeg = {}
+    for name in ("page0", "rgb"):
+        img = shipped[name]
+        buf = io.BytesIO()
+        Image.fromarray(img if img.ndim == 3 else np.stack([img] * 3, -1)).save(
+            buf, format="JPEG", quality=80)
+        decoded = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+        jpeg[name] = {"bytes": sha(buf.getvalue()), "decoded": sha(decoded.tobytes()),
+                      "shape": list(decoded.shape)}
+    g4 = {}
+    for name in ("page0", "oversize"):
+        buf = io.BytesIO()
+        Image.fromarray(shipped[name] > 128).save(buf, format="TIFF", compression="group4")
+        tiff = Image.open(io.BytesIO(buf.getvalue()))
+        strips = [buf.getvalue()[o:o + n] for o, n in zip(tiff.tag_v2[273], tiff.tag_v2[279])]
+        g4[name] = {"strips": sha(b"".join(strips)), "count": len(strips),
+                    "rows_per_strip": tiff.tag_v2[278]}
+    golden = {
+        "settings": {
+            "model": "marie_tpu TextLayout at ReadingOrderConfig.base() (hidden 128, 4 "
+                     "layers, 4 heads, max_boxes 256), float32 on the CPU",
+            "tree": "marie_tpu_torch init_flax_layout(ReadingOrderConfig.base(), seed)",
+            "seed": cs.READING_ORDER_SEED,
+            "pages": "golden.json pages: words' xywh boxes as xyxy, scale max(width, "
+                     "height) (layoutreader.page_word_boxes)",
+            "long_page": f"chip_smoke.long_page_boxes({cs.LONG_PAGE_WORDS}, "
+                         f"{cs.LONG_PAGE_SEED}), scale 1024",
+            "scores": "each box's score in its band, 9 significant digits",
+            "jpeg": "PIL quality 80 of the RGB stack; sha256 of the file and of "
+                    "convert('RGB') pixels",
+            "g4": "PIL group4 TIFF of page > 128 (bool); sha256 of the strips joined",
+        },
+        "pages": rows,
+        "long_page": {"order": order, "scores": scores},
+        "jpeg": jpeg,
+        "g4": g4,
+    }
+    with open(os.path.join(ZOO, "golden_reading_order.json"), "w") as f:
+        json.dump(golden, f, separators=(",", ":"))
+
+
 def _cut(page, box):
     x, y, w, h = box
     return np.ascontiguousarray(page[y:y + h, x:x + w])
@@ -783,6 +891,8 @@ def main() -> None:
                     help="write only golden_register.json")
     ap.add_argument("--detectors", action="store_true",
                     help="write only golden_detectors.json")
+    ap.add_argument("--reading-order", action="store_true",
+                    help="write only golden_reading_order.json")
     args = ap.parse_args()
 
     import jax
@@ -802,6 +912,9 @@ def main() -> None:
         return
     if args.detectors:
         export_detectors()
+        return
+    if args.reading_order:
+        export_reading_order()
         return
     from bench import make_pages
     from marie_tpu.enums import PSMode
@@ -847,6 +960,7 @@ def main() -> None:
     export_extract()
     export_register()
     export_detectors()
+    export_reading_order()
     sizes = {n: os.path.getsize(os.path.join(ZOO, n)) for n in sorted(os.listdir(ZOO))}
     print(json.dumps({"bytes": sizes, "total": sum(sizes.values())}))
 

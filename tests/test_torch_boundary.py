@@ -137,8 +137,17 @@ def test_batched_nms_matches_jax():
 
 
 def test_rotated_nms_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        nms.rotated_nms(torch.zeros((2, 5)), torch.zeros(2), device="cpu")
+    """ROADMAP item 5 is done: ``rotated_nms`` no longer raises and keeps
+    JAX's boxes (two overlapping copies, one far box)."""
+    jnms_mod = importlib.import_module("marie_tpu.ops.nms")
+    boxes = np.float32([[10, 10, 8, 4, 30], [10.5, 10, 8, 4, 30], [50, 50, 6, 6, -30]])
+    scores = np.float32([0.5, 0.9, 0.7])
+    want, want_order = jnms_mod.rotated_nms(jnp.asarray(boxes), jnp.asarray(scores), 0.5)
+    got, order = nms.rotated_nms(torch.from_numpy(boxes), torch.from_numpy(scores), 0.5,
+                                 device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(order.numpy(), np.asarray(want_order))
+    assert got.tolist() == [False, True, True]
 
 
 def test_nms_defaults_to_the_card():

@@ -847,3 +847,88 @@ def test_cuda_cc_stats_variants_equal_runs_cc(cuda_device, cc_stats):
     got = cc_component_stats(mask, scores, 256, cc_stats)
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.cuda
+def test_cuda_attention_at_the_reading_order_shape(cuda_device):
+    """K2 float32 at D=32 (the reading-order model at base width: 4
+    heads, 256 boxes, ``kv_len`` a page's box count), within 1e-4 of its
+    plain version."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(1, 256, 4, 32, device=cuda_device, generator=g).transpose(1, 2)
+               for _ in range(3))
+    kv_len = torch.tensor([138], dtype=torch.int32, device=cuda_device)
+    got = k2.flash_attention(q, k, v, kv_len=kv_len)
+    want = k2.attention_reference(q, k, v, kv_len=kv_len, sm_scale=32 ** -0.5)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_reading_order_matches_cpu_and_launches(cuda_device):
+    """The seeded base-width reading-order model orders a 600-box page
+    (three bands) on the card as on the CPU (scores within 1e-4), with
+    K2 launched 4 times a band on ``"reading_order"``."""
+    import chip_smoke as cs
+    from marie_tpu_torch.models.reading_order import ReadingOrderConfig, TextLayout
+    from marie_tpu_torch.ops.kernels import _build
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    tree = init_flax_layout(ReadingOrderConfig.base(), cs.READING_ORDER_SEED)
+    card = TextLayout(ReadingOrderConfig.base(), tree, device="cuda")
+    cpu = TextLayout(ReadingOrderConfig.base(), tree, device="cpu")
+    boxes = cs.long_page_boxes()
+    _build.reset_counts(k2.flash_attention)
+    got, got_scores = card.order_and_scores(boxes, 1024.0)
+    want, want_scores = cpu.order_and_scores(boxes, 1024.0)
+    assert float(np.abs(got_scores - want_scores).max()) <= 1e-4
+    from marie_tpu_torch.check import order_swaps
+
+    assert order_swaps(got, want, want_scores, 2e-4) <= 2
+    assert k2.flash_attention.launches_by_path.get("reading_order") == 12
+
+
+@pytest.mark.cuda
+def test_cuda_rotated_ops_match_cpu(cuda_device):
+    """The rotated IoU, rotated NMS, rotated ROIAlign and deformable
+    convolution on the card within 1e-5 of the CPU port."""
+    from marie_tpu_torch.ops.deform_conv import deform_conv2d
+    from marie_tpu_torch.ops.nms import rotated_nms
+    from marie_tpu_torch.ops.roi_align import roi_align_rotated
+    from marie_tpu_torch.ops.rotated_iou import pairwise_rotated_iou
+
+    rng = np.random.default_rng(4)
+    boxes = np.concatenate([rng.uniform(0, 200, (64, 2)), rng.uniform(4, 40, (64, 2)),
+                            rng.choice([0.0, 45.0, 90.0, -30.0], (64, 1))], 1).astype(
+        np.float32)
+    scores = rng.random(64).astype(np.float32)
+    np.testing.assert_allclose(pairwise_rotated_iou(boxes, boxes, device="cuda").cpu().numpy(),
+                               pairwise_rotated_iou(boxes, boxes, device="cpu").numpy(),
+                               atol=1e-5)
+    keep_card, _ = rotated_nms(boxes, scores, 0.3, device="cuda")
+    keep_cpu, _ = rotated_nms(boxes, scores, 0.3, device="cpu")
+    assert torch.equal(keep_card.cpu(), keep_cpu)
+    feats = rng.standard_normal((2, 8, 40, 40)).astype(np.float32)
+    rois = np.concatenate([rng.integers(0, 2, (16, 1)), rng.uniform(0, 40, (16, 2)),
+                           rng.uniform(2, 20, (16, 2)), rng.uniform(-90, 90, (16, 1))],
+                          1).astype(np.float32)
+    np.testing.assert_allclose(roi_align_rotated(feats, rois, 5, device="cuda").cpu().numpy(),
+                               roi_align_rotated(feats, rois, 5, device="cpu").numpy(),
+                               atol=1e-5)
+    x = rng.standard_normal((1, 8, 20, 20)).astype(np.float32)
+    w = (rng.standard_normal((4, 8, 3, 3)) / 8).astype(np.float32)
+    off = rng.standard_normal((1, 18, 20, 20)).astype(np.float32)
+    np.testing.assert_allclose(deform_conv2d(x, off, w, device="cuda").cpu().numpy(),
+                               deform_conv2d(x, off, w, device="cpu").numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_time_context_tpu_waits(cuda_device):
+    from marie_tpu_torch.logging_core.profile import TimeContextTPU
+
+    x = torch.ones(4, device=cuda_device)
+    torch.cuda.synchronize()
+    with TimeContextTPU("wait", outputs_fn=lambda: [y]) as t:
+        torch.cuda._sleep(50_000_000)
+        y = x + 1
+    assert torch.cuda.current_stream().query() and t.duration > 0.01

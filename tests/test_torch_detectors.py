@@ -351,8 +351,12 @@ def test_roi_align_matches_jax():
     got = roi_align(torch.from_numpy(feats), torch.from_numpy(rois), 5, 1.0, 2,
                     device="cpu").numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        roi_align_rotated(feats, rois)
+    # ROADMAP item 5 is done: the rotated ROIAlign (cx, cy, w, h, angle)
+    rot = np.concatenate([rois[:, :1], rng.uniform(0, 22, (24, 2)), rng.uniform(1, 12, (24, 2)),
+                          rng.uniform(-90, 90, (24, 1))], 1).astype(np.float32)
+    want = np.asarray(jroi.roi_align_rotated(jnp.asarray(feats), jnp.asarray(rot), 5, 1.0, 2))
+    got = roi_align_rotated(feats, rot, 5, 1.0, 2, device="cpu").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 # --- TextFuseNet ------------------------------------------------------------

@@ -284,7 +284,8 @@ def test_dispatch_stream_propagates_worker_errors(processors, monkeypatch):
 
 def test_engine_refuses_what_is_not_ported(processors, monkeypatch):
     """What the port does not take yet raises, naming its ROADMAP item:
-    a device mesh (item 7).  The other CC stats variants are ported:
+    a device mesh (item 9); ``mesh="local"`` on one device is no mesh, as
+    in the JAX engine.  The other CC stats variants are ported:
     ``cc_stats="sort"`` gives the JAX detector's stats under
     ``MARIE_CC_STATS=sort``.  Beam search and the ``best`` engine are
     ported: a beam processor builds (and is kept off the fused path, as
@@ -296,8 +297,9 @@ def test_engine_refuses_what_is_not_ported(processors, monkeypatch):
     from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
 
     (jbp, _), (tbp, top) = processors
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PipelineOcrEngine(tbp, top, mesh="local")
+    assert PipelineOcrEngine(tbp, top, mesh="local").mesh is None
+    with pytest.raises(NotImplementedError, match="item 9"):
+        PipelineOcrEngine(tbp, top, mesh=object())
     with pytest.raises(ValueError):
         PipelineOcrEngine(tbp, top, upload_format="u3")
     beam = TrOcrProcessor(tcfg.TrOCRConfig.tiny(), beam_size=5, device="cpu")

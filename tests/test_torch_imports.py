@@ -162,3 +162,36 @@ def test_detectors_default_to_the_card():
             InkBoxProcessor()
         with pytest.raises(RuntimeError):
             roi_align_single(torch.zeros(1, 4, 4), torch.zeros(1, 4))
+
+
+_SLICE_12 = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "PIL", "cv2", "psutil"):
+    sys.modules[name] = None
+import numpy as np
+from marie_tpu_torch.document.layoutreader import load_text_layout, reorder_page_result
+from marie_tpu_torch.helper import get_full_version
+from marie_tpu_torch.logging_core import TimeContextTPU, profiling
+from marie_tpu_torch.metrics import collect_system_metrics
+from marie_tpu_torch.models.reading_order import ReadingOrderConfig, TextLayout
+from marie_tpu_torch.ops.deform_conv import deform_conv2d
+from marie_tpu_torch.ops.nms import rotated_nms
+from marie_tpu_torch.ops.roi_align import roi_align_rotated
+from marie_tpu_torch.ops.rotated_iou import pairwise_rotated_iou
+from marie_tpu_torch.utils.image_io import decode_jpeg, encode_g4, read_bmp, read_image
+layout = load_text_layout(config=ReadingOrderConfig.tiny(), device="cpu")
+print(layout.order([[0, 0, 10, 10], [0, 20, 10, 30]]) in ([0, 1], [1, 0]),
+      sorted(collect_system_metrics())[0], "torch" in get_full_version())
+"""
+
+
+def test_slice_12_modules_import_with_jax_blocked():
+    """Reading order, the runtime glue, the rotated ops and the new image
+    readers import and run on the CPU with JAX, flax, orbax, PIL, cv2 and
+    psutil blocked (the host metrics come from ``/proc``)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _SLICE_12], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["True", "process.memory_rss_bytes", "True"]

@@ -195,17 +195,22 @@ def test_load_definitions_reads_png_and_tiff(tmp_path):
     write_png(str(tmp_path / "a.png"), gray)
     write_tiff(str(tmp_path / "b.tif"), [rgb])
     Image.fromarray(rgb).save(tmp_path / "c.jpg")
+    Image.fromarray(rgb).save(tmp_path / "d.bmp")
+    Image.fromarray(gray).save(tmp_path / "e.gif")
     defs = [{"label": "a", "template": str(tmp_path / "a.png"), "text": "x"},
             {"label": "b", "template": str(tmp_path / "b.tif")},
-            {"label": "c", "template": rgb}]
+            {"label": "c", "template": rgb},
+            {"label": "jpeg", "template": str(tmp_path / "c.jpg")},
+            {"label": "bmp", "template": str(tmp_path / "d.bmp")}]
     port, ref = T.NCCTemplateMatcher(device="cpu"), J.NCCTemplateMatcher()
     port.load_definitions(defs)
     ref.load_definitions(defs)
     for p, r in zip(port._templates, ref._templates):
         assert (p["label"], p["text"]) == (r["label"], r["text"])
         np.testing.assert_array_equal(p["image"], r["image"])
-    with pytest.raises(ValueError, match="PNG and TIFF"):
-        port.load_definitions([{"label": "c", "template": str(tmp_path / "c.jpg")}])
+    assert len(port._templates) == len(defs)
+    with pytest.raises(ValueError, match="PNG, TIFF, JPEG or BMP"):
+        port.load_definitions([{"label": "e", "template": str(tmp_path / "e.gif")}])
 
 
 def test_matchers_default_to_the_card():
