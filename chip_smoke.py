@@ -46,7 +46,12 @@ trained engine's results card against CPU (``reading_order``); checks
 the runtime glue (``mesh="local"``, ``TimeContextTPU``, the system
 metrics, the version table, and the numpy JPEG and G4 codecs against
 PIL's digests) (``runtime``); holds the rotated IoU, NMS and ROIAlign
-and the deformable convolution to the CPU (``rotated``); traces one more
+and the deformable convolution to the CPU (``rotated``); runs the
+single-page program (``fused_dispatch``) on 2 shipped pages against the
+golden (``single``); serves the OCR executor from a worker pod over HTTP,
+answers 8 two-page requests one at a time and then all in flight against
+the golden and an in-process pipeline, and runs the NER executor through
+the worker's handler (``serve``); traces one more
 run per
 box source, of the chained engine, of the trained engine, of the
 ``best`` engine, of the extract job and its generator and of the job
@@ -3532,6 +3537,321 @@ def phase_rotated():
         raise AssertionError(f"rotated ops card vs CPU: {failed}: {rows}")
 
 
+def _without_heads(pages):
+    """Golden pages without the chained heads' outputs (page labels and
+    NER labels), for runs of an engine without heads."""
+    out = []
+    for page in pages:
+        page = {k: v for k, v in page.items() if k != "classification"}
+        page["words"] = [{k: v for k, v in wd.items() if k not in ("ner_label", "ner_label_id",
+                                                                   "ner_score")}
+                         for wd in page["words"]]
+        out.append(page)
+    return out
+
+
+SINGLE_PAGES = 2
+
+
+def phase_single(shipped, trained_engine):
+    """The single-page program (``fused_dispatch`` + ``fused_collect_many``,
+    the JAX package's ``_fused_page``; ROADMAP item 4.3) on 2 shipped pages
+    with the trained engine's detector and recogniser, twice: ms/page of
+    the second run; the results within the golden's limits
+    (``_against_golden``, the golden's head outputs set aside: this
+    program runs no heads); K1 and K2 launched on ``"single"``.  Returns
+    the launches of the second run."""
+    import torch
+
+    from marie_tpu_torch.enums import CoordinateFormat, PSMode
+    from marie_tpu_torch.ocr.fused import fused_collect_many, fused_dispatch
+
+    e = trained_engine
+    bp, op = e.box_processor, e.ocr_processor
+    pages = list(shipped["pages"][:SINGLE_PAGES])
+    n, (h, w) = len(pages), pages[0].shape
+
+    def run():
+        handles = [fused_dispatch(bp, op, page) for page in pages]
+        outs = fused_collect_many(bp, op, handles, [PSMode.SPARSE] * n)
+        return [e._assemble_result(f, i, o, CoordinateFormat.XYWH)
+                for i, (f, o) in enumerate(zip(pages, outs))], handles
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    results, handles = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    _check_results(results, n, h, w)
+    row = _against_golden(results, _without_heads(shipped["golden"]["pages"][:n]),
+                          shipped["truth"]["pages"][:n], (h, w))
+    emit({"phase": "single", "pages": n, "page_hw": [h, w], "handles": [hd.kind for hd in handles],
+          "rec_slots": handles[0].rec_slots, "first_call_s": first_s,
+          "wall_ms_per_page": wall / n * 1e3,
+          "kept_boxes": sum(len(r["words"]) for r in results), "launches": launches, **row})
+    if not row["within_limits"]:
+        raise AssertionError(f"the single-page program is outside the golden's limits: {row}")
+    if (launches["crop_resize"].get("single", 0) != n
+            or launches["flash_attention"].get("single", 0) <= 0):
+        raise AssertionError(f"single-page launches: {launches}")
+    return launches
+
+
+SERVE_PAIRS = 8  # /document/extract requests of 2 pages: the 16 shipped pages
+#: words (text or box) a served page may have apart from the in-process
+#: pipeline's on the same pages (the child may pick other cuDNN algorithms)
+SERVE_WORD_DIFFS = 0
+SERVE_CLOSE_S = 10.0
+
+
+def _word_diffs(got_pages, want_pages) -> int:
+    """Words whose text or box differ, position by position, plus the
+    words one side has past the other's."""
+    n = 0
+    for g, w in zip(got_pages, want_pages):
+        gw = [(x["text"], tuple(x["box"])) for x in g["words"]]
+        ww = [(x["text"], tuple(x["box"])) for x in w["words"]]
+        n += sum(a != b for a, b in zip(gw, ww)) + abs(len(gw) - len(ww))
+    return n
+
+
+def _percentile(values, q: float) -> float:
+    v = sorted(values)
+    return v[min(int(round(q * (len(v) - 1))), len(v) - 1)]
+
+
+def _served_launches(client) -> dict:
+    """{kernel: {path: launches}} that a served worker's ``/metrics``
+    reports for its process."""
+    import re
+
+    status, text = client.get("/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    counts: dict = {}
+    for kernel, path, n in re.findall(
+            r'^marie_kernel_launches_total\{kernel="(\w+)",path="(\w+)"\} (\d+)$', text, re.M):
+        counts.setdefault(kernel, {})[path] = int(n)
+    return counts
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    return {k: {p: n - before.get(k, {}).get(p, 0) for p, n in paths.items()}
+            for k, paths in after.items()}
+
+
+def phase_serve(shipped, ner_tree):
+    """The OCR executor served on the card by a worker pod over HTTP, and
+    the NER executor in-process.
+
+    (a) ``Pod("worker", uses="marie_tpu_torch.executor.TextExtractionExecutor",
+    uses_with={"ocr_engine": "default", "device": "cuda", ...},
+    protocol="http")``: startup seconds, ``/health`` 200, and
+    ``/document/status`` names the card (the child's version table).
+    (b) The 16 shipped pages as 8 ``/document/extract`` requests of 2
+    pages (tensors in the JSON body, ``HTTPClient``), one after another:
+    each 200 and ``"succeeded"``; the child's ``/metrics`` shows K1 and K2
+    launched on ``"fused"`` in these requests; the 16 pages within the golden's limits
+    (its head outputs set aside: the registry's ``default`` engine runs
+    no heads); the words apart from an in-process ``ExtractPipeline`` on
+    the same engine configuration and pages counted, at most
+    SERVE_WORD_DIFFS.  (c) The same 8 requests, each from a client thread
+    of its own, all in flight at once: all answered, each within SERVE_WORD_DIFFS of
+    (b)'s; p50/p95 request ms, pages/s, JSON encode/decode ms.  (d) A
+    request with no frames gets the JAX envelope ``{"status": "failed",
+    "error": "no frames in request"}``.  (e) The child exits within
+    SERVE_CLOSE_S of SIGTERM and its port is free again.  (f)
+    ``NerExtractionExecutor(reading_order=True, indexer=<the seeded
+    base-width indexer of layoutlm_base/extract>, device="cuda")`` through
+    ``WorkerRequestHandler.process_data`` on the golden words of the 16
+    pages: ``text_layout`` is set, the entities equal ``text_layout.order``
+    then ``indexer.index`` called directly, and K2 launched on
+    ``"heads"`` and ``"reading_order"``.  Returns the launches of (b) in
+    the child and of (f), by path: ``{kernel: {"extract_<path>": n,
+    "ner_<path>": n}}``."""
+    import asyncio
+    import socket
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from marie_tpu_torch.clients import HTTPClient
+    from marie_tpu_torch.components.base import PageInput
+    from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
+    from marie_tpu_torch.executor import NerExtractionExecutor
+    from marie_tpu_torch.executor.ner_executor import reading_order_boxes
+    from marie_tpu_torch.executor.text_extraction_executor import _trained_overlay
+    from marie_tpu_torch.models.configs import LayoutLMConfig
+    from marie_tpu_torch.ocr.util import get_known_ocr_engines
+    from marie_tpu_torch.orchestrate.pods import Pod
+    from marie_tpu_torch.pipe import ExtractPipeline
+    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.serve.executors.decorators import _jsonify
+    from marie_tpu_torch.serve.runtimes.worker.request_handling import WorkerRequestHandler
+    from marie_tpu_torch.types import Document
+    from marie_tpu_torch.types.request import DataRequest
+
+    pages = list(shipped["pages"])
+    n, (h, w) = len(pages), pages[0].shape
+    pairs = [pages[2 * i:2 * i + 2] for i in range(SERVE_PAIRS)]
+    card = torch.cuda.get_device_name(0)
+    row = {"phase": "serve", "pages": n, "requests": SERVE_PAIRS}
+    name = "extract"
+
+    def envelope(body):
+        if body["header"]["status"]["code"] != 0:
+            raise AssertionError(f"request failed: {body['header']['status']}")
+        return body["parameters"]["__results__"][name]
+
+    with tempfile.TemporaryDirectory() as work_dir:
+        pod = Pod("worker", uses="marie_tpu_torch.executor.TextExtractionExecutor",
+                  uses_with={"ocr_engine": "default", "device": "cuda",
+                             "work_dir": os.path.join(work_dir, "served")},
+                  protocol="http", name=name)
+        t0 = time.perf_counter()
+        pod.start()
+        row["startup_s"] = time.perf_counter() - t0
+        try:
+            client = HTTPClient(port=pod.port)
+            health = client.get("/health")
+            status = envelope(client.post("/document/status", [], return_responses=True))
+            row["health"] = health[0]
+            row["served_device"] = status["runtime_info"].get("device")
+            if health != (200, {"status": "OK"}) or row["served_device"] != card:
+                raise AssertionError(f"served worker: health {health}, status {status}")
+
+            def request(pair, i, c=None):
+                """(OCR pages, request ms, the client's JSON timings) of one
+                request, on ``c`` or on a client of its own."""
+                own = c is None
+                c = c or HTTPClient(port=pod.port)
+                try:
+                    t = time.perf_counter()
+                    body = c.post("/document/extract",
+                                  [Document(id=f"p{i}-{k}", tensor=p) for k, p in enumerate(pair)],
+                                  parameters={"ref_id": f"pair-{i}", "job_id": f"job-{i}"},
+                                  return_responses=True)
+                    ms = (time.perf_counter() - t) * 1e3
+                finally:
+                    if own:
+                        c.close()
+                env = envelope(body)
+                if env.get("status") != "succeeded":
+                    raise AssertionError(f"request {i}: {env}")
+                _check_results(env["metadata"]["ocr"], len(pair), h, w)
+                return env["metadata"]["ocr"], ms, dict(c.last_timings)
+
+            # (b) one after another
+            before = _served_launches(client)
+            seq = [request(pair, i, client) for i, pair in enumerate(pairs)]
+            served_launches = _launch_delta(before, _served_launches(client))
+            row["served_launches"] = served_launches
+            if (served_launches.get("crop_resize", {}).get("fused", 0) <= 0
+                    or served_launches.get("flash_attention", {}).get("fused", 0) <= 0):
+                raise AssertionError(f"served launches: {served_launches}")
+            served = [p for ocr, _, _ in seq for p in ocr]
+            row["sequential_ms"] = [ms for _, ms, _ in seq]
+            golden = _against_golden(served, _without_heads(shipped["golden"]["pages"]),
+                                     shipped["truth"]["pages"], (h, w))
+            row["golden"] = golden
+            if not golden["within_limits"]:
+                raise AssertionError(f"served pages outside the golden's limits: {golden}")
+            engine = get_known_ocr_engines("cuda", "default")["default"]
+            pipe = ExtractPipeline(ocr_engine=engine, work_dir=os.path.join(work_dir, "local"),
+                                   overlay_processor=_trained_overlay("cuda"), device="cuda")
+            local = [p for i, pair in enumerate(pairs)
+                     for p in pipe.execute(f"pair-{i}", "doc", list(pair))["ocr"]]
+            row["in_process_word_diffs"] = _word_diffs(served, local)
+            row["word_diff_limit"] = SERVE_WORD_DIFFS
+            del engine, pipe
+
+            # (c) all 8 in flight at once, a client thread each
+            with ThreadPoolExecutor(SERVE_PAIRS) as pool:
+                t0 = time.perf_counter()
+                results = list(pool.map(request, pairs, range(SERVE_PAIRS), timeout=900))
+                conc_wall = time.perf_counter() - t0
+            conc_ms = [ms for _, ms, _ in results]
+            row["concurrent"] = {
+                "wall_s": conc_wall, "pages_per_s": n / conc_wall,
+                "p50_ms": _percentile(conc_ms, 0.5), "p95_ms": _percentile(conc_ms, 0.95),
+                "request_ms": conc_ms,
+                "word_diffs_vs_sequential": sum(
+                    _word_diffs(results[i][0], seq[i][0]) for i in range(SERVE_PAIRS)),
+            }
+            timings = [t for _, _, t in seq + results]
+            row["json_encode_ms"] = statistics.median(t["encode_s"] for t in timings) * 1e3
+            row["json_decode_ms"] = statistics.median(t["decode_s"] for t in timings) * 1e3
+            row["sequential_p50_ms"] = _percentile(row["sequential_ms"], 0.5)
+            row["sequential_pages_per_s"] = n / (sum(row["sequential_ms"]) / 1e3)
+
+            # (d) no frames
+            row["no_frames"] = envelope(client.post(
+                "/document/extract", [Document(text="no pixels")], return_responses=True))
+            client.close()
+        finally:
+            port = pod.port
+            t0 = time.perf_counter()
+            pod.close(timeout=SERVE_CLOSE_S)
+            row["close_s"] = time.perf_counter() - t0
+        # (e) the child is gone and its port free
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", port))
+        row["child_exitcode"] = pod.exitcode
+
+    # (f) the NER executor in-process, through the worker's handler
+    with open(os.path.join(ZOO_DIR, "golden_extract.json")) as f:
+        ner_labels = tuple(json.load(f)["settings"]["ner_labels"])
+    indexer = LayoutDocumentIndexer(ner_labels, LayoutLMConfig.base(5), ner_tree, device="cuda")
+    executor = NerExtractionExecutor(reading_order=True, indexer=indexer, device="cuda")
+    golden_pages = shipped["golden"]["pages"]
+    docs = [Document(id=f"g{i}", tags={"words": [wd["text"] for wd in g["words"]],
+                                        "boxes": [wd["box"] for wd in g["words"]]})
+            for i, g in enumerate(golden_pages)]
+    handler = WorkerRequestHandler(executor=executor, name="ner")
+    req = DataRequest.from_docs(docs, endpoint="/ner/extract", parameters={"ref_id": "smoke"})
+    _reset_counts()
+    t0 = time.perf_counter()
+    resp = asyncio.run(handler.process_data([req]))
+    torch.cuda.synchronize()
+    ner_s = time.perf_counter() - t0
+    ner_launches = _read_counts()
+    if resp.is_error():
+        raise AssertionError(f"NER request failed: {resp.status}")
+    entities = resp.parameters["__results__"]["ner"]["entities"]
+    direct = []
+    for g in golden_pages:
+        words = [wd["text"] for wd in g["words"]]
+        boxes = [wd["box"] for wd in g["words"]]
+        order = executor.text_layout.order(*reading_order_boxes(boxes, None))
+        direct.append(PageInput([words[j] for j in order], [boxes[j] for j in order], None))
+    want = _jsonify(indexer.index(direct))
+    k2 = ner_launches["flash_attention"]
+    row["ner"] = {"text_layout_trained": executor.text_layout.trained,
+                  "entities": sum(len(p["entities"]) for p in entities),
+                  "equal_to_direct": entities == want, "ms_per_page": ner_s / n * 1e3,
+                  "launches": ner_launches}
+    row["within_limits"] = (
+        row["in_process_word_diffs"] <= SERVE_WORD_DIFFS
+        and row["concurrent"]["word_diffs_vs_sequential"] <= SERVE_WORD_DIFFS
+        and row["no_frames"] == {"status": "failed", "error": "no frames in request"}
+        and row["close_s"] <= SERVE_CLOSE_S and row["child_exitcode"] is not None
+        and row["ner"]["equal_to_direct"] and row["ner"]["entities"] > 0)
+    emit(row)
+    if not row["within_limits"]:
+        raise AssertionError(f"serve checks failed: {row}")
+    if executor.text_layout is None or k2.get("heads", 0) <= 0 or k2.get("reading_order", 0) <= 0:
+        raise AssertionError(f"NER launches: {ner_launches}")
+    return {name: {**{f"extract_{p}": v for p, v in served_launches.get(name, {}).items()},
+                   **{f"ner_{p}": v for p, v in ner_launches[name].items() if p != "all"}}
+            for name in ("crop_resize", "flash_attention")}
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -3574,13 +3894,16 @@ def main() -> int:
     classify_launches = run("classify", phase_classify, shipped, trained_engine, cls_tree)
     extract_launches, extract_setups = run("extract", phase_extract, shipped, cls_tree,
                                            ner_tree)
-    del cls_tree, ner_tree
+    del cls_tree
     register_launches, register_setups = run("register", phase_register, shipped)
     detector_launches, detector_setups = run("detectors", phase_detectors, shipped,
                                              trained_engine)
     reading_launches = run("reading_order", phase_reading_order, shipped, trained_engine)
     run("runtime", phase_runtime, shipped, trained_engine)
     run("rotated", phase_rotated)
+    single_launches = run("single", phase_single, shipped, trained_engine)
+    serve_launches = run("serve", phase_serve, shipped, ner_tree)
+    del ner_tree
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
@@ -3607,7 +3930,9 @@ def main() -> int:
                for k, v in counts[name].items() if k != "all"},
             **{f"detectors_{part}_{k}": v for part, counts in detector_launches.items()
                for k, v in counts[name].items() if k != "all"},
-            "reading_order": reading_launches[name].get("reading_order", 0)}
+            "reading_order": reading_launches[name].get("reading_order", 0),
+            "single": single_launches[name].get("single", 0),
+            **{f"serve_{k}": v for k, v in serve_launches[name].items()}}
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -5,6 +5,12 @@ reports JAX)."""
 import os
 
 
+def default_bind_host() -> str:
+    """The address servers listen on: loopback unless ``MARIE_BIND_HOST``
+    says otherwise (e.g. ``0.0.0.0`` inside a container)."""
+    return os.environ.get("MARIE_BIND_HOST", "127.0.0.1")
+
+
 def ensure_exists(path: str) -> str:
     """``path`` as a directory, made with its parents when missing."""
     os.makedirs(path, exist_ok=True)

@@ -18,6 +18,13 @@ predicate to the fetched stats (``detect_collect(return_rows=True)``,
 (kept boxes of pages < p) + j.  Kept boxes past the group's row budget
 are recognised on collect through ``TrOcrProcessor.recognize_dispatch``,
 as the JAX engine does.
+
+The per-page programs (:func:`fused_page`, :func:`fused_pages`: a fixed
+``rec_slots`` rows a page, kept slots first in slot order) are the JAX
+package's ``_fused_page`` / ``_fused_pages``: :func:`fused_dispatch`
+runs one page through them and :func:`fused_collect_many` collects their
+``"s"`` / ``"g"`` handles beside the groups'.  Their kernels count on the
+``"single"`` launch path.
 """
 
 import queue
@@ -112,6 +119,34 @@ def keep_predicate(stats: Dict[str, torch.Tensor], box_source: str,
     )
 
 
+def _rows_and_decode(pages_u8, trocr_model, boxes, stride, row_keep, page_of, clip,
+                     box_expand, out_h, out_w, dtype, max_steps, active):
+    """The selected rows' boxes (grid cells, [N, 4]) -> expanded by
+    ``box_expand``, clipped to their page's ``clip`` (w, h), [0, 0, 1, 1]
+    where ``row_keep`` is False -> crops (K1 for a grayscale stack, stock
+    ops for RGB) -> greedy decode with the geometric step caps (rows not
+    ``active`` start finished).  Returns (tokens, conf, boxes)."""
+    dev = pages_u8.device
+    b = boxes.to(torch.float32) * stride
+    bw = b[:, 2] - b[:, 0]
+    bh = b[:, 3] - b[:, 1]
+    b = fma(torch.stack([-bw, -bh, bw, bh], dim=-1),
+            torch.tensor(box_expand, dtype=torch.float32, device=dev), b)
+    hi = torch.stack([clip[:, 0], clip[:, 1], clip[:, 0], clip[:, 1]], dim=-1)
+    b = torch.minimum(torch.clamp(b, min=0.0), hi)
+    b = torch.where(row_keep[:, None], b, torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev))
+    with record_function("marie.crop"):
+        if pages_u8.ndim == 3:
+            crops, eff_w = crop_resize(pages_u8, page_of, b, out_h, out_w)
+            crops = crops[..., None].expand(*crops.shape, 3)
+        else:
+            crops, eff_w = crop_resize_pages(pages_u8, page_of, b, out_h, out_w)
+    tokens, _, conf = greedy_decode(
+        trocr_model, crops.to(dtype), max_steps, active=active,
+        step_caps=_geometric_step_caps(eff_w, out_h, max_steps))
+    return tokens, conf, b
+
+
 @torch.no_grad()
 def compact_program(
     craft_model: nn.Module,
@@ -163,28 +198,11 @@ def compact_program(
     order = torch.argsort(torch.where(flat_keep, gid, p * m + gid),
                           stable=True)[:total_slots]
     page_of = torch.div(order, m, rounding_mode="floor").to(torch.int32)
-
-    b = stats["boxes"].reshape(p * m, 4)[order].to(torch.float32) * stride
-    bw = b[:, 2] - b[:, 0]
-    bh = b[:, 3] - b[:, 1]
-    b = fma(torch.stack([-bw, -bh, bw, bh], dim=-1),
-            torch.tensor(box_expand, dtype=torch.float32, device=dev), b)
     clip = clip_whs.to(device=dev, dtype=torch.float32)[page_of.long()]
-    hi = torch.stack([clip[:, 0], clip[:, 1], clip[:, 0], clip[:, 1]], dim=-1)
-    b = torch.minimum(torch.clamp(b, min=0.0), hi)
-    b = torch.where(flat_keep[order][:, None], b,
-                    torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev))
-
     sel_keep = flat_keep[order]
-    with record_function("marie.crop"):
-        if pages_u8.ndim == 3:
-            crops, eff_w = crop_resize(pages_u8, page_of, b, out_h, out_w)
-            crops = crops[..., None].expand(*crops.shape, 3)
-        else:
-            crops, eff_w = crop_resize_pages(pages_u8, page_of, b, out_h, out_w)
-    tokens, _, conf = greedy_decode(
-        trocr_model, crops.to(dtype), max_steps, active=sel_keep,
-        step_caps=_geometric_step_caps(eff_w, out_h, max_steps))
+    tokens, conf, b = _rows_and_decode(
+        pages_u8, trocr_model, stats["boxes"].reshape(p * m, 4)[order], stride, sel_keep,
+        page_of, clip, box_expand, out_h, out_w, dtype, max_steps, active=sel_keep)
     return stats, tokens, conf, (keep, b, clip)
 
 
@@ -200,6 +218,136 @@ def program_args(bp, op, total_slots: int) -> tuple:
     return (bp.text_threshold, bp.low_text, bp.link_threshold, float(bp.min_area),
             float(bp.box_expand), bp.max_components, bp.box_source, int(total_slots),
             op.crop_h, op.crop_w, op.compute_dtype, op.decode_steps)
+
+
+@torch.no_grad()
+def pages_program(
+    craft_model: nn.Module,
+    trocr_model: nn.Module,
+    pages_u8: torch.Tensor,  # [P, H, W] / [P, H, W, 3] uint8, same bucket
+    clip_whs: torch.Tensor,  # [P, 2] float32 crop clip (w, h)
+    text_threshold: float,
+    low_text: float,
+    link_threshold: float,
+    min_area: float,
+    box_expand: float,
+    max_components: int,
+    box_source: str,
+    rec_slots: int,
+    out_h: int,
+    out_w: int,
+    dtype: torch.dtype,
+    max_steps: int,
+    active_rows: bool = True,
+    cc_stats: str = "runs_cc",
+    cc_runs: int = 48,
+    allow_tf32: bool = False,
+):
+    """Per-page OCR: ``rec_slots`` recognition rows a page (kept slots
+    first, in slot order; the rest crop the box [0, 0, 1, 1]).  With
+    ``active_rows`` the rows that hold no kept box start finished in the
+    decode (``_fused_pages``); without, every row decodes
+    (``_fused_page``).  Grayscale crops go through K1, RGB crops through
+    stock ops.
+
+    Returns (stats, tokens [P, R, max_steps] int32, conf [P, R] float32)
+    with R = min(rec_slots, the stats' component slots)."""
+    if pages_u8.ndim not in (3, 4):
+        raise ValueError("the page program takes [P, H, W] or [P, H, W, 3] pages")
+    dev = pages_u8.device
+    p = pages_u8.shape[0]
+    stats = detect_core(craft_model, pages_u8, text_threshold, low_text,
+                        link_threshold, max_components, box_source,
+                        cc_stats=cc_stats, cc_runs=cc_runs, allow_tf32=allow_tf32)
+    m = stats["boxes"].shape[1]
+    stride = stats["stride"][0].to(torch.float32)
+    keep = keep_predicate(stats, box_source, text_threshold, min_area)
+    slot = torch.arange(m, device=dev)
+    sel = torch.argsort(torch.where(keep, slot, m + slot), dim=1, stable=True)[:, :rec_slots]
+    r = sel.shape[1]
+    sel_keep = torch.gather(keep, 1, sel).reshape(-1)
+    boxes = torch.gather(stats["boxes"], 1, sel[..., None].expand(p, r, 4)).reshape(p * r, 4)
+    clip = clip_whs.to(device=dev, dtype=torch.float32).repeat_interleave(r, dim=0)
+    page_of = torch.arange(p, device=dev, dtype=torch.int32).repeat_interleave(r)
+    tokens, conf, _ = _rows_and_decode(
+        pages_u8, trocr_model, boxes, stride, sel_keep, page_of, clip, box_expand, out_h,
+        out_w, dtype, max_steps, active=sel_keep if active_rows else None)
+    return stats, tokens.reshape(p, r, -1), conf.reshape(p, r)
+
+
+def fused_page(craft_model, trocr_model, page_u8: torch.Tensor, clip_wh: torch.Tensor,
+               *args, **kwargs):
+    """One page ([H, W] grayscale or [H, W, 3] uint8, bucket-padded; clip
+    [2]) through :func:`pages_program` with every row decoding, as the
+    JAX package's ``_fused_page``: (stats of the page, tokens [R,
+    max_steps], conf [R]).  ``args`` are :func:`pages_program`'s from
+    ``text_threshold`` to ``max_steps``."""
+    stats, tokens, conf = pages_program(craft_model, trocr_model, page_u8[None],
+                                        clip_wh.reshape(1, 2), *args, active_rows=False,
+                                        **kwargs)
+    return {k: v[0] for k, v in stats.items()}, tokens[0], conf[0]
+
+
+def fused_pages(craft_model, trocr_model, pages_u8: torch.Tensor, clip_whs: torch.Tensor,
+                *args, **kwargs):
+    """Page-batched :func:`pages_program` (the JAX package's
+    ``_fused_pages``): the rows that hold no kept box start finished."""
+    return pages_program(craft_model, trocr_model, pages_u8, clip_whs, *args,
+                         active_rows=True, **kwargs)
+
+
+class PageHandle(NamedTuple):
+    """A dispatch of the per-page programs: ``kind`` ``"s"`` (one page:
+    ``stats`` of the page, ``tokens`` [R, S], ``conf`` [R], ``pages`` the
+    device page) or ``"g"`` (a page batch: leading page dimension
+    everywhere).  ``stats``, ``tokens`` and ``conf`` are host tensors
+    whose copies from the card complete at ``ready`` (None on the CPU);
+    ``metas`` is (scale, (h, w)) per page."""
+
+    kind: str
+    stats: Dict[str, torch.Tensor]
+    tokens: torch.Tensor
+    conf: torch.Tensor
+    pages: torch.Tensor
+    metas: List[Tuple[float, Tuple[int, int]]]
+    rec_slots: int
+    ready: Optional[Any]
+
+
+def _page_handle(kind, device, stats, tokens, conf, pages, metas, rec_slots) -> PageHandle:
+    """Copy a program's outputs to pinned host buffers behind an event."""
+    stats = {k: _to_host(v) for k, v in stats.items()}
+    tokens, conf = _to_host(tokens), _to_host(conf)
+    ready = None
+    if device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record()
+    return PageHandle(kind, stats, tokens, conf, pages, metas, int(rec_slots), ready)
+
+
+def _dispatch_prepped(bp, op, padded: np.ndarray, scale: float, hw, rec_slots: int) -> PageHandle:
+    """Upload a prepped page (channel-free when its channels are equal)
+    and run :func:`fused_page` on it under the ``"single"`` launch path."""
+    if padded.ndim == 3 and is_grayscale(padded[None]):
+        padded = padded[..., 0]
+    page_dev = _to_device(padded, bp.device)
+    h, w = hw
+    clip_wh = torch.tensor([w * scale, h * scale], dtype=torch.float32, device=bp.device)
+    with launch_path("single"):
+        stats, tokens, conf = fused_page(
+            bp.model, op.model, page_dev, clip_wh, *program_args(bp, op, rec_slots),
+            **cc_kwargs(bp))
+    return _page_handle("s", bp.device, stats, tokens, conf, page_dev,
+                        [(scale, (h, w))], rec_slots)
+
+
+def fused_dispatch(box_processor, ocr_processor, image: np.ndarray,
+                   rec_slots: int = 256) -> PageHandle:
+    """Upload one page and run the single-page program on it; collect the
+    ``"s"`` handle with :func:`fused_collect_many`."""
+    bp, op = box_processor, ocr_processor
+    padded, scale, (h, w) = bp.prep_page(image)
+    return _dispatch_prepped(bp, op, padded, scale, (h, w), rec_slots)
 
 
 def fused_ocr_pages(
@@ -348,41 +496,86 @@ class GroupHandle(NamedTuple):
     heads: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
-class _UploadWorkers:
-    """The streams' worker threads, kept and reused: cuDNN keeps its
-    convolution plans per thread, so a fresh thread for every stream
-    rebuilt all of the detector's plans (~90 ms of host time for the
-    serving CRAFT on an H100).  A stream takes an idle worker or starts
-    a new one, so concurrent streams never wait for each other.  Threads
-    start only when a stream runs, and live as long as the process."""
+class _Stream:
+    """One stream's work for :class:`_DeviceThread`: its groups, the
+    queue its consumer reads and the consumer's room for handles.  A
+    group takes a slot before it runs and gives it back when its consumer
+    takes its handle; there are ``max_in_flight + 1`` slots, so the
+    stream runs as far ahead as a thread of its own that ran a group and
+    then waited for room among ``max_in_flight`` handles."""
+
+    def __init__(self, groups, run_group, max_in_flight: int):
+        self.groups = iter(groups)
+        self.run_group = run_group  # group -> handle
+        self.q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.slots = threading.Semaphore(max(max_in_flight, 1) + 1)  # groups run, not taken
+        self.closed = False  # the consumer stopped reading
+
+    def step(self) -> bool:
+        """Run the next group into the queue; False once the stream has
+        ended (or failed: the error goes to the consumer)."""
+        try:
+            group = next(self.groups, None)
+            if group is None:
+                self.q.put(("end", None))
+                return False
+            self.q.put(("ok", self.run_group(group)))
+            return True
+        except BaseException as exc:  # noqa: BLE001 — raised in the consumer
+            self.q.put(("err", exc))
+            return False
+
+
+class _DeviceThread:
+    """The one thread that uploads and runs every stream's page groups,
+    kept for the life of the process: cuDNN and cuBLAS keep their plans
+    and handles per thread, and a fresh thread rebuilds them (~90 ms of
+    host time for the serving CRAFT alone on an H100, seconds for the
+    whole engine under several requests at once).  Concurrent streams
+    take turns, a group at a time, among those whose consumer has room
+    for another handle, so no stream waits for another's consumer.  The
+    thread starts when the first stream runs."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._idle: List["queue.SimpleQueue"] = []
+        self._cond = threading.Condition()
+        self._streams: List[_Stream] = []
+        self._thread: Optional[threading.Thread] = None
 
-    def run(self, job, done) -> None:
-        """Run ``job()`` on an idle worker, then ``done()`` once the
-        worker is idle again (so a stream that starts after ``done`` may
-        take the same thread).  Neither may raise or block."""
-        with self._lock:
-            jobs = self._idle.pop() if self._idle else None
-        if jobs is None:
-            jobs = queue.SimpleQueue()
-            threading.Thread(target=self._serve, args=(jobs,), daemon=True,
-                             name="fused-upload").start()
-        jobs.put((job, done))
+    def add(self, stream: _Stream) -> None:
+        with self._cond:
+            self._streams.append(stream)
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._serve, daemon=True,
+                                                name="fused-upload")
+                self._thread.start()
+            self._cond.notify()
 
-    def _serve(self, jobs: "queue.SimpleQueue") -> None:
+    def wake(self) -> None:
+        """A consumer took a handle, or stopped reading."""
+        with self._cond:
+            self._cond.notify()
+
+    def _next(self) -> _Stream:
+        """The first stream with room for a handle, taken off the list
+        (waiting for one); streams whose consumer left are dropped."""
+        with self._cond:
+            while True:
+                self._streams = [st for st in self._streams if not st.closed]
+                for i, st in enumerate(self._streams):
+                    if st.slots.acquire(blocking=False):
+                        return self._streams.pop(i)
+                self._cond.wait()
+
+    def _serve(self) -> None:
         while True:
-            job, done = jobs.get()
-            job()
-            with self._lock:
-                self._idle.append(jobs)
-            done()
+            stream = self._next()
+            if stream.step():
+                with self._cond:
+                    self._streams.append(stream)  # to the back: turns
 
 
 # process-wide, as the per-thread caches it keeps warm are
-_WORKERS = _UploadWorkers()
+_DEVICE = _DeviceThread()
 
 
 def fused_dispatch_stream(box_processor, ocr_processor, images,
@@ -399,12 +592,14 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
     too (single pages take the same program at psize 1).
 
     Upload, launch and the copies of each group's results into pinned
-    host buffers run on one worker thread (reused across streams, see
-    :class:`_UploadWorkers`); the caller collects each
-    handle while later groups upload and run.  The collect waits on the
-    handle's event only, not on the later groups' work, which the same
-    stream carries.  ``max_in_flight`` bounds the handles dispatched but
-    not yet taken; an error on the worker is raised in the caller.
+    host buffers run on the device thread that every stream shares (see
+    :class:`_DeviceThread`); the caller collects each handle while later
+    groups upload and run.  The collect waits on the handle's event only,
+    not on the later groups' work, which the same stream carries.
+    ``max_in_flight`` bounds the handles waiting for the caller, and one
+    group more runs ahead: at most ``max_in_flight + 1`` groups are run
+    and not yet taken.  An error on the device thread is raised in the
+    caller.
 
     ``chain``: a (classifier, indexer) pair whose heads run in each
     group's program (:func:`marie_tpu_torch.ocr.fused_chain.fused_ocr_chain`);
@@ -421,49 +616,48 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
     device = bp.device
     preps = [bp.prep_page(im) for im in images]
     groups = _plan_groups(preps, page_batch)
-    q: "queue.SimpleQueue" = queue.SimpleQueue()
-    slots = threading.Semaphore(max(max_in_flight, 1))  # handles not yet taken
 
-    def _work():
-        try:
-            if device.type == "cuda" and device.index is not None:
-                torch.cuda.set_device(device)  # the current device is per thread
-            for group in groups:
-                pages, clip, psize, packed = _upload_group(
-                    preps, group, page_batch, upload_format, device)
-                total_slots = psize * compact_slots
-                heads = None
-                if chain is None:
-                    stats, tokens, conf = fused_ocr_pages(
-                        bp, op, pages, clip, n_real=len(group),
-                        total_slots=total_slots, packed=packed)
-                else:
-                    stats, tokens, conf, *heads = fused_ocr_chain(
-                        bp, op, *chain, pages, clip, n_real=len(group),
-                        total_slots=total_slots, packed=packed)
-                    heads = tuple(_to_host(t) for t in heads)
-                stats = {k: _to_host(v) for k, v in stats.items()}
-                tokens, conf = _to_host(tokens), _to_host(conf)
-                ready = None
-                if device.type == "cuda":
-                    ready = torch.cuda.Event(enable_timing=True)
-                    ready.record()
-                metas = [(preps[k][1], preps[k][2]) for k in group]
-                slots.acquire()
-                q.put(("ok", GroupHandle(stats, tokens, conf, pages, packed,
-                                         metas, total_slots, ready, heads)))
-        except BaseException as exc:  # noqa: BLE001 — raised in the caller
-            q.put(("err", exc))
+    def run_group(group) -> GroupHandle:
+        if device.type == "cuda" and device.index is not None:
+            torch.cuda.set_device(device)  # the current device is per thread
+        pages, clip, psize, packed = _upload_group(
+            preps, group, page_batch, upload_format, device)
+        total_slots = psize * compact_slots
+        heads = None
+        if chain is None:
+            stats, tokens, conf = fused_ocr_pages(
+                bp, op, pages, clip, n_real=len(group),
+                total_slots=total_slots, packed=packed)
+        else:
+            stats, tokens, conf, *heads = fused_ocr_chain(
+                bp, op, *chain, pages, clip, n_real=len(group),
+                total_slots=total_slots, packed=packed)
+            heads = tuple(_to_host(t) for t in heads)
+        stats = {k: _to_host(v) for k, v in stats.items()}
+        tokens, conf = _to_host(tokens), _to_host(conf)
+        ready = None
+        if device.type == "cuda":
+            ready = torch.cuda.Event(enable_timing=True)
+            ready.record()
+        metas = [(preps[k][1], preps[k][2]) for k in group]
+        return GroupHandle(stats, tokens, conf, pages, packed, metas, total_slots, ready,
+                           heads)
 
-    _WORKERS.run(_work, lambda: q.put(("end", None)))
-    while True:
-        kind, val = q.get()
-        if kind == "end":
-            return
-        if kind == "err":
-            raise val
-        slots.release()
-        yield val
+    stream = _Stream(groups, run_group, max_in_flight)
+    _DEVICE.add(stream)
+    try:
+        while True:
+            kind, val = stream.q.get()
+            if kind == "end":
+                return
+            if kind == "err":
+                raise val
+            stream.slots.release()
+            _DEVICE.wake()
+            yield val
+    finally:
+        stream.closed = True
+        _DEVICE.wake()
 
 
 def fused_dispatch_many(box_processor, ocr_processor, images,
@@ -485,15 +679,51 @@ def handle_page_count(handle: GroupHandle) -> int:
     return len(handle.metas)
 
 
+def _handle_pages(bp, tokenizer, handle):
+    """The pages of one collected handle, in page order: (stats, texts,
+    confidences, row_base, budget, page_fn, scale, (h, w), heads).  Page-
+    local decoded row r of a page lives at ``texts[row_base + r]`` and is
+    past the budget from row ``budget`` on; ``page_fn()`` gives the page
+    as uploaded (unpacked), for the overflow rows."""
+    with record_function("marie.collect"):
+        stats_host = {k: v.numpy() for k, v in handle.stats.items()}
+        tokens = handle.tokens.numpy()
+        # every decoded row of the handle in one vectorised pass
+        flat_texts = tokenizer.decode_batch(tokens.reshape(-1, tokens.shape[-1]))
+        conf_list = np.asarray(handle.conf.numpy(), np.float64).reshape(-1).tolist()
+    if isinstance(handle, PageHandle):
+        if handle.kind == "s":
+            scale, hw = handle.metas[0]
+            yield (stats_host, flat_texts, conf_list, 0, handle.rec_slots,
+                   lambda: handle.pages, scale, hw, None)
+            return
+        r = tokens.shape[1]
+        for s, (scale, hw) in enumerate(handle.metas):
+            yield ({k: v[s] for k, v in stats_host.items()},
+                   flat_texts[s * r:(s + 1) * r], conf_list[s * r:(s + 1) * r], 0,
+                   handle.rec_slots, lambda s=s: handle.pages[s], scale, hw, None)
+        return
+    heads = None if handle.heads is None else [t.numpy() for t in handle.heads]
+    row_base = 0
+    for s, (scale, hw) in enumerate(handle.metas):
+        stats_i = {k: v[s] for k, v in stats_host.items()}
+        yield (stats_i, flat_texts, conf_list, row_base, handle.total_slots,
+               lambda s=s: _unpack_bits(handle.pages[s], handle.packed), scale, hw,
+               None if heads is None else [t[s] for t in heads])
+        row_base += _kept_count(bp, stats_i)
+
+
 def fused_collect_many(
-    box_processor, ocr_processor, handles: List[GroupHandle], pms_modes
+    box_processor, ocr_processor, handles, pms_modes
 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
                 List[Dict[str, Any]], Optional[Dict[str, Any]]]]:
-    """Collect dispatched groups on the host.
+    """Collect dispatched handles on the host: the groups'
+    (:class:`GroupHandle`) and the per-page programs' (:class:`PageHandle`,
+    ``"s"`` and ``"g"``), in any mix.
 
     Returns per page: (boxes_int xywh organized, scores, lines,
     line_bboxes, word dicts aligned to the organized boxes, extra).  Kept
-    boxes past a group's row budget are recognised here through
+    boxes past a handle's row budget are recognised here through
     ``recognize_dispatch`` on the page as uploaded (unpacked on the
     device), with the organized integer boxes, as the JAX engine does.
 
@@ -507,14 +737,8 @@ def fused_collect_many(
     for handle in handles:
         if handle.ready is not None:
             handle.ready.synchronize()
-        with record_function("marie.collect"):
-            stats_host = {k: v.numpy() for k, v in handle.stats.items()}
-            flat_texts = op.tokenizer.decode_batch(handle.tokens.numpy())
-            conf_list = np.asarray(handle.conf.numpy(), np.float64).tolist()
-            heads = None if handle.heads is None else [t.numpy() for t in handle.heads]
-        row_base = 0
-        for s, (scale, (h, w)) in enumerate(handle.metas):
-            stats_i = {k: v[s] for k, v in stats_host.items()}
+        for (stats_i, texts, conf_list, row_base, budget, page_fn, scale, (h, w),
+             heads) in _handle_pages(bp, op.tokenizer, handle):
             with record_function("marie.collect"):
                 xywh, scores, rows = bp.detect_collect(
                     (None, None, scale, (h, w)), stats=stats_i, return_rows=True)
@@ -524,24 +748,19 @@ def fused_collect_many(
                 overflow: List[int] = []  # organized positions past the budget
                 rows_j = (row_base + np.asarray(rows)[np.asarray(order)]).tolist()
                 for j, row in enumerate(rows_j):
-                    if row < handle.total_slots:
-                        words.append({"text": flat_texts[row],
-                                      "confidence": conf_list[row]})
+                    if row < budget:
+                        words.append({"text": texts[row], "confidence": conf_list[row]})
                     else:
                         words.append({"text": "", "confidence": 0.0})
                         overflow.append(j)
             if overflow:
                 with record_function("marie.overflow"), launch_path("overflow"):
                     tail = np.asarray([boxes_int[j] for j in overflow], np.float32)
-                    page = _unpack_bits(handle.pages[s], handle.packed)
-                    fut = op.recognize_dispatch(page, tail, scale)
+                    fut = op.recognize_dispatch(page_fn(), tail, scale)
                     for j, wd in zip(overflow, op.recognize_collect(fut)):
                         words[j] = wd
-            extra = None
-            if heads is not None:
-                extra = _attach_heads(words, rows, order, *(t[s] for t in heads))
+            extra = None if heads is None else _attach_heads(words, rows, order, *heads)
             out.append((boxes_int, scores_o, lines, line_bboxes, words, extra))
-            row_base += _kept_count(bp, stats_i)
             page_i += 1
     return out
 

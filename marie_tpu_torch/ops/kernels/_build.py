@@ -20,7 +20,8 @@ its launch, and :func:`check` raises on a nonzero code.
 Launch counts: each wrapper calls :func:`count_launch` where it launches
 its kernel, which adds one to the wrapper's ``launches`` and to its
 ``launches_by_path`` entry for the path the calling thread is on
-(:func:`launch_path`; ``"other"`` outside one).
+(:func:`launch_path`; ``"other"`` outside one).  :func:`launch_counts`
+reads them for the whole process (a served worker's ``/metrics``).
 """
 
 import contextlib
@@ -51,6 +52,7 @@ PTXAS: Dict[str, list] = {}
 
 _COUNT_LOCK = threading.Lock()  # the engine launches kernels from two threads
 _PATH = threading.local()
+_COUNTED: Dict[str, Callable] = {}  # {name: wrapper} of the wrappers that launched
 
 
 @contextlib.contextmanager
@@ -73,6 +75,14 @@ def count_launch(wrapper: Callable) -> None:
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.launches_by_path[path] = wrapper.launches_by_path.get(path, 0) + 1
+        _COUNTED[wrapper.__name__] = wrapper
+
+
+def launch_counts() -> Dict[str, Dict[str, int]]:
+    """{wrapper: {path: launches}} of every wrapper that launched its
+    kernel in this process (since its last reset)."""
+    with _COUNT_LOCK:
+        return {name: dict(w.launches_by_path) for name, w in _COUNTED.items()}
 
 
 def reset_counts(*wrappers: Callable) -> None:

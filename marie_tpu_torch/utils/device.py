@@ -84,7 +84,7 @@ class _Float32Precision:
     """Holds the float32 precision flags for blocks of work.
 
     The flags are process-global and the engine runs blocks on two
-    threads at once (the upload worker and the collect), so blocks that
+    threads at once (the device thread and the collect), so blocks that
     want the same precision share one hold: the first saves the flags and
     sets them, the last restores what the first found.  A block that
     wants the other precision waits until no block holds them."""

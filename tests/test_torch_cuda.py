@@ -932,3 +932,47 @@ def test_cuda_time_context_tpu_waits(cuda_device):
         torch.cuda._sleep(50_000_000)
         y = x + 1
     assert torch.cuda.current_stream().query() and t.duration > 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rec_slots", [64, 3])
+def test_cuda_single_page_dispatch_matches_cpu_and_launches(cuda_device, rec_slots):
+    """``fused_dispatch`` + ``fused_collect_many`` of a grayscale page and
+    an RGB page with distinct channels (tiny float32 models, ink boxes),
+    card against CPU: equal boxes, lines and texts, confidences within
+    1e-3; K1 (the grayscale page) and K2 launch on ``"single"``, and
+    with 3 rows a page the rest go through the overflow path."""
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.document.trocr_ocr_processor import TrOcrProcessor
+    from marie_tpu_torch.enums import PSMode
+    from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
+    from marie_tpu_torch.ocr.fused import fused_collect_many, fused_dispatch
+    from marie_tpu_torch.ops.kernels import _build
+    from marie_tpu_torch.preprocess.buckets import BucketSpec
+    from marie_tpu_torch.registry.convert import init_flax_layout
+
+    trees = (init_flax_layout(CraftConfig.tiny(), 5), init_flax_layout(TrOCRConfig.tiny(), 6))
+    gray = _ink_page(22, 256, 384, n_words=12)
+    rgb = np.stack([gray, np.clip(gray.astype(int) + 40, 0, 255).astype(np.uint8),
+                    255 - (255 - gray) // 2], -1)
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        bp = BoxProcessorCraft(CraftConfig.tiny(), trees[0], box_source="ink",
+                               max_components=64, min_area=4, device=dev,
+                               bucket_spec=BucketSpec(shapes=((256, 384),)))
+        op = TrOcrProcessor(TrOCRConfig.tiny(), trees[1], batch_sizes=(8, 32), device=dev)
+        _build.reset_counts(k1.crop_resize, k2.flash_attention)
+        handles = [fused_dispatch(bp, op, f, rec_slots=rec_slots) for f in (gray, rgb)]
+        out.append(fused_collect_many(bp, op, handles, [PSMode.SPARSE] * 2))
+        if dev.type == "cuda":
+            assert k1.crop_resize.launches_by_path.get("single") == 1
+            assert k2.flash_attention.launches_by_path.get("single", 0) > 0
+            if rec_slots == 3:
+                assert k2.flash_attention.launches_by_path.get("overflow", 0) > 0
+    for got, want in zip(*out):
+        for a, b in zip(got[:4], want[:4]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        assert [w["text"] for w in got[4]] == [w["text"] for w in want[4]]
+        np.testing.assert_allclose([w["confidence"] for w in got[4]],
+                                   [w["confidence"] for w in want[4]], rtol=0, atol=1e-3)
+    assert sum(len(p[4]) for p in out[0]) > 6

@@ -410,9 +410,11 @@ def test_recognize_dispatch_matches_jax(processors):
 
 
 def test_dispatch_streams_reuse_their_worker_threads(processors, monkeypatch):
-    """Streams run on kept worker threads (cuDNN's convolution plans are
-    per thread): one stream after another reuses the same thread, and two
-    streams consumed in turns each get their own, without waiting."""
+    """Streams run on one kept thread (cuDNN's convolution plans are per
+    thread): one stream after another reuses it, and two streams consumed
+    in turns both run on it, a group at a time, without waiting for each
+    other's consumer; a stream whose consumer stops reading is dropped
+    and does not hold up the next."""
     import threading
 
     _, (tbp, top) = processors
@@ -429,10 +431,43 @@ def test_dispatch_streams_reuse_their_worker_threads(processors, monkeypatch):
         list(tfused.fused_dispatch_stream(tbp, top, pages, page_batch=1))
     assert len(seen) == 4 and len(set(seen)) == 1
     assert seen[0] is not threading.current_thread()
+    device_thread = seen[0]
     seen.clear()
     a = tfused.fused_dispatch_stream(tbp, top, pages, page_batch=1, max_in_flight=1)
     b = tfused.fused_dispatch_stream(tbp, top, pages, page_batch=1, max_in_flight=1)
     got = [next(a), next(b), next(a), next(b)]
     assert [tfused.handle_page_count(h) for h in got] == [1, 1, 1, 1]
     assert list(a) == [] and list(b) == []
-    assert len(set(seen)) == 2
+    assert set(seen) == {device_thread}
+    three = [_page(s) for s in range(3)]
+    left = tfused.fused_dispatch_stream(tbp, top, three, page_batch=1, max_in_flight=1)
+    next(left)
+    left.close()  # the consumer stops reading with groups left
+    assert [tfused.handle_page_count(h) for h in tfused.fused_dispatch_stream(
+        tbp, top, three, page_batch=1, max_in_flight=1)] == [1, 1, 1]
+
+
+def test_concurrent_streams_share_the_device_thread(processors, monkeypatch):
+    """Four threads each stream their own pages at once (max_in_flight
+    1): every group runs on the one device thread, each stream's handles
+    come back in its page order, and the engine's results equal the same
+    calls made one after another."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    _, (tbp, top) = processors
+    upload = tfused._upload_group
+    seen = set()
+
+    def recording_upload(*a, **k):
+        seen.add(threading.current_thread())
+        return upload(*a, **k)
+
+    monkeypatch.setattr(tfused, "_upload_group", recording_upload)
+    docs = [[_page(10 * i + s, n_words=4) for s in range(3)] for i in range(4)]
+    engine = PipelineOcrEngine(tbp, top, page_fuse_batch=1, compact_slots=4)
+    sequential = [engine.extract(d) for d in docs]
+    with ThreadPoolExecutor(4) as pool:
+        concurrent = list(pool.map(engine.extract, docs, timeout=300))
+    assert concurrent == sequential and len(seen) == 1
+    assert sum(len(r["words"]) for rs in sequential for r in rs) > 12

@@ -1,5 +1,6 @@
 """marie_tpu_torch and chip_smoke.py stand alone: they import neither JAX
-(nor flax, orbax, PIL) nor anything of the JAX package."""
+(nor flax, orbax, PIL, cv2, pydantic, grpc, protobuf, aiohttp, PyYAML,
+psycopg2) nor anything of the JAX package."""
 
 import os
 import pathlib
@@ -10,9 +11,13 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "marie_tpu_torch"
 
+#: modules the card's machine does not have
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "PIL", "cv2", "pydantic",
+           "grpc", "google.protobuf", "aiohttp", "yaml", "psycopg2")
+
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "PIL", "cv2"):
+for name in BLOCKED:
     sys.modules[name] = None  # any import of these now raises ImportError
 assert not any(m == "marie_tpu" or m.startswith("marie_tpu.") for m in sys.modules)
 import marie_tpu_torch
@@ -30,7 +35,7 @@ def test_package_imports_with_jax_blocked():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_IMPORT],
+        [sys.executable, "-c", f"BLOCKED = {BLOCKED!r}\n" + _BLOCKED_IMPORT],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-3000:]
@@ -38,8 +43,11 @@ def test_package_imports_with_jax_blocked():
 
 
 def test_no_jax_or_marie_tpu_imports_in_sources():
+    # psycopg2 is left out: the postgres storage imports it where it is
+    # asked for (executor/storage.py), as the JAX package does
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|PIL|cv2|marie_tpu)(\.|\s|$)",
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|PIL|cv2|pydantic|grpc|google\.protobuf"
+        r"|aiohttp|yaml|marie_tpu)(\.|\s|$)",
         re.M)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
@@ -195,3 +203,90 @@ def test_slice_12_modules_import_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split() == ["True", "process.memory_rss_bytes", "True"]
+
+
+_SERVING = r"""
+import sys
+for name in BLOCKED + ("psutil", "prometheus_client"):
+    sys.modules[name] = None
+import asyncio, json, urllib.request
+import numpy as np
+from marie_tpu_torch.api.docs import AssetKeyDoc, BatchableMarieDoc, MarieDoc, OutputDoc, StorageDoc
+from marie_tpu_torch.auth import auth_enabled, validate_bearer
+from marie_tpu_torch.clients import HTTPClient
+from marie_tpu_torch.clients.helper import as_docarray, chunk_docs
+from marie_tpu_torch.executor import (
+    DocumentClassificationExecutor, NerExtractionExecutor, OverlayExecutor,
+    TemplateMatchingExecutor, TextExtractionExecutor, TextExtractionExecutorMock)
+from marie_tpu_torch.executor.storage import StorageMixin
+from marie_tpu_torch.metrics import get_registry, render_prometheus
+from marie_tpu_torch.ocr.fused import fused_dispatch, fused_page, fused_pages
+from marie_tpu_torch.orchestrate.pods import Pod
+from marie_tpu_torch.serve.runtimes.asyncio_runtime import AsyncNewLoopRuntime
+from marie_tpu_torch.serve.runtimes.worker.request_handling import WorkerRequestHandler
+from marie_tpu_torch.storage.kv import SqliteKV
+from marie_tpu_torch.types import Document
+
+async def main():
+    handler = WorkerRequestHandler(uses=TextExtractionExecutorMock, name="mock")
+    runtime = AsyncNewLoopRuntime(handler, protocol="http")
+    await runtime.server.setup_server()
+    client = HTTPClient(port=runtime.server.port)
+    page = np.full((32, 32), 255, np.uint8)
+    body = await client.apost("/document/extract", [Document(tensor=page)],
+                              return_responses=True)
+    await runtime.server.shutdown()
+    return body
+
+body = asyncio.run(main())
+print(body["header"]["status"]["code"], body["parameters"]["__results__"]["mock"]["status"],
+      auth_enabled(), "marie_request_seconds" in render_prometheus())
+"""
+
+
+def test_serving_plane_imports_and_serves_with_its_absent_packages_blocked():
+    """The documents, the executors, the worker, the HTTP server, the pod,
+    the client and the single-page program import with JAX, flax, orbax,
+    PIL, cv2, pydantic, grpc, protobuf, aiohttp, PyYAML, psycopg2, psutil
+    and prometheus_client blocked, and a worker answers a request over
+    HTTP on the CPU."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", f"BLOCKED = {BLOCKED!r}\n" + _SERVING],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["0", "succeeded", "False", "True"]
+
+
+def test_serving_entry_points_default_to_the_card_and_refuse_what_waits():
+    """The executors take ``device`` defaulting to the card; every
+    protocol and pod kind that is not ported raises, naming its ROADMAP
+    item."""
+    import inspect
+
+    import pytest
+
+    from marie_tpu_torch.clients import Client
+    from marie_tpu_torch.executor import (
+        DocumentClassificationExecutor, NerExtractionExecutor, OverlayExecutor,
+        TemplateMatchingExecutor, TextExtractionExecutor)
+    from marie_tpu_torch.orchestrate.pods import Pod
+    from marie_tpu_torch.serve.executors import BaseExecutor
+    from marie_tpu_torch.serve.runtimes.asyncio_runtime import AsyncNewLoopRuntime
+
+    for cls in (TextExtractionExecutor, NerExtractionExecutor, DocumentClassificationExecutor,
+                OverlayExecutor, TemplateMatchingExecutor):
+        assert inspect.signature(cls).parameters["device"].default == "cuda", cls
+    for call in (lambda: Pod("gateway"), lambda: Pod("head"),
+                 lambda: Pod("worker", protocol="grpc"),
+                 lambda: Pod("worker", protocols=["http", "grpc"]),
+                 lambda: Pod("worker", raft={"node_id": 1}),
+                 lambda: AsyncNewLoopRuntime(None, protocol="grpc"),
+                 lambda: AsyncNewLoopRuntime(None, protocol="websocket"),
+                 lambda: AsyncNewLoopRuntime(None, protocol="sagemaker"),
+                 lambda: AsyncNewLoopRuntime(None, protocols=["http", "grpc"]),
+                 lambda: AsyncNewLoopRuntime(None, port_monitoring=9000),
+                 lambda: Client(port=1, protocol="grpc"),
+                 lambda: BaseExecutor.serve()):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            call()
