@@ -84,6 +84,10 @@
 //     rest is issue and latency at 3 blocks an SM (168 registers at D=64).
 //     wgmma in TF32 takes its B operand K-major only, which for P V means
 //     V transposed in shared memory: left for a later change.
+//   * Training (mt_flash_attention_lse): the same kernel with LSE set also
+//     writes each row's log-sum-exp, for the gradient kernels of
+//     flash_attention_bwd.cu; D in {32, 64}.  ptxas gives these instances
+//     the serving ones' registers (168 at D=64, 142 at D=32) and no spill.
 //
 // Registers and shared memory (nvcc -Xptxas -v, sm_90a, printed by
 // chip_smoke.py's device phase): see PERF.md.
@@ -102,6 +106,7 @@ typedef __nv_bfloat16 bf16;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {  // in elements; rows of D values are contiguous
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
@@ -484,13 +489,17 @@ __host__ __device__ constexpr int tf32_smem_floats(int D, int KT) {
 // One block per (b, h, kRows query rows); warp w computes rows 16w..16w+15
 // of the block against KT-key tiles of K and V that all warps share.
 // D <= 64 keeps the split Q in registers; D = 128 splits it from shared
-// memory at each k-step.
-template <int D, int KT>
+// memory at each k-step.  LSE (the training instances) also writes each
+// row's natural-log log-sum-exp of its scaled, masked logits to lse
+// [B*H, Sq], which the backward kernels (flash_attention_bwd.cu) use to
+// recompute P; the serving instances (LSE false) are the same code as
+// before the flag.
+template <int D, int KT, bool LSE = false>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int32_t* __restrict__ kv_len,
-                  float* __restrict__ o, Strides st, int H, int Sq, int Skv, int q_blocks,
-                  float scale_log2, int causal) {
+                  float* __restrict__ o, float* __restrict__ lse, Strides st, int H, int Sq,
+                  int Skv, int q_blocks, float scale_log2, int causal) {
   constexpr int kPK = D + 8;     // Q, K and output rows: 8-byte fragment loads
   constexpr int kPV = D + 4;     // V rows: scalar loads of rows 2t, 2t+1
   constexpr int kSteps = D / 8;  // k-steps of Q K^T, n-tiles of P V
@@ -645,8 +654,16 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (!active) return;
 
   // normalise, stage through this warp's spent Q rows, store 16 B a lane
-  const float inv0 = 1.0f / quad_sum(row_sum[0]);
-  const float inv1 = 1.0f / quad_sum(row_sum[1]);
+  const float sum0 = quad_sum(row_sum[0]), sum1 = quad_sum(row_sum[1]);
+  const float inv0 = 1.0f / sum0;
+  const float inv1 = 1.0f / sum1;
+  if constexpr (LSE) {  // row_max is in the log2 domain; a fully masked row's is -1e30
+    if (t == 0) {
+      float* lr = lse + (long long)bh * Sq;
+      if (w0 + g < Sq) lr[w0 + g] = (row_max[0] + log2f(sum0)) * kLn2;
+      if (w0 + g + 8 < Sq) lr[w0 + g + 8] = (row_max[1] + log2f(sum1)) * kLn2;
+    }
+  }
   __syncwarp();  // the warp's last reads of its Q rows are done
 #pragma unroll
   for (int j = 0; j < kSteps; ++j) {
@@ -666,22 +683,22 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, int KT>
+template <int D, int KT, bool LSE = false>
 int launch_tf32(const void* q, const void* k, const void* v, const void* kv_len,
                 void* o, const Strides& st, int B, int H, int Sq, int Skv,
-                float scale, int causal, cudaStream_t stream) {
+                float scale, int causal, cudaStream_t stream, void* lse = nullptr) {
   const int q_blocks = (Sq + kRows - 1) / kRows;
   const long long blocks = (long long)q_blocks * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   constexpr int smem = tf32_smem_floats(D, KT) * (int)sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_tf32_kernel<D, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_tf32_kernel<D, KT, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  flash_tf32_kernel<D, KT><<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
+  flash_tf32_kernel<D, KT, LSE><<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int32_t*)kv_len,
-      (float*)o, st, H, Sq, Skv, q_blocks, scale * kLog2e, causal);
+      (float*)o, (float*)lse, st, H, Sq, Skv, q_blocks, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -714,6 +731,24 @@ int mt_flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 32) return launch_mma<32>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
   if (dtype == 1 && D == 64) return launch_mma<64>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
   if (dtype == 1 && D == 128) return launch_mma<128>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The training forward: float32 only, D in {32, 64}; as mt_flash_attention,
+// and also writes lse [B*H, Sq] (float32, contiguous): each row's
+// natural-log log-sum-exp of its scaled, masked logits.
+int mt_flash_attention_lse(const void* q, const void* k, const void* v,
+                           const void* kv_len, void* o, void* lse,
+                           const long long* strides, int B, int H, int Sq, int Skv,
+                           int D, float scale, int causal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B * H == 0 || Sq == 0) return (int)cudaGetLastError();
+  if (Skv <= 0 || lse == nullptr) return (int)cudaErrorInvalidValue;
+  Strides st;
+  long long* f = &st.qb;
+  for (int i = 0; i < 12; ++i) f[i] = strides[i];
+  if (D == 32) return launch_tf32<32, 64, true>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s, lse);
+  if (D == 64) return launch_tf32<64, 32, true>(q, k, v, kv_len, o, st, B, H, Sq, Skv, scale, causal, s, lse);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -60,7 +60,8 @@ def launch_path(name: str) -> Iterator[None]:
     """Count the kernel launches this thread makes inside the block
     under ``name`` (the engine's paths: ``"fused"``, ``"overflow"``, and
     ``"heads"`` for the LayoutLM heads, chained or on their own;
-    ``"embeddings"`` for the layout embeddings' encoder)."""
+    ``"embeddings"`` for the layout embeddings' encoder; ``"train"`` for
+    the trainers' steps)."""
     prev = getattr(_PATH, "name", None)
     _PATH.name = name
     try:
@@ -69,9 +70,14 @@ def launch_path(name: str) -> Iterator[None]:
         _PATH.name = prev
 
 
+def current_path() -> Optional[str]:
+    """The launch path of the calling thread (None outside one)."""
+    return getattr(_PATH, "name", None)
+
+
 def count_launch(wrapper: Callable) -> None:
     """One launch of ``wrapper``'s kernel."""
-    path = getattr(_PATH, "name", None) or "other"
+    path = current_path() or "other"
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.launches_by_path[path] = wrapper.launches_by_path.get(path, 0) + 1

@@ -30,7 +30,11 @@ extra):
 The bridge takes numpy: reading an orbax checkpoint is the JAX side's
 business (the tests do it).  :func:`init_flax_layout` makes a full-width
 tree from a seed, so a run on the card gets weights through this same
-bridge without reading any checkpoint.
+bridge without reading any checkpoint.  :func:`init_flax_defaults` draws a
+tree from flax's default initialisers (a trainer's starting point), and
+:func:`to_flax` is :func:`from_flax`'s inverse: a trained module back to
+its flax-layout tree, which ``registry/checkpoints.py::save_params``
+writes as any shipped tree.
 """
 
 from typing import Any, Dict, Iterator, Optional, Tuple, Union
@@ -279,12 +283,103 @@ def init_flax_layout(config: Config, seed: int, head: Optional[str] = None) -> D
     return tree
 
 
+def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Standard normal draws cut to [-2, 2] by redrawing what falls
+    outside (jax.random.truncated_normal's range)."""
+    arr = rng.standard_normal(shape)
+    out = np.abs(arr) > 2.0
+    while out.any():
+        arr[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(arr) > 2.0
+    return arr
+
+
+def init_flax_defaults(config: Config, seed: int, head: Optional[str] = None) -> Dict[str, Any]:
+    """A flax-layout variables tree of float32 numpy arrays for ``config``
+    drawn from ``np.random.default_rng(seed)`` with flax's default
+    initialisers, as ``model.init`` draws a trainer's starting point:
+    kernels lecun-normal (a normal cut at two standard deviations, scaled
+    to variance 1/fan_in), biases zero, norm scales one, embedding tables
+    normal with variance 1/width, BatchNorm statistics mean 0 and var 1,
+    and learned position tables (``vis_pos``) a normal of std 0.02 cut at
+    two.  flax draws from
+    ``jax.random``, which numpy cannot repeat: the distributions are
+    flax's, the numbers are not.  ``head`` as in :func:`build_model`."""
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        template = build_model(config, head)
+    tree: Dict[str, Any] = {}
+    for coll, path, shape, fan_in in _flax_leaves(template):
+        leaf = path[-1]
+        if leaf == "kernel":
+            arr = _truncated_normal(rng, shape) * (np.sqrt(1.0 / fan_in) / .87962566103423978)
+        elif leaf in ("scale", "var"):
+            arr = np.ones(shape)
+        elif leaf == "embedding":
+            arr = rng.standard_normal(shape) / np.sqrt(shape[-1])
+        elif leaf in ("bias", "mean"):
+            arr = np.zeros(shape)
+        else:  # vis_pos, pos_embed, cls_token
+            arr = 0.02 * _truncated_normal(rng, shape)
+        node = tree.setdefault(coll, {})
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[leaf] = arr.astype(np.float32)
+    return tree
+
+
+def _flax_value(mod: nn.Module, coll: str, leaf: str, arr: np.ndarray, shape) -> np.ndarray:
+    """A torch parameter or buffer back in its flax leaf's layout (the
+    inverse of :func:`_convert_leaf`)."""
+    if coll == "params" and leaf == "kernel" and isinstance(mod, nn.Linear):
+        arr = arr.T
+    elif coll == "params" and leaf == "kernel" and isinstance(mod, nn.Conv2d):
+        arr = arr.transpose(2, 3, 1, 0)
+    elif coll == "params" and leaf == "kernel" and isinstance(mod, nn.ConvTranspose2d):
+        arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return np.ascontiguousarray(arr).reshape(shape)
+
+
+def to_flax(module: nn.Module) -> Dict[str, Any]:
+    """The flax-layout variables tree (``{"params": ..., "batch_stats":
+    ...}``) of ``module``'s current weights, as float32 numpy arrays: the
+    inverse of :func:`from_flax`, so ``to_flax(from_flax(tree, m))``
+    gives ``tree`` back (an LSTM's ``bias_ih``, zero by construction, has
+    no flax leaf and is dropped)."""
+    sd = {k: v.detach().to("cpu", torch.float32).numpy()
+          for k, v in module.state_dict().items() if v.is_floating_point()}
+    lstm_cells = getattr(module, "flax_lstm_cells", {})
+    tree: Dict[str, Any] = {}
+    for coll, path, shape, _ in _flax_leaves(module):
+        leaf = path[-1]
+        if path[0] in lstm_cells:
+            lstm, sfx = lstm_cells[path[0]]
+            gate = _LSTM_GATES.index(path[1][1])
+            if leaf == "kernel":
+                arr = sd[f"{lstm}.weight_{path[1][0]}h_l0{sfx}"].T
+                arr = arr[:, gate * shape[1]:(gate + 1) * shape[1]]
+            else:
+                arr = sd[f"{lstm}.bias_hh_l0{sfx}"][gate * shape[0]:(gate + 1) * shape[0]]
+        else:
+            mod_path = list(path[:-1])
+            mod = module.get_submodule(".".join(mod_path))
+            name = _STAT_LEAF[leaf] if coll == "batch_stats" else _PARAM_LEAF.get(leaf, leaf)
+            arr = _flax_value(mod, coll, leaf, sd[".".join(mod_path + [name])], shape)
+        node = tree.setdefault(coll, {})
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
+    return tree
+
+
 def load_model(config: Config, tree: Dict[str, Any], device="cuda",
                dtype: torch.dtype = torch.float32, head: Optional[str] = None) -> nn.Module:
     """Build the port's module for ``config`` (and ``head``, as in
     :func:`build_model`), load ``tree`` through :func:`from_flax`, move it
-    to ``device`` in ``dtype``; eval mode, no gradients (the port serves
-    inference only)."""
+    to ``device`` in ``dtype``; eval mode, no gradients: a module for
+    serving.  The trainers (``marie_tpu_torch/train/``) build with
+    :func:`build_model` and :func:`from_flax` and train the module's
+    parameters; :func:`to_flax` gives their tree back."""
     from marie_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)

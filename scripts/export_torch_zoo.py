@@ -15,6 +15,7 @@ the DejaVu font (the JAX package's own environment)::
     python scripts/export_torch_zoo.py --register  # only golden_register.json
     python scripts/export_torch_zoo.py --detectors  # only golden_detectors.json
     python scripts/export_torch_zoo.py --reading-order  # only golden_reading_order.json
+    python scripts/export_torch_zoo.py --train  # only golden_train.json
 
 It writes
 
@@ -99,6 +100,16 @@ It writes
   phase: its quality-80 JPEG of page 0 and of the RGB form (the bytes,
   and their decode), and its G4 strips of page 0 and of the 3300x2550
   page thresholded at 128 (the strips joined, and the strips' count).
+* ``golden_train.json`` (~1 min): the held-out figures of the JAX-trained
+  trees of ``model_zoo/`` on the held-out sets that the port's trainers
+  draw at ``chip_smoke.py``'s ``train`` settings (the seed and dataset
+  size of ``scripts/train_splitter.py``, ``train_chain_heads.py`` and
+  ``train_reading_order.py``; the port's generators equal JAX's to the
+  bit): ``layout-splitter-synth``'s page and split accuracy,
+  ``layout-classifier-chain``'s accuracy, ``layout-indexer-chain``'s
+  token accuracy, and ``reading-order-synth``'s mean Kendall tau and pair
+  accuracy over ``evaluate_reading_order``'s pages.  The ``train`` phase
+  holds the card-trained heads to these less 0.03.
 """
 
 import argparse
@@ -864,6 +875,90 @@ def export_reading_order() -> None:
         json.dump(golden, f, separators=(",", ":"))
 
 
+def export_train() -> None:
+    """golden_train.json: the JAX-trained zoo trees on the held-out sets of
+    the port's trainers at chip_smoke.py's train settings."""
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke as cs
+    from marie_tpu.models.configs import LayoutLMConfig
+    from marie_tpu.models.layoutlm import (
+        LayoutLMv3ForSequenceClassification, LayoutLMv3ForTokenClassification)
+    from marie_tpu.models.reading_order import ReadingOrderConfig, ReadingOrderModel
+    from marie_tpu.registry.checkpoints import load_params as load_orbax
+    from marie_tpu.train.reading_order import pairwise_rank_loss
+    from marie_tpu_torch.components.word_tokenizer import (
+        HashWordTokenizer, RollingWordTokenizer)
+    from marie_tpu_torch.train import layout as tl
+    from marie_tpu_torch.train import reading_order as tr
+
+    def zoo(name):
+        return jax.device_get(load_orbax(os.path.join(REPO, "model_zoo", name)))
+
+    def logits(model, name, tokens, boxes, seq_len):
+        return np.asarray(jax.jit(lambda p, a, b, c: model.apply(p, a, b, c, None))(
+            zoo(name), jnp.asarray(tokens), jnp.asarray(boxes), jnp.asarray(seq_len)))
+
+    seed, size = cs.TRAIN_SEED, cs.TRAIN_DATASET
+    cfg = LayoutLMConfig.synth(2)
+    rng = np.random.default_rng(seed)
+    tok = HashWordTokenizer(cfg.vocab_size)
+    tl.splitter_dataset(rng, size, tok, cfg)
+    tt, tb, tls, ys, bundles = tl.splitter_heldout(rng, tok, cfg)
+    split = tl.splitter_metrics(
+        logits(LayoutLMv3ForSequenceClassification(cfg), "layout-splitter-synth",
+               tt, tb, tls).argmax(-1), ys, bundles)
+
+    labels = tuple(tl.CLASS_POOLS)
+    ccfg = dataclasses.replace(LayoutLMConfig.synth(len(labels)),
+                               max_seq_len=cs.CHAIN_SEQ_LEN)
+    rtok = RollingWordTokenizer(ccfg.vocab_size)
+    rng = np.random.default_rng(seed)
+    tl.classifier_dataset(rng, size, labels, rtok, ccfg, True)
+    held = tl.classifier_dataset(rng, 256, labels, rtok, ccfg, True)
+    cls_acc = float((logits(LayoutLMv3ForSequenceClassification(ccfg),
+                            "layout-classifier-chain", *held[:3]).argmax(-1)
+                     == held[3]).mean())
+
+    ncfg = dataclasses.replace(LayoutLMConfig.synth(5), max_seq_len=cs.CHAIN_SEQ_LEN)
+    rng = np.random.default_rng(seed)
+    tl.indexer_dataset(rng, size, rtok, ncfg, True)
+    held = tl.indexer_dataset(rng, 128, rtok, ncfg, True)
+    tok_acc = tl.token_accuracy(logits(LayoutLMv3ForTokenClassification(ncfg),
+                                       "layout-indexer-chain", *held[:3]).argmax(-1), held)
+
+    rcfg = ReadingOrderConfig.base()
+    model = ReadingOrderModel(rcfg)
+    boxes, ranks, n_valid = tr.make_batch(np.random.default_rng(seed + 1), cs.EVAL_PAGES,
+                                          rcfg.max_boxes)
+    scores = np.asarray(model.apply(zoo("reading-order-synth"), jnp.asarray(boxes),
+                                    jnp.asarray(n_valid)))
+    taus = [tr.kendall_tau(np.argsort(scores[b, :n], kind="stable"),
+                           np.argsort(ranks[b, :n], kind="stable"))
+            for b, n in enumerate(n_valid)]
+    _, pair_acc = pairwise_rank_loss(jnp.asarray(scores), jnp.asarray(ranks),
+                                     jnp.asarray(n_valid))
+    golden = {
+        "settings": {
+            "seed": seed, "dataset_size": size, "chain_max_seq_len": cs.CHAIN_SEQ_LEN,
+            "eval_pages": cs.EVAL_PAGES,
+            "trees": "model_zoo/ (orbax, trained by the JAX scripts/train_*.py)",
+            "heldout": "the port's train/layout.py and train/reading_order.py "
+                       "generators at the seed: the training set drawn, then the held-out "
+                       "set (reading order: evaluate_reading_order's pages, seed + 1)",
+        },
+        "splitter": {"tree": "layout-splitter-synth", **split},
+        "classifier_chain": {"tree": "layout-classifier-chain", "accuracy": cls_acc},
+        "indexer_chain": {"tree": "layout-indexer-chain", "token_accuracy": tok_acc},
+        "reading_order": {"tree": "reading-order-synth", "kendall_tau": float(np.mean(taus)),
+                          "pair_accuracy": float(pair_acc)},
+    }
+    with open(os.path.join(ZOO, "golden_train.json"), "w") as f:
+        json.dump(golden, f, indent=1)
+    print(json.dumps(golden), flush=True)
+
+
 def _cut(page, box):
     x, y, w, h = box
     return np.ascontiguousarray(page[y:y + h, x:x + w])
@@ -893,6 +988,7 @@ def main() -> None:
                     help="write only golden_detectors.json")
     ap.add_argument("--reading-order", action="store_true",
                     help="write only golden_reading_order.json")
+    ap.add_argument("--train", action="store_true", help="write only golden_train.json")
     args = ap.parse_args()
 
     import jax
@@ -915,6 +1011,9 @@ def main() -> None:
         return
     if args.reading_order:
         export_reading_order()
+        return
+    if args.train:
+        export_train()
         return
     from bench import make_pages
     from marie_tpu.enums import PSMode

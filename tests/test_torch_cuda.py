@@ -976,3 +976,111 @@ def test_cuda_single_page_dispatch_matches_cpu_and_launches(cuda_device, rec_slo
         np.testing.assert_allclose([w["confidence"] for w in got[4]],
                                    [w["confidence"] for w in want[4]], rtol=0, atol=1e-3)
     assert sum(len(p[4]) for p in out[0]) > 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,sq,skv", [(64, False, 128, 128), (32, True, 70, 45)])
+def test_cuda_attention_backward_matches_plain(cuda_device, d, causal, sq, skv):
+    """K2's gradient kernel against autograd of the plain version (float32,
+    TF32 off) within 1e-4 of each gradient's largest magnitude, on the
+    projections' layout, with a fully masked row (kv_len 0); through the
+    autograd path too, with one forward and one backward launch."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, h = 4, 4
+
+    def make(s):
+        return torch.randn(b, s, h, d, device="cuda", generator=g).transpose(1, 2)
+
+    q, k, v, do = make(sq), make(skv), make(skv), make(sq)
+    kv_len = torch.tensor([skv, 0, skv // 2, 1], dtype=torch.int32, device="cuda")
+    want = k2.attention_backward_reference(q, k, v, do, causal=causal, kv_len=kv_len,
+                                           sm_scale=d ** -0.5)
+    _, lse = k2.flash_attention_lse(q, k, v, kv_len, causal)
+    got = k2.flash_attention_backward(q, k, v, lse, do, kv_len, causal)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fwd, bwd = k2.flash_attention.launches, k2.flash_attention_backward.launches
+    k2.flash_attention(*leaves, kv_len=kv_len, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    assert k2.flash_attention.launches == fwd + 1
+    assert k2.flash_attention_backward.launches == bwd + 1
+    for a, t, w in zip(got, leaves, want):
+        scale = float(w.abs().max())
+        assert float((a - w).abs().max()) <= 1e-4 * scale
+        assert float((t.grad - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_reaches_every_projection(cuda_device):
+    """One AdamW step of the splitter's loss at a small width on the card:
+    every attention projection's kernel gets a non-zero gradient (a K2
+    without its backward would give q and k none), K2's forward and
+    backward launch on ``"train"``, and the step matches the CPU's: loss
+    within 1e-5, gradients within 1e-4 of each leaf's largest, parameters
+    within 1e-5 where the gradient resolves.  Adam's first step moves a
+    parameter by about the learning rate whatever its gradient's size, so
+    where a component is below 1e-4 of its leaf's largest (the gradient
+    check's resolution), and on the key biases (the loss does not depend
+    on them), the two may step apart by up to twice the learning rate."""
+    from marie_tpu_torch.models.configs import LayoutLMConfig
+    from marie_tpu_torch.ops.kernels import _build
+    from marie_tpu_torch.registry.convert import init_flax_defaults
+    from marie_tpu_torch.train.layout import head_loss
+    from marie_tpu_torch.train.loop import StepTrainer, init_module
+    from marie_tpu_torch.train.optim import warmup_cosine_decay_schedule
+    from marie_tpu_torch.utils.device import float32_precision
+
+    cfg = LayoutLMConfig(vocab_size=512, hidden_dim=128, num_layers=2, num_heads=2,
+                         mlp_dim=256, max_seq_len=64, use_image=False, num_labels=2)
+    rng = np.random.default_rng(0)
+    data = (rng.integers(2, 512, (8, 64)).astype(np.int32),
+            np.sort(rng.integers(0, 1024, (8, 64, 4)), -1).astype(np.int32),
+            rng.integers(1, 65, (8,)).astype(np.int32), rng.integers(0, 2, (8,)).astype(np.int32))
+    tree = init_flax_defaults(cfg, 1, "sequence")
+    lr = 1e-3
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = init_module(cfg, "sequence", 1, tree, dev)
+        trainer = StepTrainer(model, head_loss(model, "sequence"),
+                              warmup_cosine_decay_schedule(0.0, lr, 0, 10), 0.01)
+        _build.reset_counts(k2.flash_attention, k2.flash_attention_backward)
+        batch = [torch.from_numpy(a).to(dev) for a in data]
+        with float32_precision(False), _build.launch_path("train"):
+            loss = trainer.loss_fn(*batch)
+            loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        for name, g in grads.items():
+            if name.endswith(("attn.q.weight", "attn.kv.k.weight", "attn.kv.v.weight")):
+                assert float(g.abs().max()) > 0, name
+        trainer.opt.step()
+        runs.append((float(loss.detach()), grads,
+                     {n: p.detach().cpu() for n, p in model.named_parameters()}))
+        if dev.type == "cuda":
+            assert k2.flash_attention.launches_by_path.get("train") == cfg.num_layers
+            assert k2.flash_attention_backward.launches_by_path.get("train") == cfg.num_layers
+    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = runs
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for n, g in g_cpu.items():
+        diff = (p_card[n] - p_cpu[n]).abs()
+        if n.endswith("attn.kv.k.bias"):
+            assert float(diff.max()) <= 2 * lr, n
+            continue
+        top = float(g.abs().max())
+        assert float((g_card[n] - g).abs().max()) <= 1e-4 * top, n
+        resolved = g.abs() >= 1e-4 * top
+        assert float(diff[resolved].max()) <= 1e-5, n
+        if bool((~resolved).any()):
+            assert float(diff[~resolved].max()) <= 2 * lr, n
+
+
+@pytest.mark.cuda
+def test_cuda_attention_gradient_refuses_what_it_does_not_take(cuda_device):
+    """With a gradient wanted, D=128 and bf16 raise on the card (no path
+    gives way to the plain version); without one they run."""
+    q = torch.randn(2, 2, 16, 128, device="cuda", requires_grad=True)
+    with pytest.raises(ValueError, match="training path"):
+        k2.flash_attention(q, q, q)
+    qb = torch.randn(2, 2, 16, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="training path"):
+        k2.flash_attention(qb, qb, qb)
+    with torch.no_grad():
+        assert k2.flash_attention(q, q, q).shape == q.shape

@@ -290,3 +290,56 @@ def test_serving_entry_points_default_to_the_card_and_refuse_what_waits():
                  lambda: BaseExecutor.serve()):
         with pytest.raises(NotImplementedError, match="item 10"):
             call()
+
+
+_TRAINERS = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "PIL", "cv2"):
+    sys.modules[name] = None
+import numpy as np
+import marie_tpu_torch.train as train
+from marie_tpu_torch.models.reading_order import ReadingOrderConfig
+from marie_tpu_torch.ops.kernels.flash_attention import flash_attention_backward
+from marie_tpu_torch.registry.convert import init_flax_defaults, to_flax
+from marie_tpu_torch.train.loop import init_module
+from marie_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
+from marie_tpu_torch.train.reading_order import make_batch, pairwise_rank_loss
+import torch
+cfg = ReadingOrderConfig.tiny()
+model = init_module(cfg, None, 0, device="cpu")
+boxes, ranks, n = (torch.from_numpy(a) for a in make_batch(np.random.default_rng(0), 2, 256))
+loss, acc = pairwise_rank_loss(model(boxes, n), ranks, n)
+loss.backward()
+print(len(to_flax(model)["params"]), sorted(train.__all__)[0])
+"""
+
+
+def test_trainers_import_with_jax_and_optax_blocked():
+    """The trainers, the optimiser and K2's gradient import and step (on
+    the CPU) with JAX, flax, optax, orbax, PIL and cv2 blocked; the
+    PIL-rendered trainers' names raise, naming their ROADMAP item."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _TRAINERS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["5", "SyntheticWordDataset"]  # embed, 2 layers, ln_f, head
+    import pytest
+
+    from marie_tpu_torch.train import SyntheticWordDataset, train_recognizer
+
+    for fn in (train_recognizer, SyntheticWordDataset):
+        with pytest.raises(NotImplementedError, match="item 8.2"):
+            fn()
+
+
+def test_trainers_default_to_the_card():
+    """Every trainer runs on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from marie_tpu_torch.train import layout, reading_order
+
+    for fn in (layout.train_layout_splitter, layout.train_layout_classifier,
+               layout.train_layout_indexer, reading_order.train_reading_order,
+               reading_order.train_reading_order_device):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
