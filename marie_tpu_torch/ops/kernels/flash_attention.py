@@ -250,8 +250,9 @@ def flash_attention_backward(q, k, v, lse, dout, kv_len=None, causal=False, sm_s
     skv = k.shape[2]
     if dout.shape != q.shape or lse.shape != (b, h, sq):
         raise ValueError("flash_attention_backward: dout must be shaped like q, lse [B, H, Sq]")
-    if dout.dtype != torch.float32 or dout.stride(3) != 1:
-        dout = dout.float().contiguous()
+    if (dout.dtype != torch.float32 or dout.stride(3) != 1 or dout.data_ptr() % 16
+            or any(s % 4 for s in dout.stride()[:3])):
+        dout = dout.float().contiguous()  # the kernels copy its rows 16 bytes at a time
     lse = lse.float().contiguous()
     stats = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=torch.float32,

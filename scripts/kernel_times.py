@@ -22,7 +22,15 @@ floors timed the same way: a one-element ``add_`` (the launch floor of a
 back-to-back run) and a ``fill_`` of K1's 15.7 MB output (the store
 floor).  With ``--mma-rate`` the floors also hold the card's
 ``mma.sync`` TF32 rate (``scripts/mma_rate.cu``, built then: the ceiling
-of K2's float32 path, which spends three MMAs per product).  Needs a
+of K2's float32 path, which spends three MMAs per product).  With
+``--train`` it also runs ``chip_smoke.py``'s gradient rows
+(``_train_kernel_rows``: K2's backward at the six ``TRAIN_K2_CASES``
+shapes, held against its plain version, cold and warm, with K2's and
+SDPA's forward + backward beside it), without the trainers; so
+
+    python3 scripts/kernel_times.py --train --tree .chip_tree/parent
+
+times an earlier commit's gradient kernel through the same API.  Needs a
 CUDA device.
 """
 
@@ -91,6 +99,8 @@ def main() -> int:
                     help="checkout whose marie_tpu_torch is timed (default: this one)")
     ap.add_argument("--mma-rate", action="store_true",
                     help="also build and time scripts/mma_rate.cu")
+    ap.add_argument("--train", action="store_true",
+                    help="also time K2's gradient at the trainers' shapes")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)  # the package under test
@@ -118,6 +128,8 @@ def main() -> int:
     chip_smoke.phase_k1(1, 128, "overflow_chunk")
     chip_smoke.phase_k1(chip_smoke.SLICE_PAGES, chip_smoke.SLICE_PAGES * 160, "serving")
     chip_smoke.phase_k2()
+    if args.train:
+        chip_smoke._train_kernel_rows()
     tiny = [torch.zeros(1, device="cuda") for _ in range(4)]
     crops = (256, 48, 320)  # K1's output at the slice's shapes, float32
     floors = {

@@ -978,17 +978,28 @@ def test_cuda_single_page_dispatch_matches_cpu_and_launches(cuda_device, rec_slo
     assert sum(len(p[4]) for p in out[0]) > 6
 
 
+_BWD_CASES = [  # (D, causal, Sq, Skv): 64-row blocks, 32-key tiles at D=64, 64 at D=32
+    (64, False, 128, 128), (32, True, 70, 45),
+    (64, False, 100, 77), (64, True, 200, 192), (32, False, 100, 77), (32, True, 130, 200),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,causal,sq,skv", [(64, False, 128, 128), (32, True, 70, 45)])
-def test_cuda_attention_backward_matches_plain(cuda_device, d, causal, sq, skv):
+@pytest.mark.parametrize("layout", ["projections", "contiguous"])
+@pytest.mark.parametrize("d,causal,sq,skv", _BWD_CASES)
+def test_cuda_attention_backward_matches_plain(cuda_device, d, causal, sq, skv, layout):
     """K2's gradient kernel against autograd of the plain version (float32,
     TF32 off) within 1e-4 of each gradient's largest magnitude, on the
-    projections' layout, with a fully masked row (kv_len 0); through the
-    autograd path too, with one forward and one backward launch."""
+    projections' layout and on contiguous [B,H,S,D] tensors, with a fully
+    masked row (kv_len 0), at lengths that are not multiples of the
+    kernels' 64-row blocks and tiles; through the autograd path too, with
+    one forward and one backward launch."""
     g = torch.Generator(device="cuda").manual_seed(3)
     b, h = 4, 4
 
     def make(s):
+        if layout == "contiguous":
+            return torch.randn(b, h, s, d, device="cuda", generator=g)
         return torch.randn(b, s, h, d, device="cuda", generator=g).transpose(1, 2)
 
     q, k, v, do = make(sq), make(skv), make(skv), make(sq)
@@ -1007,6 +1018,59 @@ def test_cuda_attention_backward_matches_plain(cuda_device, d, causal, sq, skv):
         scale = float(w.abs().max())
         assert float((a - w).abs().max()) <= 1e-4 * scale
         assert float((t.grad - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,sq,skv", [(64, False, 128, 128), (32, True, 200, 160)])
+def test_cuda_attention_backward_is_deterministic(cuda_device, d, causal, sq, skv):
+    """Two calls on the same inputs give the same bits of dq, dk and dv:
+    the kernels use no atomics, and their sums run in a fixed order."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, h = 8, 4
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g).transpose(1, 2)
+                   for s in (sq, skv, skv, sq))
+    kv_len = torch.randint(0, skv + 1, (b,), device="cuda", generator=g).to(torch.int32)
+    _, lse = k2.flash_attention_lse(q, k, v, kv_len, causal)
+    first = k2.flash_attention_backward(q, k, v, lse, do, kv_len, causal)
+    second = k2.flash_attention_backward(q, k, v, lse, do, kv_len, causal)
+    torch.cuda.synchronize()
+    for a, b2 in zip(first, second):
+        assert torch.equal(a, b2)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_near_equal_keys(cuda_device):
+    """Keys a shared key + 1e-3 noise (the reading-order ranker's
+    geometry), where dq = sum_j dS_ij k_j cancels: against float64
+    autograd of the same attention, the kernel's dq is within twice the
+    plain float32 gradient's own error (relative RMS), and dk and dv
+    within 1e-5 of their largest magnitude."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, h, s, d = 4, 4, 256, 32
+    base = torch.randn(b, 1, h, d, device="cuda", generator=g)
+    q = torch.randn(b, s, h, d, device="cuda", generator=g).transpose(1, 2)
+    k = (base + 1e-3 * torch.randn(b, s, h, d, device="cuda", generator=g)).transpose(1, 2)
+    v, do = (torch.randn(b, s, h, d, device="cuda", generator=g).transpose(1, 2)
+             for _ in range(2))
+    kv_len = torch.tensor([256, 100, 37, 200], dtype=torch.int32, device="cuda")
+    scale = d ** -0.5
+    _, lse = k2.flash_attention_lse(q, k, v, kv_len)
+    got = k2.flash_attention_backward(q, k, v, lse, do, kv_len)
+    plain = k2.attention_backward_reference(q, k, v, do, kv_len=kv_len, sm_scale=scale)
+    with torch.enable_grad():
+        leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+        logits = torch.einsum("bhqd,bhkd->bhqk", leaves[0], leaves[1]) * scale
+        seen = torch.arange(s, device="cuda")[None, None, None, :] < kv_len[:, None, None, None]
+        probs = torch.softmax(torch.where(seen, logits, -1e30), dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, leaves[2])
+        want = torch.autograd.grad(out, leaves, do.double())
+
+    def rms(a, w):
+        return float(((a.double() - w) ** 2).mean().sqrt() / (w ** 2).mean().sqrt())
+
+    assert rms(got[0], want[0]) <= 2 * rms(plain[0], want[0])
+    for a, w in zip(got[1:], want[1:]):
+        assert float((a.double() - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 @pytest.mark.cuda
