@@ -56,7 +56,14 @@ single-page program (``fused_dispatch``) on 2 shipped pages against the
 golden (``single``); serves the OCR executor from a worker pod over HTTP,
 answers 8 two-page requests one at a time and then all in flight against
 the golden and an in-process pipeline, and runs the NER executor through
-the worker's handler (``serve``); traces one more
+the worker's handler (``serve``); serves the OCR executor over the
+port's gRPC plane, from a server in this process (health, dry_run,
+status, discovery; the 8 requests one at a time in both wire modes
+against the HTTP answers, with K1 and K2 counted on ``"fused"``, then all
+in flight on one channel and through the bidirectional ``Call``) and
+from a ``Flow`` of gateway, head and two worker pods (all in flight, the
+error envelope, a deadline, the children gone on close) (``grpc``);
+traces one more
 run per
 box source, of the chained engine, of the trained engine, of the
 ``best`` engine, of the extract job and its generator and of the job
@@ -4313,9 +4320,295 @@ def phase_serve(shipped, ner_tree):
         raise AssertionError(f"serve checks failed: {row}")
     if executor.text_layout is None or k2.get("heads", 0) <= 0 or k2.get("reading_order", 0) <= 0:
         raise AssertionError(f"NER launches: {ner_launches}")
-    return {name: {**{f"extract_{p}": v for p, v in served_launches.get(name, {}).items()},
-                   **{f"ner_{p}": v for p, v in ner_launches[name].items() if p != "all"}}
-            for name in ("crop_resize", "flash_attention")}
+    launches = {name: {**{f"extract_{p}": v for p, v in served_launches.get(name, {}).items()},
+                       **{f"ner_{p}": v for p, v in ner_launches[name].items() if p != "all"}}
+                for name in ("crop_resize", "flash_attention")}
+    return launches, served
+
+
+GRPC_DEADLINE_S = 0.05  # a 2-page extract takes longer: the call must end DEADLINE_EXCEEDED
+GRPC_SHARDS = 2
+
+
+class _LoopThread:
+    """An asyncio loop on a thread of its own, serving what is started on it."""
+
+    def __init__(self):
+        import asyncio
+        import threading
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+
+    def call(self, coro, timeout: float = 600.0):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        if self.thread.is_alive():
+            raise AssertionError("the server's loop thread did not stop")
+        self.loop.close()
+
+
+def _grpc_envelope(resp):
+    """The executor's result of one served request: the one entry of
+    ``__results__``, under the name of the worker that ran it (a replica
+    of a sharded deployment is ``<name>/rep-<i>``)."""
+    if resp.is_error():
+        raise AssertionError(f"request failed: {resp.status}")
+    results = resp.parameters["__results__"]
+    if len(results) != 1 or [r.executor for r in resp.routes] != list(results):
+        raise AssertionError(f"results of {list(results)}, routes {resp.routes}")
+    return next(iter(results.values()))
+
+
+def _grpc_pages(resp, n_pages: int, h: int, w: int):
+    """The OCR pages of one served extract response (its envelope checked)."""
+    env = _grpc_envelope(resp)
+    if env.get("status") != "succeeded":
+        raise AssertionError(f"extract answered {env}")
+    _check_results(env["metadata"]["ocr"], n_pages, h, w)
+    return env["metadata"]["ocr"]
+
+
+def phase_grpc(shipped, http_pages):
+    """The OCR executor served over the port's gRPC plane (HTTP/2 and the
+    protobuf wire written on the standard library).
+
+    (a) A ``GRPCServer`` on a loop thread of this process fronts
+    ``WorkerRequestHandler(uses="marie_tpu_torch.executor.TextExtractionExecutor")``
+    configured as the ``serve`` phase's worker; the client is the port's
+    ``GRPCClient``.  Health ``Check`` is SERVING, ``dry_run`` true, ``_status``
+    and ``endpoint_discovery`` answer.  The 16 shipped pages go as 8
+    two-page ``/document/extract`` requests one at a time, in the JSON mode
+    (``docs_bytes``) and again as ``DocListProto`` (``docs``): each
+    ``"succeeded"``, the words of both within SERVE_WORD_DIFFS of the
+    ``serve`` phase's HTTP answers, and K1 and K2 launched on ``"fused"``
+    in the JSON pass (counts set to 0 just before it, read just after).
+    Then the 8 requests at once on one channel, and once more through
+    ``astream`` (``Call``, order kept).  Request ms (first, p50, p95),
+    pages/s, ``to_bytes`` / ``from_bytes`` ms of one request in each mode.
+    (b) ``Flow().add(name="extract", uses=<as above>, shards=GRPC_SHARDS,
+    polling="any")`` starts gateway -> head -> GRPC_SHARDS worker pods on
+    the one card: startup s; the 8 requests in flight all answered, by
+    both workers (round robin), words equal to (a)'s, then once more with
+    the workers warm; a request with no
+    frames gets the JAX envelope; a call past its deadline
+    DEADLINE_EXCEEDED; the 8 in flight once more with the workers warm;
+    every child exits within SERVE_CLOSE_S of
+    ``close()`` and its port is free again.  Returns (a)'s launches."""
+    import asyncio
+    import socket
+    import tempfile
+
+    import torch
+
+    from marie_tpu_torch.clients import GRPCClient
+    from marie_tpu_torch.orchestrate.flow import Flow
+    from marie_tpu_torch.serve.networking.grpc_wire import RpcError, StatusCode
+    from marie_tpu_torch.serve.runtimes.servers import GRPCServer
+    from marie_tpu_torch.serve.runtimes.worker.request_handling import WorkerRequestHandler
+    from marie_tpu_torch.types import Document
+    from marie_tpu_torch.types.request import DataRequest
+
+    pages = list(shipped["pages"])
+    n, (h, w) = len(pages), pages[0].shape
+    pairs = [pages[2 * i:2 * i + 2] for i in range(SERVE_PAIRS)]
+    name = "extract"
+    uses = "marie_tpu_torch.executor.TextExtractionExecutor"
+    row = {"phase": "grpc", "pages": n, "requests": SERVE_PAIRS}
+
+    def docs_of(i, pair):
+        return [Document(id=f"p{i}-{k}", tensor=p) for k, p in enumerate(pair)]
+
+    async def one(client, i, pair, timeout=None):
+        t = time.perf_counter()
+        resp = await client.apost("/document/extract", docs_of(i, pair),
+                                  parameters={"ref_id": f"pair-{i}", "job_id": f"job-{i}"},
+                                  timeout=timeout, return_responses=True)
+        return resp, (time.perf_counter() - t) * 1e3
+
+    def stats(ms, wall_s):
+        return {"first_ms": ms[0], "p50_ms": _percentile(ms, 0.5), "p95_ms": _percentile(ms, 0.95),
+                "pages_per_s": n / wall_s, "wall_s": wall_s, "request_ms": ms}
+
+    with tempfile.TemporaryDirectory() as work_dir:
+        uses_with = {"ocr_engine": "default", "device": "cuda",
+                     "work_dir": os.path.join(work_dir, "grpc")}
+        # (a) in-process server
+        loop = _LoopThread()
+        server = GRPCServer(WorkerRequestHandler(uses=uses, uses_with=uses_with, name=name))
+        loop.call(server.setup_server())
+        try:
+            async def part_a():
+                out = {}
+                client = GRPCClient(port=server.port)
+                out["health"] = await client.ahealth()
+                out["dry_run"] = await client.adry_run()
+                out["status_keys"] = sorted(await client.ainfo())
+                raw = await client._channel().unary_unary(
+                    "/jina.JinaDiscoverEndpointsRPC/endpoint_discovery", b"", timeout=30)
+                from marie_tpu_torch.proto import messages
+
+                out["endpoints"] = messages.decode("jina.EndpointsProto", raw).get("endpoints", [])
+                for mode in ("docs_bytes", "docs"):
+                    client.wire_mode = mode
+                    if mode == "docs_bytes":
+                        _reset_counts()
+                    t0 = time.perf_counter()
+                    seq = [await one(client, i, pair) for i, pair in enumerate(pairs)]
+                    wall = time.perf_counter() - t0
+                    if mode == "docs_bytes":
+                        torch.cuda.synchronize()
+                        out["launches"] = _read_counts()
+                    out[mode] = (seq, wall)
+                client.wire_mode = "docs_bytes"
+                t0 = time.perf_counter()
+                conc = await asyncio.gather(*(one(client, i, pair)
+                                              for i, pair in enumerate(pairs)))
+                out["concurrent"] = (conc, time.perf_counter() - t0)
+                reqs = [DataRequest.from_docs(docs_of(i, pair), endpoint="/document/extract",
+                                              parameters={"ref_id": f"pair-{i}"})
+                        for i, pair in enumerate(pairs)]
+                t0 = time.perf_counter()
+                streamed = [r async for r in client.astream(iter(reqs), timeout=900)]
+                out["stream"] = (streamed, time.perf_counter() - t0,
+                                 [r.request_id for r in reqs])
+                await client.aclose()
+                return out
+
+            a = asyncio.run(part_a())
+        finally:
+            loop.call(server.shutdown())
+            loop.close()
+        if a["health"] != 1 or a["dry_run"] is not True or "device" not in a["status_keys"] \
+                or a["endpoints"] != ["/document/extract", "/document/status"]:
+            raise AssertionError(f"gRPC services: {a['health']} {a['dry_run']} "
+                                 f"{a['status_keys']} {a['endpoints']}")
+        launches = a["launches"]
+        row["launches"] = launches
+        if (launches["crop_resize"].get("fused", 0) <= 0
+                or launches["flash_attention"].get("fused", 0) <= 0):
+            raise AssertionError(f"gRPC-served launches: {launches}")
+        served = {}
+        for mode in ("docs_bytes", "docs"):
+            seq, wall = a[mode]
+            got = [p for (resp, _), pair in zip(seq, pairs)
+                   for p in _grpc_pages(resp, len(pair), h, w)]
+            served[mode] = got
+            if seq[0][0].wire_mode != mode:
+                raise AssertionError(f"answered in {seq[0][0].wire_mode} to a {mode} request")
+            row[mode] = {**stats([ms for _, ms in seq], wall),
+                         "word_diffs_vs_http": _word_diffs(got, http_pages)}
+        conc, conc_wall = a["concurrent"]
+        conc_pages = [p for (resp, _), pair in zip(conc, pairs)
+                      for p in _grpc_pages(resp, len(pair), h, w)]
+        row["concurrent"] = {**stats([ms for _, ms in conc], conc_wall),
+                             "word_diffs_vs_sequential": _word_diffs(conc_pages,
+                                                                     served["docs_bytes"])}
+        streamed, stream_wall, ids = a["stream"]
+        stream_pages = [p for resp, pair in zip(streamed, pairs)
+                        for p in _grpc_pages(resp, len(pair), h, w)]
+        row["stream"] = {"wall_s": stream_wall, "pages_per_s": n / stream_wall,
+                         "in_order": [r.request_id for r in streamed] == ids,
+                         "word_diffs_vs_sequential": _word_diffs(stream_pages,
+                                                                 served["docs_bytes"])}
+        # the wire codec's cost on one 2-page request, each mode
+        row["codec_ms"] = {}
+        for mode in ("docs_bytes", "docs"):
+            req = DataRequest.from_docs(docs_of(0, pairs[0]), endpoint="/document/extract")
+            req.wire_mode = mode
+            t0 = time.perf_counter()
+            raw = req.to_bytes()
+            t1 = time.perf_counter()
+            len(DataRequest.from_bytes(raw).docs)
+            t2 = time.perf_counter()
+            resp = a[mode][0][0][0]
+            t3 = time.perf_counter()
+            raw_resp = resp.copy().to_bytes()
+            t4 = time.perf_counter()
+            DataRequest.from_bytes(raw_resp).parameters
+            t5 = time.perf_counter()
+            row["codec_ms"][mode] = {
+                "request_bytes": len(raw), "request_to_bytes_ms": (t1 - t0) * 1e3,
+                "request_from_bytes_ms": (t2 - t1) * 1e3, "response_bytes": len(raw_resp),
+                "response_to_bytes_ms": (t4 - t3) * 1e3,
+                "response_from_bytes_ms": (t5 - t4) * 1e3}
+
+        # (b) gateway -> head -> workers, in pods
+        flow = Flow().add(name=name, uses=uses, uses_with={**uses_with, "work_dir": os.path.join(
+            work_dir, "flow")}, shards=GRPC_SHARDS, polling="any")
+        t0 = time.perf_counter()
+        flow.start()
+        row["flow_startup_s"] = time.perf_counter() - t0
+        try:
+            pods = flow.pods
+            ports = [p.port for p in pods]
+
+            async def part_b():
+                client = GRPCClient(port=flow.port_gateway)
+                out = {"dry_run": await client.adry_run(timeout=60)}
+                for turn in ("cold", "warm"):  # the workers' first requests, then again
+                    t0 = time.perf_counter()
+                    out[turn] = await asyncio.gather(*(one(client, i, pair)
+                                                       for i, pair in enumerate(pairs)))
+                    out[f"{turn}_wall"] = time.perf_counter() - t0
+                out["no_frames"] = _grpc_envelope(await client.apost(
+                    "/document/extract", [Document(text="no pixels")], return_responses=True))
+                try:
+                    await one(client, 0, pairs[0], timeout=GRPC_DEADLINE_S)
+                    out["deadline"] = "answered"
+                except RpcError as ex:
+                    out["deadline"] = ex.code().name
+                await client.aclose()
+                return out
+
+            b = asyncio.run(part_b())
+        finally:
+            t0 = time.perf_counter()
+            flow.close()
+            row["flow_close_s"] = time.perf_counter() - t0
+        flow_pages = {turn: [p for (resp, _), pair in zip(b[turn], pairs)
+                             for p in _grpc_pages(resp, len(pair), h, w)]
+                      for turn in ("cold", "warm")}
+        workers = sorted({r.executor for resp, _ in b["cold"] + b["warm"] for r in resp.routes})
+        free = []
+        for port in ports:
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                    free.append(True)
+                except OSError:
+                    free.append(False)
+        row["flow"] = {
+            "pods": len(pods), "dry_run": b["dry_run"], "workers": workers,
+            **{turn: stats([ms for _, ms in b[turn]], b[f"{turn}_wall"])
+               for turn in ("cold", "warm")},
+            "word_diffs_vs_in_process": sum(_word_diffs(flow_pages[turn], served["docs_bytes"])
+                                            for turn in ("cold", "warm")),
+            "no_frames": b["no_frames"], "deadline": b["deadline"],
+            "exitcodes": [p.exitcode for p in pods], "ports_free": free}
+    row["within_limits"] = (
+        row["docs_bytes"]["word_diffs_vs_http"] <= SERVE_WORD_DIFFS
+        and row["docs"]["word_diffs_vs_http"] <= SERVE_WORD_DIFFS
+        and row["concurrent"]["word_diffs_vs_sequential"] <= SERVE_WORD_DIFFS
+        and row["stream"]["in_order"]
+        and row["stream"]["word_diffs_vs_sequential"] <= SERVE_WORD_DIFFS
+        and row["flow"]["dry_run"] is True
+        and workers == [f"{name}/rep-{i}" for i in range(GRPC_SHARDS)]
+        and row["flow"]["word_diffs_vs_in_process"] <= SERVE_WORD_DIFFS
+        and row["flow"]["no_frames"] == {"status": "failed", "error": "no frames in request"}
+        and row["flow"]["deadline"] == StatusCode.DEADLINE_EXCEEDED.name
+        and row["flow_close_s"] <= SERVE_CLOSE_S
+        and all(c is not None for c in row["flow"]["exitcodes"]) and all(free))
+    emit(row)
+    if not row["within_limits"]:
+        raise AssertionError(f"grpc checks failed: {row}")
+    return launches
 
 
 def main() -> int:
@@ -4369,8 +4662,9 @@ def main() -> int:
     run("runtime", phase_runtime, shipped, trained_engine)
     run("rotated", phase_rotated)
     single_launches = run("single", phase_single, shipped, trained_engine)
-    serve_launches = run("serve", phase_serve, shipped, ner_tree)
+    serve_launches, http_pages = run("serve", phase_serve, shipped, ner_tree)
     del ner_tree
+    grpc_launches = run("grpc", phase_grpc, shipped, http_pages)
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
@@ -4401,7 +4695,8 @@ def main() -> int:
             **{run_name: counts[name].get("train", 0)
                for run_name, counts in train_launches.items()},
             "single": single_launches[name].get("single", 0),
-            **{f"serve_{k}": v for k, v in serve_launches[name].items()}}
+            **{f"serve_{k}": v for k, v in serve_launches[name].items()},
+            **{f"grpc_{k}": v for k, v in grpc_launches[name].items() if k != "all"}}
     # the gradient runs only in the trainers: its launches are theirs
     k2_bwd["launches_by_path"] = {
         run_name: counts["flash_attention_backward"].get("train", 0)

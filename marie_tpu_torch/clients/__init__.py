@@ -1,21 +1,24 @@
-"""Clients of the port's serving plane: HTTP only (gRPC and WebSocket
-wait for the gRPC slice)."""
+"""Clients of the port's serving plane: gRPC (the default, as in the JAX
+package) and HTTP; the WebSocket client is not ported (ROADMAP item 10)."""
 
 from typing import Optional
 
+from marie_tpu_torch.clients.grpc_client import GRPCClient
 from marie_tpu_torch.clients.http_client import HTTPClient
 from marie_tpu_torch.excepts import not_ported
 
 
-def Client(host: str = "127.0.0.1", port: Optional[int] = None, protocol: str = "http",
+def Client(host: str = "127.0.0.1", port: Optional[int] = None, protocol: str = "grpc",
            **kwargs):
     """The client for ``protocol``."""
     protocol = protocol.lower()
+    if protocol == "grpc":
+        return GRPCClient(host=host, port=port, **kwargs)
     if protocol == "http":
         return HTTPClient(host=host, port=port, **kwargs)
-    if protocol in ("grpc", "websocket"):
-        raise not_ported(f"the {protocol} client")
+    if protocol == "websocket":
+        raise not_ported("the websocket client")
     raise ValueError(f"unknown protocol {protocol!r}")
 
 
-__all__ = ["Client", "HTTPClient"]
+__all__ = ["Client", "GRPCClient", "HTTPClient"]

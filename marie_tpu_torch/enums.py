@@ -1,5 +1,6 @@
-"""The enums the port's OCR API takes (copy of ``BetterEnum``, ``PSMode``
-and ``CoordinateFormat`` of ``marie_tpu/enums.py``).  The values are the
+"""The enums the port's OCR API and serving plane take (copy of
+``BetterEnum``, ``ProtocolType``, ``PollingType``, ``PSMode`` and
+``CoordinateFormat`` of ``marie_tpu/enums.py``).  The values are the
 JAX package's, so a mode or format means the same on both sides."""
 
 from enum import Enum
@@ -20,6 +21,21 @@ class BetterEnum(str, Enum):
                 f"{s!r} is not a valid {cls.__name__}; choose from "
                 f"{[e.value for e in cls]}"
             )
+
+
+class ProtocolType(BetterEnum):
+    """Serving protocol."""
+
+    GRPC = "grpc"
+    HTTP = "http"
+    WEBSOCKET = "websocket"
+
+
+class PollingType(BetterEnum):
+    """Head fan-out semantics for sharded deployments."""
+
+    ANY = "any"  # route to one shard
+    ALL = "all"  # broadcast to all shards, reduce results
 
 
 class PSMode(BetterEnum):

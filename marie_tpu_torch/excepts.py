@@ -22,11 +22,37 @@ class BadServer(BaseMarieException):
     """A server answered a request with an error."""
 
 
-#: the ROADMAP item the serving plane's transports, pod kinds and wire
-#: formats beyond the standard library's HTTP wait for
-GRPC_ITEM = "ROADMAP §1 item 10 (the gRPC transport)"
+class FlowTopologyError(BaseMarieException, ValueError):
+    """A flow's graph is not a DAG, or names a deployment twice."""
+
+
+class FlowMissingDeploymentError(FlowTopologyError):
+    """A deployment needs one the flow does not have."""
+
+
+class EstablishGrpcConnectionError(BaseMarieException):
+    """No replica to send a request to."""
+
+
+class InternalNetworkError(BaseMarieException):
+    """A gRPC call failed after its retries."""
+
+    def __init__(self, og_exception=None, request_id: str = "", details: str = ""):
+        self.og_exception = og_exception
+        self.request_id = request_id
+        self._details = details
+        super().__init__(details or str(og_exception))
+
+    def details(self) -> str:
+        return self._details or str(self.og_exception)
+
+
+#: the ROADMAP item the rest of the serving plane waits for (WebSocket,
+#: several protocols on one runtime, the cloud HTTP variants, the
+#: monitoring port, discovery, RAFT, hub references, hot reload)
+GRPC_ITEM = "ROADMAP §1 item 10 (the rest of the serving plane)"
 
 
 def not_ported(what: str) -> NotImplementedError:
-    """The error a serving feature that waits for the gRPC slice raises."""
+    """The error a serving feature that is not ported yet raises."""
     return NotImplementedError(f"{what} is not ported: it waits for {GRPC_ITEM}")

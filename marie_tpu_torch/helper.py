@@ -2,7 +2,10 @@
 calls; :func:`get_full_version` reports torch and CUDA where the JAX one
 reports JAX)."""
 
+import asyncio
 import os
+import threading
+from typing import Any, List
 
 
 def default_bind_host() -> str:
@@ -47,3 +50,27 @@ def get_full_version() -> dict:
         info.setdefault("device", "unavailable")
         info.setdefault("device_count", 0)
     return info
+
+
+def run_async(coro):
+    """Run a coroutine from sync code, even while a loop runs in this
+    thread (it then runs on a thread of its own)."""
+    try:
+        asyncio.get_running_loop()
+    except RuntimeError:
+        return asyncio.run(coro)
+    result: List[Any] = []
+    error: List[BaseException] = []
+
+    def _target():
+        try:
+            result.append(asyncio.run(coro))
+        except BaseException as ex:  # noqa: BLE001 — re-raised in the caller
+            error.append(ex)
+
+    t = threading.Thread(target=_target, daemon=True)
+    t.start()
+    t.join()
+    if error:
+        raise error[0]
+    return result[0]

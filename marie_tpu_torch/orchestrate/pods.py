@@ -1,10 +1,15 @@
 """Pod (port of ``marie_tpu/orchestrate/pods.py``): one serving process.
 
-``Pod("worker", uses=..., uses_with=..., protocol="http").start()``
-spawns a child (the ``spawn`` context: the parent may hold a CUDA context,
-which a forked child cannot use) that builds a
-:class:`WorkerRequestHandler` and an :class:`AsyncNewLoopRuntime`, binds
-its port and signals readiness; the parent waits for that.  SIGTERM
+``Pod(kind, ..., protocol="grpc").start()`` spawns a child (the
+``spawn`` context: the parent may hold a CUDA context, which a forked
+child cannot use) that builds the kind's request handler and an
+:class:`AsyncNewLoopRuntime`, binds its port and signals readiness; the
+parent waits for that.  Kinds: ``"worker"`` (a
+:class:`WorkerRequestHandler` of ``uses``), ``"head"`` (a
+:class:`HeaderRequestHandler` over ``shard_addresses`` with ``polling``)
+and ``"gateway"`` (a :class:`GatewayRequestHandler` over
+``graph_representation`` and ``executor_addresses``).  The protocol is
+``"grpc"`` by default, or ``"http"``.  SIGTERM
 stops the child gracefully (server shutdown, then the executor's
 ``close``).  The child inherits ``CUDA_VISIBLE_DEVICES`` and the rest of
 the environment; the executor's device comes from ``uses_with``, and
@@ -12,8 +17,8 @@ the environment; the executor's device comes from ``uses_with``, and
 The CUDA kernels the child launches load from the libraries the parent
 built (``ops/kernels/_build.py`` names them by a hash of their source).
 
-The ``"gateway"`` and ``"head"`` kinds, RAFT replication and discovery
-wait for the gRPC slice.
+RAFT replication, discovery and the separate monitoring port are not
+ported (ROADMAP item 10).
 """
 
 import multiprocessing
@@ -33,7 +38,6 @@ def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> Non
     import signal
 
     from marie_tpu_torch.serve.runtimes.asyncio_runtime import AsyncNewLoopRuntime
-    from marie_tpu_torch.serve.runtimes.worker.request_handling import WorkerRequestHandler
 
     if kwargs.get("auth_keys"):
         # a spawned child starts with no keys: load the parent's
@@ -41,16 +45,43 @@ def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> Non
 
         APIKeyManager.from_config(kwargs["auth_keys"])
 
-    handler = WorkerRequestHandler(
-        uses=kwargs.get("uses"),
-        uses_with=kwargs.get("uses_with"),
-        name=kwargs.get("name", "executor"),
-        workspace=kwargs.get("workspace"),
-        job_kv_path=kwargs.get("job_kv_path"),
-    )
+    if kind == "worker":
+        from marie_tpu_torch.serve.runtimes.worker.request_handling import (
+            WorkerRequestHandler)
+
+        handler = WorkerRequestHandler(
+            uses=kwargs.get("uses"),
+            uses_with=kwargs.get("uses_with"),
+            name=kwargs.get("name", "executor"),
+            workspace=kwargs.get("workspace"),
+            job_kv_path=kwargs.get("job_kv_path"),
+        )
+    elif kind == "gateway":
+        from marie_tpu_torch.serve.runtimes.gateway.request_handling import (
+            GatewayRequestHandler)
+
+        handler = GatewayRequestHandler(
+            graph_representation=kwargs["graph_representation"],
+            executor_addresses=kwargs["executor_addresses"],
+            prefetch=kwargs.get("prefetch", 0),
+            floating_deployments=kwargs.get("floating_deployments"),
+            node_conditions=kwargs.get("node_conditions"),
+            name=kwargs.get("name", "gateway"),
+        )
+    else:
+        from marie_tpu_torch.enums import PollingType
+        from marie_tpu_torch.serve.runtimes.head.request_handling import HeaderRequestHandler
+
+        raw_polling = kwargs.get("polling", "all")
+        handler = HeaderRequestHandler(
+            shard_addresses=kwargs["shard_addresses"],
+            polling=raw_polling if isinstance(raw_polling, dict)
+            else PollingType(str(raw_polling).lower()),
+            name=kwargs.get("name", "head"),
+        )
     runtime = AsyncNewLoopRuntime(
         handler,
-        protocol=kwargs.get("protocol", "http"),
+        protocol=kwargs.get("protocol", "grpc"),
         protocols=kwargs.get("protocols"),
         port=kwargs.get("port"),
         host=kwargs.get("bind_host"),
@@ -91,17 +122,16 @@ class Pod:
     def __init__(self, kind: str, **kwargs):
         from marie_tpu_torch.auth import APIKeyManager
 
-        if kind != "worker":
-            raise not_ported(f"the {kind!r} pod")
+        if kind not in ("worker", "head", "gateway"):
+            raise ValueError(f"unknown pod kind {kind}")
         for key in ("raft", "discovery_address", "port_monitoring"):
             if kwargs.get(key):
-                raise not_ported(f"a worker pod with {key!r}")
-        if kwargs.get("protocol", "http").lower() != "http" or len(
-                kwargs.get("protocols") or ["http"]) != 1:
+                raise not_ported(f"a {kind} pod with {key!r}")
+        protocols = kwargs.get("protocols") or [kwargs.get("protocol", "grpc")]
+        if len(protocols) != 1 or protocols[0].lower() not in ("grpc", "http"):
             # refused here rather than in the child, where it would look
             # like a start-up failure
-            proto = kwargs.get("protocols") or kwargs.get("protocol")
-            raise not_ported(f"a worker pod over {proto!r}")
+            raise not_ported(f"a {kind} pod over {protocols!r}")
         if APIKeyManager.enabled() and not kwargs.get("auth_keys"):
             kwargs["auth_keys"] = [
                 {"name": info["name"], "api_key": key, "enabled": info["enabled"],
@@ -118,8 +148,14 @@ class Pod:
                                     args=(kind, kwargs, self._ready, self._port),
                                     daemon=True, name=f"marie-pod-{self.name}")
 
-    def start(self, timeout: float = READY_TIMEOUT_S) -> "Pod":
+    def launch(self) -> "Pod":
+        """Start the child without waiting for it (see :meth:`wait_ready`)."""
         self._process.start()
+        return self
+
+    def wait_ready(self, timeout: float = READY_TIMEOUT_S) -> "Pod":
+        """Wait until the child serves; it is closed when it does not
+        within ``timeout``."""
         deadline = time.time() + timeout
         while not self._ready.wait(0.2):
             if not self._process.is_alive():
@@ -132,6 +168,9 @@ class Pod:
                 raise RuntimeFailToStart(
                     f"pod {self.name} did not become ready within {timeout}s")
         return self
+
+    def start(self, timeout: float = READY_TIMEOUT_S) -> "Pod":
+        return self.launch().wait_ready(timeout)
 
     @property
     def port(self) -> int:
@@ -147,6 +186,11 @@ class Pod:
 
     def is_alive(self) -> bool:
         return self._process.is_alive()
+
+    def terminate(self) -> None:
+        """SIGTERM (a graceful stop), without waiting."""
+        if self._process.is_alive():
+            self._process.terminate()
 
     def close(self, timeout: float = 10.0) -> None:
         """SIGTERM (a graceful stop), then SIGKILL after ``timeout``."""

@@ -4,9 +4,8 @@ serving unit whose ``@requests`` endpoints a worker dispatches to.
 It has the JAX executor's endpoint collection and ``requests`` remapping,
 sync, async and generator dispatch, workspace, snapshot/restore hooks
 and metrics, but no YAML base class (PyYAML is not on the card's
-machine; JAML is ROADMAP item 3.4).  ``serve()`` builds a ``Deployment``
-in the JAX package, which waits for the gRPC slice; a worker is served
-over HTTP with :class:`marie_tpu_torch.orchestrate.pods.Pod`.  The model
+machine; JAML is ROADMAP item 3.4).  ``serve()`` serves the executor
+standalone through a ``Deployment`` (gRPC by default).  The model
 work inside an executor runs on the card it is given (``device``).
 """
 
@@ -16,7 +15,6 @@ import os
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, Optional
 
-from marie_tpu_torch.excepts import not_ported
 from marie_tpu_torch.logging_core import MarieLogger
 
 __all__ = ["BaseExecutor"]
@@ -159,5 +157,10 @@ class BaseExecutor:
     @classmethod
     def serve(cls, uses_with: Optional[Dict[str, Any]] = None, port: Optional[int] = None,
               protocol: str = "grpc", **kwargs):
-        """Serve this executor standalone through a ``Deployment``."""
-        raise not_ported("BaseExecutor.serve (a Deployment)")
+        """Serve this executor standalone through a ``Deployment``, until
+        interrupted."""
+        from marie_tpu_torch.orchestrate.deployments import Deployment
+
+        dep = Deployment(uses=cls, uses_with=uses_with, port=port, protocol=protocol, **kwargs)
+        with dep:
+            dep.block()

@@ -2,9 +2,10 @@
 one asyncio loop per serving process, serving a request handler until
 SIGINT/SIGTERM or :meth:`cancel`, then tearing down.
 
-Only ``"http"`` is ported (:class:`HTTPServer`, which also serves
-``/metrics``).  gRPC, WebSocket, several protocols at once, the cloud HTTP
-variants and a separate monitoring port wait for the gRPC slice.
+``"grpc"`` (the default, :class:`GRPCServer`) and ``"http"``
+(:class:`HTTPServer`, which also serves ``/metrics``) are ported.
+WebSocket, several protocols at once, the cloud HTTP variants and a
+separate monitoring port are not (ROADMAP item 10).
 """
 
 import asyncio
@@ -17,7 +18,7 @@ from marie_tpu_torch.logging_core import MarieLogger
 
 
 class AsyncNewLoopRuntime:
-    def __init__(self, req_handler, protocol: str = "http", port: Optional[int] = None,
+    def __init__(self, req_handler, protocol: str = "grpc", port: Optional[int] = None,
                  host: Optional[str] = None, name: str = "runtime", protocols=None,
                  ports=None, port_monitoring: Optional[int] = None):
         self.logger = MarieLogger(f"runtime/{name}")
@@ -30,16 +31,17 @@ class AsyncNewLoopRuntime:
         self.server = self._build_server(protocol, port, host, name, protocols)
 
     def _build_server(self, protocol, port, host, name, protocols):
-        from marie_tpu_torch.serve.runtimes.servers import HTTPServer
+        from marie_tpu_torch.serve.runtimes.servers import GRPCServer, HTTPServer
 
         if protocols and len(protocols) > 1:
             raise not_ported(f"serving several protocols at once ({list(protocols)})")
         proto = (protocols[0] if protocols else protocol).lower()
-        if proto in ("grpc", "websocket", "sagemaker", "azure"):
+        if proto in ("websocket", "sagemaker", "azure"):
             raise not_ported(f"the {proto!r} protocol")
-        if proto != "http":
+        cls = {"grpc": GRPCServer, "http": HTTPServer}.get(proto)
+        if cls is None:
             raise ValueError(f"unknown protocol {proto!r}")
-        return HTTPServer(self.req_handler, port=port, host=host, name=name)
+        return cls(self.req_handler, port=port, host=host, name=name)
 
     async def _serve(self) -> None:
         self._cancel_event = asyncio.Event()

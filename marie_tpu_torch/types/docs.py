@@ -11,8 +11,10 @@ pydantic validates them, ``tensor`` / ``embedding`` become numpy arrays,
 documents, and ``from_dict`` ignores keys that are not fields.
 
 Tensors are numpy arrays end to end; a torch tensor set on a document is
-copied to the host.  The docarray protobuf methods wait for the gRPC
-slice and raise.
+copied to the host.  The docarray protobuf forms
+(``to_docarray_proto`` / ``from_docarray_proto``) are the dict form of
+:mod:`marie_tpu_torch.proto.messages`, converted as the JAX package
+converts them (:mod:`marie_tpu_torch.types.docarray_compat`).
 """
 
 import base64
@@ -23,7 +25,6 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Unio
 
 import numpy as np
 
-from marie_tpu_torch.excepts import not_ported
 
 
 def _to_numpy(v: Any) -> Optional[np.ndarray]:
@@ -161,19 +162,54 @@ class Document(BaseDoc):
             bits.append(f"tags[{len(self.tags)}]")
         return f"<Document {' '.join(bits)}>"
 
-    def to_docarray_proto(self, dp=None):
-        raise not_ported("Document.to_docarray_proto (the docarray wire format)")
+    def to_docarray_proto(self) -> Dict[str, Any]:
+        """-> a ``docarray.DocProto`` (dict form): the set fields, tags,
+        scores, nested chunks and matches, then the foreign fields."""
+        from marie_tpu_torch.types.docarray_compat import dict_to_docproto
+
+        d: Dict[str, Any] = {"id": self.id}
+        for name in ("text", "uri", "mime_type", "modality", "parent_id", "blob",
+                     "tensor", "embedding"):
+            v = getattr(self, name)
+            if v is not None:
+                d[name] = v
+        if self.tags:
+            d["tags"] = self.tags
+        if self.scores:
+            d["scores"] = self.scores
+        if self.chunks:
+            d["chunks"] = [c.to_docarray_proto_dict() for c in self.chunks]
+        if self.matches:
+            d["matches"] = [m.to_docarray_proto_dict() for m in self.matches]
+        d.update(self.extra)
+        return dict_to_docproto(d)
 
     def to_docarray_proto_dict(self) -> Dict[str, Any]:
-        raise not_ported("Document.to_docarray_proto_dict (the docarray wire format)")
+        """Nested-doc form: the plain dict an enclosing DocProto embeds."""
+        from marie_tpu_torch.types.docarray_compat import docproto_to_dict
+
+        return docproto_to_dict(self.to_docarray_proto())
 
     @classmethod
-    def from_docarray_proto(cls, dp) -> "Document":
-        raise not_ported("Document.from_docarray_proto (the docarray wire format)")
+    def from_docarray_proto(cls, dp: Dict[str, Any]) -> "Document":
+        from marie_tpu_torch.types.docarray_compat import docproto_to_dict
+
+        return cls.from_docarray_dict(docproto_to_dict(dp))
 
     @classmethod
     def from_docarray_dict(cls, d: Dict[str, Any]) -> "Document":
-        raise not_ported("Document.from_docarray_dict (the docarray wire format)")
+        known, extra = {}, {}
+        fields = set(cls._field_names())
+        for k, v in d.items():
+            if k in ("chunks", "matches") and isinstance(v, list):
+                known[k] = [cls.from_docarray_dict(i) for i in v]
+            elif k in fields and k != "extra":
+                known[k] = v
+            else:
+                extra[k] = v
+        doc = cls(**known)
+        doc.extra = extra
+        return doc
 
 
 class DocumentArray:
@@ -257,12 +293,13 @@ class DocumentArray:
     def __repr__(self) -> str:
         return f"<DocumentArray ({len(self)} docs)>"
 
-    def to_docarray_proto(self, dlp=None):
-        raise not_ported("DocumentArray.to_docarray_proto (the docarray wire format)")
+    def to_docarray_proto(self) -> Dict[str, Any]:
+        """-> a ``docarray.DocListProto`` (dict form)."""
+        return {"docs": [doc.to_docarray_proto() for doc in self._docs]}
 
     @classmethod
-    def from_docarray_proto(cls, dlp, doc_cls=Document) -> "DocumentArray":
-        raise not_ported("DocumentArray.from_docarray_proto (the docarray wire format)")
+    def from_docarray_proto(cls, dlp: Dict[str, Any], doc_cls=Document) -> "DocumentArray":
+        return cls([doc_cls.from_docarray_proto(d) for d in dlp.get("docs", [])])
 
     @staticmethod
     def empty(n: int) -> "DocumentArray":

@@ -259,37 +259,85 @@ def test_serving_plane_imports_and_serves_with_its_absent_packages_blocked():
 
 
 def test_serving_entry_points_default_to_the_card_and_refuse_what_waits():
-    """The executors take ``device`` defaulting to the card; every
-    protocol and pod kind that is not ported raises, naming its ROADMAP
-    item."""
+    """The executors take ``device`` defaulting to the card; gRPC is the
+    default protocol of the runtime, the pods and the client; every
+    protocol and option that is not ported raises, naming its ROADMAP
+    item: WebSocket, the cloud HTTP variants, several protocols on one
+    runtime, the monitoring port, RAFT (``raft``, ``stateful``)."""
     import inspect
 
     import pytest
 
-    from marie_tpu_torch.clients import Client
+    from marie_tpu_torch.clients import Client, GRPCClient
     from marie_tpu_torch.executor import (
         DocumentClassificationExecutor, NerExtractionExecutor, OverlayExecutor,
         TemplateMatchingExecutor, TextExtractionExecutor)
+    from marie_tpu_torch.orchestrate.deployments import Deployment
     from marie_tpu_torch.orchestrate.pods import Pod
-    from marie_tpu_torch.serve.executors import BaseExecutor
     from marie_tpu_torch.serve.runtimes.asyncio_runtime import AsyncNewLoopRuntime
+    from marie_tpu_torch.serve.runtimes.servers import GRPCServer
 
     for cls in (TextExtractionExecutor, NerExtractionExecutor, DocumentClassificationExecutor,
                 OverlayExecutor, TemplateMatchingExecutor):
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls
-    for call in (lambda: Pod("gateway"), lambda: Pod("head"),
-                 lambda: Pod("worker", protocol="grpc"),
+    assert isinstance(AsyncNewLoopRuntime(None).server, GRPCServer)
+    assert isinstance(Client(port=1), GRPCClient)
+    assert Pod("gateway").kwargs.get("protocol", "grpc") == "grpc"
+    for call in (lambda: Pod("worker", protocol="websocket"),
                  lambda: Pod("worker", protocols=["http", "grpc"]),
                  lambda: Pod("worker", raft={"node_id": 1}),
-                 lambda: AsyncNewLoopRuntime(None, protocol="grpc"),
+                 lambda: Pod("head", port_monitoring=9000),
                  lambda: AsyncNewLoopRuntime(None, protocol="websocket"),
                  lambda: AsyncNewLoopRuntime(None, protocol="sagemaker"),
                  lambda: AsyncNewLoopRuntime(None, protocols=["http", "grpc"]),
                  lambda: AsyncNewLoopRuntime(None, port_monitoring=9000),
-                 lambda: Client(port=1, protocol="grpc"),
-                 lambda: BaseExecutor.serve()):
+                 lambda: Client(port=1, protocol="websocket"),
+                 lambda: Deployment(stateful=True)):
         with pytest.raises(NotImplementedError, match="item 10"):
             call()
+
+
+_GRPC_SERVING = r"""
+import sys
+for name in BLOCKED + ("psutil", "prometheus_client"):
+    sys.modules[name] = None
+import asyncio
+import numpy as np
+from marie_tpu_torch.clients import GRPCClient
+from marie_tpu_torch.executor import TextExtractionExecutorMock
+from marie_tpu_torch.orchestrate.flow import Flow
+from marie_tpu_torch.serve.runtimes.servers import GRPCServer
+from marie_tpu_torch.serve.runtimes.worker.request_handling import WorkerRequestHandler
+from marie_tpu_torch.types import Document
+
+async def main():
+    server = GRPCServer(WorkerRequestHandler(uses=TextExtractionExecutorMock, name="mock"))
+    await server.setup_server()
+    client = GRPCClient(port=server.port, wire_mode="docs")
+    page = np.full((32, 32), 255, np.uint8)
+    resp = await client.apost("/document/extract", [Document(tensor=page)],
+                              return_responses=True)
+    health = await client.ahealth()
+    await client.aclose()
+    await server.shutdown()
+    return resp, health
+
+resp, health = asyncio.run(main())
+print(resp.status.code, resp.wire_mode, resp.parameters["__results__"]["mock"]["status"], health,
+      sorted(Flow().add(name="a").build()))
+"""
+
+
+def test_grpc_plane_serves_with_its_absent_packages_blocked():
+    """The gRPC server and client, the flow and the wire codec import with
+    JAX, grpc, protobuf, aiohttp, PyYAML (and the rest) blocked, and a
+    request round-trips over gRPC in the DocListProto wire mode."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", f"BLOCKED = {BLOCKED!r}\n" + _GRPC_SERVING],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["0", "docs", "succeeded", "1", "['a',", "'start-gateway']"]
 
 
 _TRAINERS = r"""

@@ -152,11 +152,30 @@ def test_data_request_matches_jax():
 
 
 def test_wire_forms_wait_for_the_grpc_item():
-    """The protobuf methods raise, naming ROADMAP item 10."""
-    for call in (lambda: DataRequest().to_bytes(), lambda: DataRequest.from_bytes(b""),
-                 lambda: Document().to_docarray_proto(),
-                 lambda: DocumentArray().to_docarray_proto(),
-                 lambda: Document.from_docarray_dict({})):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    """The protobuf wire forms are ported (the name is kept from when they
+    raised): a request with docs, parameters, a status and routes, a
+    document with a tensor, tags, blob and children, and a DocumentArray
+    round-trip through bytes and the docarray form, and read as the JAX
+    package's."""
+    doc = Document(**_doc_kwargs("children"))
+    jdoc = JDocument(**_doc_kwargs("children"))
+    assert Document.from_docarray_proto(doc.to_docarray_proto()).to_json() == \
+        JDocument.from_docarray_proto(jdoc.to_docarray_proto()).to_json()
+    da = DocumentArray([Document(**_doc_kwargs(c)) for c in ("uint8", "float32", "bytes_text_uri")])
+    back = DocumentArray.from_docarray_proto(da.to_docarray_proto())
+    assert [d.id for d in back] == [d.id for d in da]
+    assert np.array_equal(back[0].tensor, da[0].tensor)
+    assert back[2].blob == da[2].blob and back[2].text == da[2].text
+    assert Document.from_docarray_dict({}).id
+    for mode in ("docs_bytes", "docs"):
+        req = DataRequest.from_docs([doc], endpoint="/x", parameters={"a": [1, "b"]})
+        req.wire_mode = mode
+        req.add_route("w", "2026-10-18T05:57:24.123456+00:00", "")
+        raw = req.to_bytes()
+        back = DataRequest.from_bytes(raw)
+        jback = JDataRequest.from_bytes(raw)
+        assert back.to_bytes() == raw == jback.to_bytes()
+        assert back.parameters == jback.parameters == {"a": [1.0, "b"]}
+        assert back.docs[0].to_json() == doc.to_json() and back.wire_mode == mode
+        assert back.routes[0].start_time == jts_iso(jback.routes[0].start_time)
     assert json.loads(Document(id="x").to_json())["id"] == "x"
