@@ -63,6 +63,12 @@ against the HTTP answers, with K1 and K2 counted on ``"fused"``, then all
 in flight on one channel and through the bidirectional ``Call``) and
 from a ``Flow`` of gateway, head and two worker pods (all in flight, the
 error envelope, a deadline, the children gone on close) (``grpc``);
+boots the server shell from YAML through the CLI (``python -m
+marie_tpu_torch.cli server --start --uses <yml>``) in a child process,
+twice in turns, with the workers' warm-up and without, and drives its REST
+control plane: a job, the 8 requests as 2-page TIFFs against the
+``serve`` answers with K1 and K2 counted on ``"fused"`` in the workers (the
+warm-up's apart), a NER request, SIGTERM (``server``);
 traces one more
 run per
 box source, of the chained engine, of the trained engine, of the
@@ -4611,6 +4617,286 @@ def phase_grpc(shipped, http_pages):
     return launches
 
 
+SERVER_READY_S = 300.0  # a boot: two engines, the base indexer and their warm-ups
+SERVER_JOB_S = 90.0  # a submitted job reaches a terminal state (the scheduler polls)
+WARMUP_ENV = "MARIE_PROGRAM_ZOO_ENABLE"
+SERVER_DEVICE = "cuda"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _descendants(pid: int) -> list:
+    """The pids of ``pid``'s children and their children (from /proc)."""
+    parents = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        parents[int(entry)] = int(stat.rsplit(")", 1)[1].split()[1])
+    out, frontier = [], [pid]
+    while frontier:
+        p = frontier.pop()
+        kids = [c for c, pp in parents.items() if pp == p]
+        out += kids
+        frontier += kids
+    return out
+
+
+def _rest(port: int, method: str, path: str, payload=None, timeout: float = 600.0):
+    """(status, JSON answer) of one call to the control plane."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read()
+            status = r.status
+    except urllib.error.HTTPError as ex:
+        body, status = ex.read(), ex.code
+    try:
+        return status, json.loads(body)
+    except ValueError:
+        return status, body.decode(errors="replace")
+
+
+def _metrics_launches(port: int) -> dict:
+    """{"requests": {kernel: {path: n}}, "warmup": {...}, "warmup_s", "build_s"}
+    from the control plane's ``/metrics`` (the Flow's workers summed)."""
+    import re
+
+    status, text = _rest(port, "GET", "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    out = {"requests": {}, "warmup": {}, "warmup_s": 0.0, "build_s": None}
+    for name, key in (("marie_kernel_launches_total", "requests"),
+                      ("marie_warmup_launches_total", "warmup")):
+        for kernel, path, n in re.findall(
+                rf'^{name}\{{kernel="(\w+)",path="(\w+)"\}} (\d+)$', text, re.M):
+            out[key].setdefault(kernel, {})[path] = int(n)
+    m = re.search(r"^marie_warmup_seconds (\S+)$", text, re.M)
+    out["warmup_s"] = float(m.group(1)) if m else 0.0
+    m = re.search(r"^marie_kernel_build_seconds_sum (\S+)$", text, re.M)
+    out["build_s"] = float(m.group(1)) if m else None
+    return out
+
+
+def _boot(repo, work_dir, label, warmup: bool, pairs, ner_page, http_pages, h, w):
+    """One boot of ``python -m marie_tpu_torch.cli server --start --uses <yml>``
+    in a child process, driven over its REST control plane, then stopped."""
+    import base64
+    import signal
+    import socket
+    import subprocess
+
+    from marie_tpu_torch.utils.image_io import write_png, write_tiff
+
+    boot_dir = os.path.join(work_dir, label)
+    os.makedirs(boot_dir)
+    gateway, rest = _free_port(), _free_port()
+    yml = os.path.join(boot_dir, "server.yml")
+    with open(yml, "w") as f:
+        f.write(f"""jtype: Flow
+with:
+  port: {gateway}
+  protocol: grpc
+executors:
+  - name: extract
+    uses:
+      jtype: marie_tpu_torch.executor.TextExtractionExecutor
+      with:
+        ocr_engine: default
+        device: {SERVER_DEVICE}
+        work_dir: {os.path.join(boot_dir, "served")}
+  - name: ner
+    uses:
+      jtype: marie_tpu_torch.executor.NerExtractionExecutor
+      with:
+        ocr_engine: default
+        reading_order: true
+        device: {SERVER_DEVICE}
+""")
+    docs = []
+    for i, pair in enumerate(pairs):  # each request names a 2-page TIFF by uri
+        path = os.path.join(boot_dir, f"pair-{i}.tif")
+        write_tiff(path, list(pair))
+        docs.append(path)
+    buf = __import__("io").BytesIO()
+    write_png(buf, ner_page)
+    ner_body = {"data": base64.b64encode(buf.getvalue()).decode(), "doc_id": "ner-0"}
+    env = dict(os.environ, TMPDIR=boot_dir)
+    env[WARMUP_ENV] = "1" if warmup else "0"
+    log_path = os.path.join(boot_dir, "server.log")
+    row = {"boot": label, "warmup": warmup}
+    with open(log_path, "wb") as log:
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "marie_tpu_torch.cli", "server", "--start", "--uses", yml,
+             "--rest-port", str(rest), "--device", SERVER_DEVICE], cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if child.poll() is not None:
+                    raise AssertionError(f"server exited {child.returncode} during startup")
+                if time.perf_counter() - t0 > SERVER_READY_S:
+                    raise AssertionError(f"server not ready within {SERVER_READY_S} s")
+                try:
+                    if _rest(rest, "GET", "/health/status", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.2)
+            row["startup_s"] = time.perf_counter() - t0
+            # a job first: the scheduler's poll picks it up during the requests
+            status, sub = _rest(rest, "POST", "/api/jobs/submit",
+                                {"entrypoint": "/document/status", "metadata": {}})
+            if status != 200 or sub.get("status") != "ok":
+                raise AssertionError(f"job submit: {status} {sub}")
+            job_id = sub["jobid"]
+            before = _metrics_launches(rest)
+            row["build_s"] = before["build_s"]
+            row["warmup_s"] = before["warmup_s"]
+            row["warmup_launches"] = before["warmup"]
+            pages, ms = [], []
+            for i, path in enumerate(docs):
+                t = time.perf_counter()
+                status, body = _rest(rest, "POST", "/api/document/extract", {"uri": path})
+                ms.append((time.perf_counter() - t) * 1e3)
+                if status != 200 or body.get("status") != "succeeded":
+                    raise AssertionError(f"extract {i}: {status} {str(body)[:500]}")
+                _check_results(body["metadata"]["ocr"], 2, h, w)
+                pages += body["metadata"]["ocr"]
+            mid = _metrics_launches(rest)
+            row["launches"] = _launch_delta(before["requests"], mid["requests"])
+            t = time.perf_counter()
+            status, ner = _rest(rest, "POST", "/api/ner/extract", ner_body)
+            row["ner_ms"] = (time.perf_counter() - t) * 1e3
+            if status != 200 or ner.get("status") != "succeeded" \
+                    or len(ner.get("entities", ())) != 1:
+                raise AssertionError(f"ner: {status} {str(ner)[:500]}")
+            row["ner_entities"] = len(ner["entities"][0]["entities"])
+            row["ner_launches"] = _launch_delta(mid["requests"],
+                                                _metrics_launches(rest)["requests"])
+            row["first_request_ms"] = ms[0]
+            row["rest_p50_ms"] = _percentile(ms[1:], 0.5)
+            row["request_ms"] = ms
+            row["word_diffs_vs_serve"] = _word_diffs(pages, http_pages) + abs(
+                len(pages) - len(http_pages))
+            state, t = None, time.perf_counter()
+            while time.perf_counter() - t < SERVER_JOB_S:
+                status, info = _rest(rest, "GET", f"/api/jobs/{job_id}")
+                state = info.get("state") if status == 200 else None
+                if state in ("completed", "failed", "cancelled", "expired"):
+                    break
+                time.sleep(0.25)
+            row["job_state"] = state
+            row["job_wait_s"] = time.perf_counter() - t0 - row["startup_s"]
+            status, nodes = _rest(rest, "GET", "/api/nodes")
+            ports = [gateway, rest] + [int(a.rsplit(":", 1)[1])
+                                       for addrs in nodes["deployments"].values()
+                                       for a in addrs]
+        finally:
+            kids = _descendants(child.pid)
+            t = time.perf_counter()
+            if child.poll() is None:
+                child.send_signal(signal.SIGTERM)
+            try:
+                child.wait(timeout=SERVE_CLOSE_S)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+            deadline = t + SERVE_CLOSE_S
+            while time.perf_counter() < deadline and any(
+                    os.path.exists(f"/proc/{k}") for k in kids):
+                time.sleep(0.05)
+            row["stop_s"] = time.perf_counter() - t
+            left = [k for k in kids if os.path.exists(f"/proc/{k}")]
+            for k in left:  # stop what outlived the limit, then fail below
+                try:
+                    os.kill(k, signal.SIGKILL)
+                except OSError:
+                    pass
+    row["exitcode"] = child.returncode
+    row["children"] = len(kids)
+    row["children_left"] = len(left)
+    free = []
+    for port in ports:
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+                free.append(True)
+            except OSError:
+                free.append(False)
+    row["ports_free"] = free
+    with open(log_path, "rb") as f:
+        row["log_tail"] = f.read()[-1500:].decode(errors="replace") if (
+            row["exitcode"] != 0 or left) else ""
+    return row
+
+
+def phase_server(shipped, http_pages):
+    """The server shell booted from YAML on the card, through the CLI a user
+    runs: ``python -m marie_tpu_torch.cli server --start --uses <yml>`` in a
+    child process, with a Flow of ``TextExtractionExecutor`` (``ocr_engine:
+    default``) and ``NerExtractionExecutor`` (its own ``default`` engine,
+    reading order on).  Booted twice in turns: with the warm-up (on by
+    default on the card) and with ``MARIE_PROGRAM_ZOO_ENABLE=0``.  Each
+    boot: startup s (to ``/health/status`` 200), the kernels' build s and
+    the warm-up's s and launches (``/metrics``); one job through
+    ``/api/jobs/submit`` reaches a terminal state; the 16 shipped pages as
+    8 two-page ``POST /api/document/extract`` requests (each a 2-page TIFF
+    by ``uri``): first-request ms and the p50 of the rest, the words equal
+    to the ``serve`` phase's HTTP answers (0 differences), K1 8 and K2 48
+    on ``"fused"`` in the workers (the warm-up's apart); one
+    ``/api/ner/extract`` of a PNG page: K2 on ``"heads"`` and
+    ``"reading_order"``; SIGTERM stops the child and every process under
+    it within SERVE_CLOSE_S, with every port free.  Returns the warm
+    boot's launches."""
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pages = list(shipped["pages"])
+    n, (h, w) = len(pages), pages[0].shape
+    pairs = [pages[2 * i:2 * i + 2] for i in range(SERVE_PAIRS)]
+    row = {"phase": "server", "pages": n, "requests": SERVE_PAIRS, "boots": []}
+    with tempfile.TemporaryDirectory() as work_dir:
+        for label, warmup in (("warm", True), ("cold", False)):
+            row["boots"].append(_boot(repo, work_dir, label, warmup, pairs, pages[0],
+                                      http_pages, h, w))
+    ok = True
+    for b in row["boots"]:
+        fused = {k: b["launches"].get(k, {}).get("fused", 0)
+                 for k in ("crop_resize", "flash_attention")}
+        ner = b["ner_launches"].get("flash_attention", {})
+        b["within_limits"] = (
+            b["word_diffs_vs_serve"] <= SERVE_WORD_DIFFS
+            and fused == {"crop_resize": SERVE_PAIRS, "flash_attention": 6 * SERVE_PAIRS}
+            and ner.get("heads", 0) > 0 and ner.get("reading_order", 0) > 0
+            and b["job_state"] == "completed" and b["exitcode"] == 0
+            and b["stop_s"] <= SERVE_CLOSE_S and b["children"] >= 3
+            and b["children_left"] == 0 and all(b["ports_free"])
+            and (bool(b["warmup_launches"]) == b["warmup"]))
+        ok = ok and b["within_limits"]
+    row["within_limits"] = ok
+    emit(row)
+    if not ok:
+        raise AssertionError(f"server checks failed: {row}")
+    warm = row["boots"][0]
+    return {name: {f"extract_{p}": v for p, v in warm["launches"].get(name, {}).items()}
+            for name in ("crop_resize", "flash_attention")}
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -4665,6 +4951,7 @@ def main() -> int:
     serve_launches, http_pages = run("serve", phase_serve, shipped, ner_tree)
     del ner_tree
     grpc_launches = run("grpc", phase_grpc, shipped, http_pages)
+    server_launches = run("server", phase_server, shipped, http_pages)
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
@@ -4696,7 +4983,8 @@ def main() -> int:
                for run_name, counts in train_launches.items()},
             "single": single_launches[name].get("single", 0),
             **{f"serve_{k}": v for k, v in serve_launches[name].items()},
-            **{f"grpc_{k}": v for k, v in grpc_launches[name].items() if k != "all"}}
+            **{f"grpc_{k}": v for k, v in grpc_launches[name].items() if k != "all"},
+            **{f"server_{k}": v for k, v in server_launches[name].items()}}
     # the gradient runs only in the trainers: its launches are theirs
     k2_bwd["launches_by_path"] = {
         run_name: counts["flash_attention_backward"].get("train", 0)

@@ -1,6 +1,7 @@
-"""The enums the port's OCR API and serving plane take (copy of
-``BetterEnum``, ``ProtocolType``, ``PollingType``, ``PSMode`` and
-``CoordinateFormat`` of ``marie_tpu/enums.py``).  The values are the
+"""The enums the port's OCR API, serving plane and job control plane take
+(copy of ``BetterEnum``, ``ProtocolType``, ``PollingType``, ``PSMode``,
+``CoordinateFormat``, ``WorkState`` and ``JobStatus`` of
+``marie_tpu/enums.py``).  The values are the
 JAX package's, so a mode or format means the same on both sides."""
 
 from enum import Enum
@@ -78,3 +79,34 @@ class CoordinateFormat(BetterEnum):
         if from_fmt == CoordinateFormat.XYWH:  # -> xyxy
             return [x0, y0, x0 + a, y0 + b]
         return [x0, y0, a - x0, b - y0]  # xyxy -> xywh
+
+
+class WorkState(BetterEnum):
+    """The scheduler's job states."""
+
+    CREATED = "created"
+    RETRY = "retry"
+    ACTIVE = "active"
+    COMPLETED = "completed"
+    EXPIRED = "expired"
+    CANCELLED = "cancelled"
+    FAILED = "failed"
+
+    @property
+    def is_terminal(self) -> bool:
+        return self in (WorkState.COMPLETED, WorkState.EXPIRED, WorkState.CANCELLED,
+                        WorkState.FAILED)
+
+
+class JobStatus(BetterEnum):
+    """The job manager's status vocabulary."""
+
+    PENDING = "pending"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+    STOPPED = "stopped"
+
+    @property
+    def is_terminal(self) -> bool:
+        return self in (JobStatus.SUCCEEDED, JobStatus.FAILED, JobStatus.STOPPED)

@@ -18,6 +18,10 @@ class RuntimeFailToStart(BaseMarieException, RuntimeError):
     """A serving process did not become ready."""
 
 
+class JobNotFoundError(BaseMarieException, KeyError):
+    """The job manager has no job of that id."""
+
+
 class BadServer(BaseMarieException):
     """A server answered a request with an error."""
 

@@ -12,9 +12,12 @@ the entities, which land in ``tags["indexer"]`` and the answer
 
 ``reading_order``: True loads :func:`load_text_layout` (the zoo's trained
 tree, else a seeded one), None loads it when the zoo holds the trained
-tree, False never.  The indexer
+tree, False never.  A load that fails is logged and the executor serves
+unordered (``text_layout`` None), as the JAX executor does.  The indexer
 defaults to the zoo's synthetic-trained one, else a seeded base-width
 one.  Every model runs on ``device`` (the card by default).
+``ocr_engine`` is an engine, or (port-only, for YAML) the name of a
+registry engine (``get_known_ocr_engines``).
 """
 
 from typing import Any, Dict, Optional
@@ -48,11 +51,15 @@ class NerExtractionExecutor(StorageMixin, BaseExecutor):
         self.setup_storage(storage_enabled, storage_conf, silence_exceptions=True)
         self.text_layout = None
         if reading_order is not False:
-            from marie_tpu_torch.document.layoutreader import ZOO_NAME, load_text_layout
-            from marie_tpu_torch.registry.zoo import zoo_checkpoint
+            try:
+                from marie_tpu_torch.document.layoutreader import ZOO_NAME, load_text_layout
+                from marie_tpu_torch.registry.zoo import zoo_checkpoint
 
-            if reading_order or zoo_checkpoint(ZOO_NAME) is not None:
-                self.text_layout = load_text_layout(device=device)
+                if reading_order or zoo_checkpoint(ZOO_NAME) is not None:
+                    self.text_layout = load_text_layout(device=device)
+            except Exception as ex:  # noqa: BLE001 — ordering is best-effort, as in JAX
+                self.logger.warning(f"reading order not loaded, serving unordered: {ex!r}")
+                self.text_layout = None
         if indexer is None:
             from marie_tpu_torch.components.document_indexer import LayoutDocumentIndexer
 
@@ -65,6 +72,10 @@ class NerExtractionExecutor(StorageMixin, BaseExecutor):
                     labels=labels, config=LayoutLMConfig.base(num_labels=len(labels)),
                     device=device)
         self.indexer = indexer
+        if isinstance(ocr_engine, str):  # a registry engine by name, as YAML gives it
+            from marie_tpu_torch.ocr.util import get_known_ocr_engines
+
+            ocr_engine = get_known_ocr_engines(device=device, engine=ocr_engine)[ocr_engine]
         self.ocr_engine = ocr_engine  # runs OCR when a document has no words
 
     @requests(on="/ner/extract")

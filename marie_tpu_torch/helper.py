@@ -4,14 +4,38 @@ reports JAX)."""
 
 import asyncio
 import os
+import random
+import socket
 import threading
 from typing import Any, List
+
+_RANDOM_PORT_MIN, _RANDOM_PORT_MAX = 49153, 65535
+_assigned_ports: set = set()
+_port_lock = threading.Lock()
 
 
 def default_bind_host() -> str:
     """The address servers listen on: loopback unless ``MARIE_BIND_HOST``
     says otherwise (e.g. ``0.0.0.0`` inside a container)."""
     return os.environ.get("MARIE_BIND_HOST", "127.0.0.1")
+
+
+def random_port() -> int:
+    """A free TCP port on the loopback, not handed out earlier in this
+    process."""
+    with _port_lock:
+        for _ in range(200):
+            port = random.randint(_RANDOM_PORT_MIN, _RANDOM_PORT_MAX)
+            if port in _assigned_ports:
+                continue
+            with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    continue
+            _assigned_ports.add(port)
+            return port
+    raise RuntimeError("no free port found")
 
 
 def ensure_exists(path: str) -> str:

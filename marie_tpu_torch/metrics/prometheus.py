@@ -73,14 +73,25 @@ def render_prometheus(registry: Optional[MetricRegistry] = None) -> str:
     return "\n".join(lines) + ("\n" if lines else "")
 
 
-def render_launches(counts: dict) -> str:
-    """``{kernel: {path: launches}}`` as the counter
-    ``marie_kernel_launches_total{kernel, path}``."""
+def render_launches(counts: dict, name: str = "marie_kernel_launches_total") -> str:
+    """``{kernel: {path: launches}}`` as the counter ``name{kernel, path}``
+    (``marie_warmup_launches_total`` for a warm-up's)."""
     if not counts:
         return ""
-    lines = ["# TYPE marie_kernel_launches_total counter"]
+    lines = [f"# TYPE {name} counter"]
     for kernel in sorted(counts):
         for path in sorted(counts[kernel]):
-            lines.append(f"marie_kernel_launches_total"
-                         f"{_labels({'kernel': kernel, 'path': path})} {counts[kernel][path]}")
+            lines.append(f"{name}{_labels({'kernel': kernel, 'path': path})} "
+                         f"{counts[kernel][path]}")
     return "\n".join(lines) + "\n"
+
+
+def render_warmup(report: dict) -> str:
+    """A warm-up report (``program_zoo.warmup_report``): its seconds as
+    ``marie_warmup_seconds`` and its launches as
+    ``marie_warmup_launches_total{kernel, path}``; nothing when no warm-up
+    ran."""
+    if not report.get("parts") and not report.get("launches"):
+        return ""
+    return (f"# TYPE marie_warmup_seconds gauge\nmarie_warmup_seconds {report['seconds']}\n"
+            + render_launches(report.get("launches", {}), "marie_warmup_launches_total"))

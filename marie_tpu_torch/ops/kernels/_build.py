@@ -21,7 +21,9 @@ Launch counts: each wrapper calls :func:`count_launch` where it launches
 its kernel, which adds one to the wrapper's ``launches`` and to its
 ``launches_by_path`` entry for the path the calling thread is on
 (:func:`launch_path`; ``"other"`` outside one).  :func:`launch_counts`
-reads them for the whole process (a served worker's ``/metrics``).
+reads them for the whole process (a served worker's ``/metrics``), and
+:func:`set_launch_counts` puts a snapshot back (a worker's warm-up takes
+its launches out of the requests' counts).
 """
 
 import contextlib
@@ -89,6 +91,15 @@ def launch_counts() -> Dict[str, Dict[str, int]]:
     kernel in this process (since its last reset)."""
     with _COUNT_LOCK:
         return {name: dict(w.launches_by_path) for name, w in _COUNTED.items()}
+
+
+def set_launch_counts(counts: Dict[str, Dict[str, int]]) -> None:
+    """Set every wrapper that launched to ``counts`` (a :func:`launch_counts`
+    snapshot): its counts by path, and in all their sum."""
+    with _COUNT_LOCK:
+        for name, wrapper in _COUNTED.items():
+            wrapper.launches_by_path = dict(counts.get(name, {}))
+            wrapper.launches = sum(wrapper.launches_by_path.values())
 
 
 def reset_counts(*wrappers: Callable) -> None:

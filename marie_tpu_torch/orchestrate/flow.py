@@ -1,5 +1,5 @@
 """Flow (port of ``marie_tpu/orchestrate/flow.py``): a DAG of deployments
-behind a gateway pod, through the Python API.
+behind a gateway pod, from the Python API or from YAML.
 
 ``Flow().add(uses=..., name=..., needs=...)`` chains deployments (each
 needs the last one added unless told otherwise; ``needs="gateway"``
@@ -7,14 +7,18 @@ starts a branch), ``needs_all()`` joins every leaf, ``build()`` checks
 the graph, ``start()`` starts every deployment and then the gateway
 (``protocol`` ``"grpc"`` by default, or ``"http"``), ``close()`` stops
 them; ``block()``, ``gateway_address`` and ``config_gateway`` as in the
-JAX flow.  A flow from YAML (JAML, ROADMAP item 3.4) and the Kubernetes
-and docker-compose exports are not ported.
+JAX flow.  ``Flow.load_config(yml)`` (JAML: ``jtype: Flow``, ``with:`` the
+constructor's keywords, ``executors:`` a list of ``add`` keywords with
+``uses`` a ``jtype`` mapping, a dotted path or a class) builds it from
+YAML; ``to_kubernetes_yaml`` and ``to_docker_compose_yaml`` export it
+(:mod:`marie_tpu_torch.orchestrate.export`).
 """
 
 import time
 from typing import Any, Dict, List, Optional, Sequence, Type, Union
 
 from marie_tpu_torch.excepts import FlowMissingDeploymentError, FlowTopologyError
+from marie_tpu_torch.jaml import JAMLCompatible
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.orchestrate.deployments import Deployment
 from marie_tpu_torch.orchestrate.pods import Pod
@@ -30,7 +34,7 @@ def _close_all(pods: List[Pod]) -> None:
         p.close()
 
 
-class Flow:
+class Flow(JAMLCompatible):
     def __init__(self, port: Optional[int] = None,
                  protocol: Union[str, Sequence[str]] = "grpc", prefetch: int = 0,
                  name: str = "flow", **kwargs):
@@ -153,12 +157,23 @@ class Flow:
         return self
 
     @classmethod
-    def load_config(cls, source: Any, **kwargs) -> "Flow":
-        raise NotImplementedError("a Flow from YAML needs JAML: ROADMAP §1 item 3.4")
+    def _from_yaml_config(cls, with_kwargs: Dict[str, Any], metas=None, raw=None):
+        """A Flow from its JAML mapping: ``with`` to the constructor, each
+        entry of ``executors`` to :meth:`add`."""
+        raw = raw or {}
+        flow = cls(**with_kwargs)
+        for item in raw.get("executors", []) or []:
+            item = dict(item)
+            uses = item.pop("uses", None)
+            flow.add(uses=uses, **item)
+        return flow
 
     def to_kubernetes_yaml(self, **kwargs) -> str:
-        raise NotImplementedError("the Kubernetes export needs PyYAML: ROADMAP §1 item 3.4")
+        from marie_tpu_torch.orchestrate.export import to_kubernetes_yaml
+
+        return to_kubernetes_yaml(self, **kwargs)
 
     def to_docker_compose_yaml(self, **kwargs) -> str:
-        raise NotImplementedError("the docker-compose export needs PyYAML: "
-                                  "ROADMAP §1 item 3.4")
+        from marie_tpu_torch.orchestrate.export import to_docker_compose_yaml
+
+        return to_docker_compose_yaml(self, **kwargs)

@@ -13,7 +13,11 @@ and ``"gateway"`` (a :class:`GatewayRequestHandler` over
 stops the child gracefully (server shutdown, then the executor's
 ``close``).  The child inherits ``CUDA_VISIBLE_DEVICES`` and the rest of
 the environment; the executor's device comes from ``uses_with``, and
-``uses`` travels as a class (pickled by reference) or a dotted path.
+``uses`` travels as a class (pickled by reference), a dotted path, a
+``jtype`` mapping or YAML.  A worker runs its executor's programs once
+before it signals readiness (:func:`marie_tpu_torch.utils.program_zoo.prewarm`;
+on by default on the card, ``MARIE_PROGRAM_ZOO_ENABLE=0`` turns it off);
+a warm-up that raises fails the start (:class:`RuntimeFailToStart`).
 The CUDA kernels the child launches load from the libraries the parent
 built (``ops/kernels/_build.py`` names them by a hash of their source).
 
@@ -29,7 +33,8 @@ from marie_tpu_torch.excepts import RuntimeFailToStart, not_ported
 from marie_tpu_torch.logging_core import MarieLogger
 
 #: how long :meth:`Pod.start` waits for the child's readiness by default
-READY_TIMEOUT_S = 60.0
+#: (a worker loads its models and warms them first)
+READY_TIMEOUT_S = 120.0
 
 
 def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> None:
@@ -56,6 +61,12 @@ def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> Non
             workspace=kwargs.get("workspace"),
             job_kv_path=kwargs.get("job_kv_path"),
         )
+        from marie_tpu_torch.utils.program_zoo import prewarm, warmup_enabled
+
+        if warmup_enabled():
+            # the executor's programs run once before readiness; a failure
+            # here ends the child, and the parent's start raises
+            prewarm(handler.executor)
     elif kind == "gateway":
         from marie_tpu_torch.serve.runtimes.gateway.request_handling import (
             GatewayRequestHandler)
@@ -162,7 +173,7 @@ class Pod:
                 raise RuntimeFailToStart(
                     f"pod {self.name} died during startup (exitcode="
                     f"{self._process.exitcode}); check that the executor module is "
-                    f"importable in subprocesses")
+                    f"importable in subprocesses and that it loads and warms up")
             if time.time() > deadline:
                 self.close()
                 raise RuntimeFailToStart(

@@ -3,8 +3,8 @@ serving unit whose ``@requests`` endpoints a worker dispatches to.
 
 It has the JAX executor's endpoint collection and ``requests`` remapping,
 sync, async and generator dispatch, workspace, snapshot/restore hooks
-and metrics, but no YAML base class (PyYAML is not on the card's
-machine; JAML is ROADMAP item 3.4).  ``serve()`` serves the executor
+and metrics, and is :class:`JAMLCompatible`: ``load_config`` builds an
+executor from YAML (``jtype``, ``with``, ``metas``).  ``serve()`` serves the executor
 standalone through a ``Deployment`` (gRPC by default).  The model
 work inside an executor runs on the card it is given (``device``).
 """
@@ -15,6 +15,7 @@ import os
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, Optional
 
+from marie_tpu_torch.jaml import JAMLCompatible
 from marie_tpu_torch.logging_core import MarieLogger
 
 __all__ = ["BaseExecutor"]
@@ -35,7 +36,7 @@ def _call_kwargs(fn: Callable, docs, parameters, **kwargs) -> Dict[str, Any]:
     return out
 
 
-class BaseExecutor:
+class BaseExecutor(JAMLCompatible):
     def __init__(
         self,
         metas: Optional[Dict[str, Any]] = None,

@@ -10,7 +10,9 @@ bodies (``json.dumps`` of the same payloads, as aiohttp's
 NDJSON ``POST /post_stream``.  With API keys configured, every route but
 the probes needs ``Authorization: Bearer <key>`` (401 otherwise).
 ``/metrics`` adds ``marie_kernel_launches_total{kernel, path}``: the
-hand-written kernels' launches in the worker's process, by engine path.
+hand-written kernels' launches in the worker's process, by engine path,
+and the warm-up's apart (``marie_warmup_seconds``,
+``marie_warmup_launches_total``).
 
 Transport: request bodies by ``Content-Length`` or chunked, 413 above
 64 MiB, keep-alive (HTTP/1.1 by default; ``Connection: close`` ends the
@@ -19,14 +21,23 @@ its head, before any of its body is read: 401 by the Bearer rule, then
 413 by a declared ``Content-Length`` (a chunked body, once it grows past
 the limit).  The refusal goes out first; what the client still sends of
 the body is then read and dropped a chunk at a time for at most 10 s
-(aiohttp's lingering close), and the connection closes.  The gateway's extra
+(aiohttp's lingering close), and the connection closes.  A connection the
+server ends after its response waits up to 1 s for the client to close
+first, so that no server port is left in TIME_WAIT.  The gateway's extra
 routes and CORS come with the gateway (ROADMAP §1 item 10).
+
+Other applications (the server shell's control plane) give their own
+``routes``: ``(method, path, handler)`` where a path segment ``{name}``
+matches one segment and lands in ``request.match_info``; a handler may
+return a :class:`StreamResponse`, whose chunks go out as they come
+(chunked transfer; server-sent events).
 """
 
 import asyncio
 import json
+import re
 from http import HTTPStatus
-from typing import Dict, Optional
+from typing import AsyncIterator, Callable, Dict, List, Optional, Sequence, Tuple
 
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.types.docs import DocumentArray
@@ -50,11 +61,17 @@ class _BadRequest(Exception):
 _LINGER_S = 10.0
 
 
-async def _linger(reader: asyncio.StreamReader, n: Optional[int]) -> None:
+#: how long a connection the server ends waits for the client to close
+#: first, so that the server's port is not left in TIME_WAIT
+_CLOSE_WAIT_S = 1.0
+
+
+async def _linger(reader: asyncio.StreamReader, n: Optional[int],
+                  seconds: float = _LINGER_S) -> None:
     """Read and drop up to ``n`` bytes (None: until the client closes)
-    for at most _LINGER_S, one chunk at a time."""
+    for at most ``seconds``, one chunk at a time."""
     loop = asyncio.get_running_loop()
-    end = loop.time() + _LINGER_S
+    end = loop.time() + seconds
     try:
         while n is None or n > 0:
             chunk = await asyncio.wait_for(
@@ -75,6 +92,20 @@ class Response:
                  headers: Optional[Dict[str, str]] = None):
         self.status = status
         self.body = body
+        self.content_type = content_type
+        self.headers = dict(headers or {})
+
+
+class StreamResponse:
+    """A response whose body is the chunks of ``chunks`` (an async
+    iterator of bytes), sent as they come with chunked transfer; the
+    connection closes after it."""
+
+    def __init__(self, chunks: AsyncIterator[bytes], status: int = 200,
+                 content_type: str = "text/event-stream",
+                 headers: Optional[Dict[str, str]] = None):
+        self.chunks = chunks
+        self.status = status
         self.content_type = content_type
         self.headers = dict(headers or {})
 
@@ -109,6 +140,7 @@ class _Request:
         self.version = version
         self.headers = headers
         self.body = body
+        self.match_info: Dict[str, str] = {}
 
     def json(self):
         return json.loads(self.body.decode("utf-8"))
@@ -131,7 +163,8 @@ class _Request:
 
 class HTTPServer:
     def __init__(self, req_handler, port: Optional[int] = None, host: Optional[str] = None,
-                 name: str = "http", **kwargs):
+                 name: str = "http", routes: Optional[Sequence[Tuple[str, str, Callable]]] = None,
+                 **kwargs):
         from marie_tpu_torch.helper import default_bind_host
 
         self.req_handler = req_handler
@@ -152,6 +185,34 @@ class HTTPServer:
             ("POST", "/post"): self._post,
             ("POST", "/post_stream"): self._post_stream,
         }
+        self._patterns: List[Tuple[str, "re.Pattern", Callable]] = []
+        if routes is not None:
+            self._routes = {}
+            for method, path, handler in routes:
+                self.add_route(method, path, handler)
+
+    def add_route(self, method: str, path: str, handler: Callable) -> None:
+        """Route ``method path`` to ``handler(request)``; ``{name}`` segments
+        match one path segment each."""
+        if "{" not in path:
+            self._routes[(method.upper(), path)] = handler
+            return
+        regex = "^" + re.sub(r"\\\{(\w+)\\\}", r"(?P<\1>[^/]+)", re.escape(path)) + "$"
+        self._patterns.append((method.upper(), re.compile(regex), handler))
+
+    def _match(self, method: str, path: str):
+        """(handler, match_info), or (None, the methods the path allows)."""
+        handler = self._routes.get((method, path))
+        if handler is not None:
+            return handler, {}
+        allowed = {m for m, p in self._routes if p == path}
+        for m, regex, h in self._patterns:
+            found = regex.match(path)
+            if found:
+                if m == method:
+                    return h, found.groupdict()
+                allowed.add(m)
+        return None, sorted(allowed)
 
     # -- routes ----------------------------------------------------------
     async def dispatch_payload(self, body: dict, nbytes: int = 0) -> Response:
@@ -209,10 +270,13 @@ class HTTPServer:
 
     async def _metrics(self, request: _Request) -> Response:
         """The registry's metrics, then the kernels' launches by path."""
-        from marie_tpu_torch.metrics.prometheus import render_launches, render_prometheus
+        from marie_tpu_torch.metrics.prometheus import (
+            render_launches, render_prometheus, render_warmup)
         from marie_tpu_torch.ops.kernels._build import launch_counts
+        from marie_tpu_torch.utils.program_zoo import warmup_report
 
-        return text_response(render_prometheus() + render_launches(launch_counts()))
+        return text_response(render_prometheus() + render_launches(launch_counts())
+                             + render_warmup(warmup_report()))
 
     async def _openapi(self, request: _Request) -> Response:
         return json_response(await self._openapi_spec())
@@ -396,20 +460,26 @@ class HTTPServer:
                        keep_alive: bool) -> bool:
         """Answer one request; False when the connection must close."""
         # HEAD is served by the GET route, without the body
-        route = ("GET" if request.method == "HEAD" else request.method, request.path)
-        allowed = sorted(m for m, p in self._routes if p == request.path)
+        method = "GET" if request.method == "HEAD" else request.method
+        route = (method, request.path)
         try:
-            if route == ("POST", "/post_stream"):
+            if route == ("POST", "/post_stream") and route in self._routes:
                 # streams its chunks itself, or answers like a route
                 resp = await self._post_stream(request, writer, keep_alive)
                 if resp is None:
                     return keep_alive
-            elif route in self._routes:
-                resp = await self._routes[route](request)
             else:
-                resp = _error(405) if allowed else _error(404)
-                if allowed:
-                    resp.headers["Allow"] = ",".join(allowed)
+                handler, found = self._match(method, request.path)
+                if handler is not None:
+                    request.match_info = found
+                    resp = await handler(request)
+                else:
+                    resp = _error(405) if found else _error(404)
+                    if found:
+                        resp.headers["Allow"] = ",".join(found)
+            if isinstance(resp, StreamResponse):
+                await self._stream(writer, resp)
+                return False
         except (ConnectionError, asyncio.CancelledError):
             raise
         except Exception as ex:  # noqa: BLE001 — a 500, as aiohttp answers
@@ -418,6 +488,19 @@ class HTTPServer:
                                  "Server got itself in trouble", 500)
         await self._send(writer, resp, request.method, keep_alive)
         return keep_alive
+
+    async def _stream(self, writer: asyncio.StreamWriter, resp: StreamResponse) -> None:
+        """Send a streamed response, one chunk as each comes."""
+        headers = {"Content-Type": resp.content_type, "Transfer-Encoding": "chunked",
+                   **resp.headers}
+        writer.write(self._head(resp.status, headers, False))
+        await writer.drain()
+        async for data in resp.chunks:
+            if data:
+                writer.write(b"%x\r\n%s\r\n" % (len(data), data))
+                await writer.drain()
+        writer.write(b"0\r\n\r\n")
+        await writer.drain()
 
     async def _send(self, writer: asyncio.StreamWriter, resp: Response, method: str,
                     keep_alive: bool) -> None:
@@ -456,6 +539,8 @@ class HTTPServer:
                     await _linger(reader, None if request.chunked else request.content_length)
                     break
                 if not await self._respond(request, writer, request.keep_alive):
+                    # the client closes first: its side keeps the TIME_WAIT
+                    await _linger(reader, None, _CLOSE_WAIT_S)
                     break
         except (ConnectionError, asyncio.IncompleteReadError, asyncio.CancelledError):
             pass

@@ -7,9 +7,11 @@ dynamic-batching queues per (endpoint, parameters), the docs reduce of a
 request matrix, generator endpoints through
 :meth:`process_single_doc_stream`, endpoint discovery, the per-request
 metrics and the job records in a sqlite KV (``job_kv_path`` or
-``MARIE_JOB_KV``).  The executor comes from a class or a dotted class
-path; a YAML ``uses`` waits for JAML (ROADMAP item 3.4), a hub reference
-for the gRPC slice, and hot reload is not ported.
+``MARIE_JOB_KV``).  The executor comes from a class, a dotted class path
+(the JAX package's executor paths map onto the port's), a ``jtype``
+mapping, a YAML file or inline YAML (JAML; a file's ``py_modules`` are
+imported first, relative to it); hub references and hot reload are not
+ported (ROADMAP item 10).
 """
 
 import importlib
@@ -77,28 +79,37 @@ class WorkerRequestHandler:
 
     @staticmethod
     def _load_executor(uses, uses_with, name, workspace) -> BaseExecutor:
-        """The executor from a class or a dotted class path
-        (``pkg.module.Class``), built with ``uses_with``."""
+        """The executor from a class, a dotted class path
+        (``pkg.module.Class``), a ``jtype`` mapping or YAML, built with
+        ``uses_with``."""
+        from marie_tpu_torch.jaml import JAML, resolve_jtype_path
+
         uses_with = dict(uses_with or {})
         runtime_args = {"name": name, "workspace": workspace}
         if isinstance(uses, type) and issubclass(uses, BaseExecutor):
             return uses(runtime_args=runtime_args, workspace=workspace, **uses_with)
         if isinstance(uses, dict):
-            raise NotImplementedError("an executor from a config dict needs JAML: "
-                                      "ROADMAP §1 item 3.4")
+            return JAML.construct(uses, expected_cls=BaseExecutor, extra_kwargs={
+                "runtime_args": runtime_args, "workspace": workspace, **uses_with})
         if isinstance(uses, str):
             if uses.startswith("hub://"):
                 raise not_ported(f"the executor hub reference {uses!r}")
-            if uses.endswith((".yml", ".yaml")) or "\n" in uses or os.path.exists(uses):
-                raise NotImplementedError(f"an executor from YAML ({uses[:60]!r}) needs "
-                                          "JAML: ROADMAP §1 item 3.4")
-            mod_name, _, cls_name = uses.rpartition(".")
-            if not mod_name:
-                raise ValueError(f"uses {uses!r} is not a dotted class path")
-            klass = getattr(importlib.import_module(mod_name), cls_name)
-            return klass(runtime_args=runtime_args, workspace=workspace, **uses_with)
+            if not os.path.exists(uses) and "." in uses and "\n" not in uses:
+                mod_name, _, cls_name = resolve_jtype_path(uses).rpartition(".")
+                try:
+                    klass = getattr(importlib.import_module(mod_name), cls_name)
+                except (ImportError, AttributeError):
+                    klass = None  # on to YAML, for a clear error
+                if klass is not None:
+                    # outside the try: an error in the constructor is the
+                    # executor's own and goes up as it was raised
+                    return klass(runtime_args=runtime_args, workspace=workspace, **uses_with)
+            if os.path.isfile(uses) and uses.endswith((".yml", ".yaml")):
+                _import_py_modules(uses)
+            return BaseExecutor.load_config(uses, runtime_args=runtime_args, **uses_with)
         if uses is not None:
-            raise TypeError(f"uses must be an executor class or a dotted path, got {uses!r}")
+            raise TypeError(f"uses must be an executor class, a dotted path, a jtype "
+                            f"mapping or YAML, got {uses!r}")
         return BaseExecutor(runtime_args=runtime_args)
 
     @property
@@ -258,9 +269,15 @@ class WorkerRequestHandler:
                 "write_endpoints": list(self._executor.write_endpoints), "schemas": {}}
 
     def info(self) -> Dict[str, Any]:
+        """The version table, and the kernels' launches in this process:
+        the requests' (``kernel_launches``) and the warm-up's
+        (``warmup``: seconds, launches, parts)."""
         from marie_tpu_torch.helper import get_full_version
+        from marie_tpu_torch.ops.kernels._build import launch_counts
+        from marie_tpu_torch.utils.program_zoo import warmup_report
 
-        return get_full_version()
+        return {**get_full_version(), "kernel_launches": launch_counts(),
+                "warmup": warmup_report()}
 
     def snapshot(self, snapshot_file: str) -> None:
         self._executor.snapshot(snapshot_file)
@@ -292,3 +309,23 @@ def _clone_request(req: DataRequest, docs: DocumentArray,
     clone.parameters = parameters
     clone.docs = docs
     return clone
+
+
+def _import_py_modules(config_path: str) -> None:
+    """Import the ``py_modules`` a config file lists (paths relative to
+    it), so that their executor classes register for ``jtype``."""
+    import importlib.util
+    import sys
+
+    from marie_tpu_torch.jaml import JAML
+
+    with open(config_path) as fp:
+        cfg = JAML.load(fp) or {}
+    base = os.path.dirname(os.path.abspath(config_path))
+    for mod_rel in cfg.get("py_modules", []) or []:
+        mod_name = os.path.splitext(os.path.basename(mod_rel))[0]
+        spec = importlib.util.spec_from_file_location(f"marie_pymod_{mod_name}",
+                                                      os.path.join(base, mod_rel))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = module
+        spec.loader.exec_module(module)

@@ -279,8 +279,14 @@ def test_flow_api_and_refusals():
         Flow().add(name="a", needs="nowhere")
     with pytest.raises(NotImplementedError, match="item 10"):
         Deployment(stateful=True)
-    with pytest.raises(NotImplementedError, match="item 3.4"):
+    # a Flow from YAML is ported (JAML): a missing file raises as in JAX
+    from marie_tpu.excepts import BadConfigSource as JBadConfigSource
+    from marie_tpu_torch.excepts import BadConfigSource
+
+    with pytest.raises(BadConfigSource, match="cannot find config file"):
         Flow.load_config("flow.yml")
+    with pytest.raises(JBadConfigSource, match="cannot find config file"):
+        type(j).load_config("flow.yml")
     with pytest.raises(NotImplementedError, match="item 10"):
         asyncio.run(GatewayRequestHandler({"start-gateway": []}, {}).start_discovery("x:1"))
     for doc, cond in ((Document(tags={"a": {"b": 2}}), {"tags__a__b": {"$gt": 1, "$ne": 3}}),

@@ -391,3 +391,52 @@ def test_trainers_default_to_the_card():
                layout.train_layout_indexer, reading_order.train_reading_order,
                reading_order.train_reading_order_device):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+_SERVER_SHELL = r"""
+import sys
+for name in BLOCKED + ("psutil", "prometheus_client", "marie_tpu"):
+    sys.modules[name] = None
+import asyncio, inspect
+from marie_tpu_torch import cli, jaml, parsers, schemas, server
+from marie_tpu_torch.api import payload
+from marie_tpu_torch.jaml import JAML, parser
+from marie_tpu_torch.job import JobManager
+from marie_tpu_torch.job.gateway_job_distributor import GatewayJobDistributor
+from marie_tpu_torch.messaging import Toast
+from marie_tpu_torch.messaging.native_handler import NativeToastHandler
+from marie_tpu_torch.messaging.sqlite_handler import SqliteToastHandler
+from marie_tpu_torch.orchestrate.export import to_docker_compose_yaml, to_kubernetes_yaml
+from marie_tpu_torch.orchestrate.flow import Flow
+from marie_tpu_torch.scheduler import SqlJobScheduler, WorkInfo
+from marie_tpu_torch.storage.kv import InMemoryKV
+from marie_tpu_torch.utils import kernel_cache, program_zoo
+flow = Flow.load_config("config/service/marie.yml")
+k8s = parser.load_all(to_kubernetes_yaml(flow))
+
+async def jobs():
+    s = SqlJobScheduler(":memory:")
+    job_id = await s.submit_job(WorkInfo(name="q"))
+    m = JobManager(InMemoryKV())
+    j = await m.submit_job(entrypoint="/x")
+    await asyncio.sleep(0.1)
+    return s.fetch_next("q").id == job_id, (await m.get_job_status(j)).value
+
+print(len(k8s), *asyncio.run(jobs()), payload.sniff_file_type(b"\x89PNG\r\n\x1a\n"),
+      inspect.signature(server.run_server).parameters["device"].default,
+      parsers.build_parser().parse_args(["server", "--start"]).device)
+"""
+
+
+def test_server_shell_imports_with_its_absent_packages_blocked():
+    """JAML, the server shell, the CLI and parsers, jobs, the scheduler,
+    Toast, the payload parser, the kernel cache and the warm-up import and
+    run (on the CPU) with JAX, the JAX package, PyYAML, aiohttp, pydantic
+    and PIL (and the rest) blocked; ``run_server`` and the CLI's server
+    default to the card."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", f"BLOCKED = {BLOCKED!r}\n" + _SERVER_SHELL],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["6", "True", "succeeded", "png", "cuda", "cuda"]

@@ -205,8 +205,14 @@ def test_process_data_matches_jax(tmp_path):
 
     assert _run(records(th)) == _run(records(jh)) == {
         "job/job-1/worker/echo": "successful", "job/job-2/worker/echo": "failed"}
-    with pytest.raises(NotImplementedError, match="item 3.4"):
+    # an executor from YAML is ported (JAML): a missing file raises as in JAX
+    from marie_tpu.excepts import BadConfigSource as JBadConfigSource
+    from marie_tpu_torch.excepts import BadConfigSource
+
+    with pytest.raises(BadConfigSource, match="cannot find config file"):
         WorkerRequestHandler(uses="conf/executor.yml")
+    with pytest.raises(JBadConfigSource, match="cannot find config file"):
+        JWorkerRequestHandler(uses="conf/executor.yml")
     with pytest.raises(NotImplementedError, match="item 10"):
         WorkerRequestHandler(uses="hub://some/executor")
 
