@@ -68,7 +68,12 @@ marie_tpu_torch.cli server --start --uses <yml>``) in a child process,
 twice in turns, with the workers' warm-up and without, and drives its REST
 control plane: a job, the 8 requests as 2-page TIFFs against the
 ``serve`` answers with K1 and K2 counted on ``"fused"`` in the workers (the
-warm-up's apart), a NER request, SIGTERM (``server``);
+warm-up's apart), a NER request, SIGTERM (``server``); serves one gateway
+on gRPC, HTTP and WebSocket at once with its worker pod from the
+discovery registry: the 8 requests in flight on one WebSocket, pairs over
+HTTP and gRPC, a W3C trace across the gRPC hops, the worker's kernels
+counted on its monitoring port, the Sagemaker app, the worker's
+deregistration on close (``gateway``);
 traces one more
 run per
 box source, of the chained engine, of the trained engine, of the
@@ -4334,6 +4339,7 @@ def phase_serve(shipped, ner_tree):
 
 GRPC_DEADLINE_S = 0.05  # a 2-page extract takes longer: the call must end DEADLINE_EXCEEDED
 GRPC_SHARDS = 2
+GRPC_FLOW_TURNS = ("cold",)  # the Flow's 8 in flight, once, on the workers' first requests
 
 
 class _LoopThread:
@@ -4401,14 +4407,11 @@ def phase_grpc(shipped, http_pages):
     (b) ``Flow().add(name="extract", uses=<as above>, shards=GRPC_SHARDS,
     polling="any")`` starts gateway -> head -> GRPC_SHARDS worker pods on
     the one card: startup s; the 8 requests in flight all answered, by
-    both workers (round robin), words equal to (a)'s, then once more with
-    the workers warm; a request with no
+    both workers (round robin), words equal to (a)'s; a request with no
     frames gets the JAX envelope; a call past its deadline
-    DEADLINE_EXCEEDED; the 8 in flight once more with the workers warm;
-    every child exits within SERVE_CLOSE_S of
+    DEADLINE_EXCEEDED; every child exits within SERVE_CLOSE_S of
     ``close()`` and its port is free again.  Returns (a)'s launches."""
     import asyncio
-    import socket
     import tempfile
 
     import torch
@@ -4558,7 +4561,7 @@ def phase_grpc(shipped, http_pages):
             async def part_b():
                 client = GRPCClient(port=flow.port_gateway)
                 out = {"dry_run": await client.adry_run(timeout=60)}
-                for turn in ("cold", "warm"):  # the workers' first requests, then again
+                for turn in GRPC_FLOW_TURNS:
                     t0 = time.perf_counter()
                     out[turn] = await asyncio.gather(*(one(client, i, pair)
                                                        for i, pair in enumerate(pairs)))
@@ -4580,22 +4583,16 @@ def phase_grpc(shipped, http_pages):
             row["flow_close_s"] = time.perf_counter() - t0
         flow_pages = {turn: [p for (resp, _), pair in zip(b[turn], pairs)
                              for p in _grpc_pages(resp, len(pair), h, w)]
-                      for turn in ("cold", "warm")}
-        workers = sorted({r.executor for resp, _ in b["cold"] + b["warm"] for r in resp.routes})
-        free = []
-        for port in ports:
-            with socket.socket() as s:
-                try:
-                    s.bind(("127.0.0.1", port))
-                    free.append(True)
-                except OSError:
-                    free.append(False)
+                      for turn in GRPC_FLOW_TURNS}
+        workers = sorted({r.executor for turn in GRPC_FLOW_TURNS for resp, _ in b[turn]
+                          for r in resp.routes})
+        free = _ports_free(ports)
         row["flow"] = {
             "pods": len(pods), "dry_run": b["dry_run"], "workers": workers,
             **{turn: stats([ms for _, ms in b[turn]], b[f"{turn}_wall"])
-               for turn in ("cold", "warm")},
+               for turn in GRPC_FLOW_TURNS},
             "word_diffs_vs_in_process": sum(_word_diffs(flow_pages[turn], served["docs_bytes"])
-                                            for turn in ("cold", "warm")),
+                                            for turn in GRPC_FLOW_TURNS),
             "no_frames": b["no_frames"], "deadline": b["deadline"],
             "exitcodes": [p.exitcode for p in pods], "ports_free": free}
     row["within_limits"] = (
@@ -4698,7 +4695,6 @@ def _boot(repo, work_dir, label, warmup: bool, pairs, ner_page, http_pages, h, w
     in a child process, driven over its REST control plane, then stopped."""
     import base64
     import signal
-    import socket
     import subprocess
 
     from marie_tpu_torch.utils.image_io import write_png, write_tiff
@@ -4830,15 +4826,7 @@ executors:
     row["exitcode"] = child.returncode
     row["children"] = len(kids)
     row["children_left"] = len(left)
-    free = []
-    for port in ports:
-        with socket.socket() as s:
-            try:
-                s.bind(("127.0.0.1", port))
-                free.append(True)
-            except OSError:
-                free.append(False)
-    row["ports_free"] = free
+    row["ports_free"] = _ports_free(ports)
     with open(log_path, "rb") as f:
         row["log_tail"] = f.read()[-1500:].decode(errors="replace") if (
             row["exitcode"] != 0 or left) else ""
@@ -4897,6 +4885,348 @@ def phase_server(shipped, http_pages):
             for name in ("crop_resize", "flash_attention")}
 
 
+GATEWAY_PROTOCOLS = ("grpc", "http", "websocket")
+GATEWAY_DEREGISTER_S = 2.0  # a closed pod's key leaves the registry within this
+GATEWAY_HTTP_GRPC_PAIRS = 2  # pairs 0 and 1 over HTTP and over gRPC
+
+
+def _json_pages(body, n_pages: int, h: int, w: int):
+    """The OCR pages of one ``/post``-shaped answer (the gateway's over
+    HTTP or WebSocket, a cloud app's): its one ``__results__`` entry."""
+    if body["header"]["status"]["code"] != 0:
+        raise AssertionError(f"request failed: {body['header']['status']}")
+    results = body["parameters"]["__results__"]
+    if len(results) != 1:
+        raise AssertionError(f"results of {list(results)}")
+    env = next(iter(results.values()))
+    if env.get("status") != "succeeded":
+        raise AssertionError(f"extract answered {env}")
+    _check_results(env["metadata"]["ocr"], n_pages, h, w)
+    return env["metadata"]["ocr"]
+
+
+def _ports_free(ports) -> list:
+    import socket
+
+    free = []
+    for port in ports:
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+                free.append(True)
+            except OSError:
+                free.append(False)
+    return free
+
+
+def phase_gateway(shipped, http_pages):
+    """One gateway on every protocol, its workers from discovery, traced.
+
+    (a) A ``DiscoveryServer`` on a loop thread of this process; a worker
+    pod of ``TextExtractionExecutor`` configured as the ``serve`` phase's,
+    with ``discovery_address`` and ``port_monitoring``; a gateway on the
+    loop thread: ``AsyncNewLoopRuntime`` over a ``GatewayRequestHandler``
+    with no static graph, ``protocols`` gRPC, HTTP and WebSocket,
+    ``port_monitoring`` and ``cors``, its topology from
+    ``start_discovery`` only.  Gates: the worker's key under ``gateway/``
+    with its address, the gateway's topology names it; the pod's start s
+    and the time to its registration.  (b) The 16 shipped pages as the 8
+    two-page requests in flight on one socket through ``WebSocketClient``:
+    each answer matched back by ``requestId`` (its docs are its request's),
+    the words equal to the ``serve`` phase's HTTP answers (0 differences),
+    K1 8 and K2 48 on ``"fused"`` from the worker's monitoring port
+    (``marie_kernel_launches_total``, the warm-up's apart).  (c) Pairs 0
+    and 1 over HTTP and over gRPC through the same gateway: the words
+    equal (b)'s, the counts at K1 12 and K2 72; an ``OPTIONS`` preflight
+    204 with the allow-all headers.  (d) One gRPC request inside a span:
+    the client's trace id on the gateway's ``rpc/`` span and on the
+    ``traceparent`` the gateway's pool sent the worker (read off its
+    channel), under that span.  The worker's launches of (b) to (d) are
+    this path's.  (e) A ``SagemakerHTTPServer`` in this
+    process over a second handler of the executor on the card: ``GET
+    /ping`` 200 ``{}``, pair 0 as a JSON ``/invocations`` body gets (b)'s
+    words.  (f) The gateway closed, then the worker pod: its key gone within
+    GATEWAY_DEREGISTER_S of SIGTERM (it deregisters), no lease expired in
+    the phase (the keepalive was not starved), the child gone within
+    SERVE_CLOSE_S and every port of the phase free.  Request ms (first,
+    p50, p95) and pages/s of each protocol.  Returns the launches:
+    ``{kernel: {"fused": the worker's, "cloud_fused": this process's}}``."""
+    import asyncio
+    import http.client
+    import tempfile
+
+    import torch
+
+    from marie_tpu_torch.clients import GRPCClient, HTTPClient, WebSocketClient
+    from marie_tpu_torch.helper import random_port
+    from marie_tpu_torch.orchestrate.pods import Pod
+    from marie_tpu_torch.serve.discovery import DiscoveryClient, DiscoveryServer
+    from marie_tpu_torch.serve.instrumentation import tracing
+    from marie_tpu_torch.serve.runtimes.asyncio_runtime import AsyncNewLoopRuntime
+    from marie_tpu_torch.serve.runtimes.gateway.request_handling import GatewayRequestHandler
+    from marie_tpu_torch.serve.runtimes.servers import SagemakerHTTPServer
+    from marie_tpu_torch.serve.runtimes.worker.request_handling import WorkerRequestHandler
+    from marie_tpu_torch.types import Document, DocumentArray
+
+    t_phase = time.perf_counter()
+    pages = list(shipped["pages"])
+    n, (h, w) = len(pages), pages[0].shape
+    pairs = [pages[2 * i:2 * i + 2] for i in range(SERVE_PAIRS)]
+    name = "extract"
+    uses = "marie_tpu_torch.executor.TextExtractionExecutor"
+    key = f"gateway/{name}/{name}"
+    row = {"phase": "gateway", "pages": n, "requests": SERVE_PAIRS,
+           "protocols": list(GATEWAY_PROTOCOLS)}
+
+    def docs_of(i, pair):
+        return [Document(id=f"p{i}-{k}", tensor=p) for k, p in enumerate(pair)]
+
+    def stats(ms, wall_s, n_pages):
+        return {"first_ms": ms[0], "p50_ms": _percentile(ms, 0.5),
+                "p95_ms": _percentile(ms, 0.95), "pages_per_s": n_pages / wall_s,
+                "wall_s": wall_s, "request_ms": ms}
+
+    loop = _LoopThread()
+    events = []  # (seconds since the phase began, watch event)
+    disc = DiscoveryServer(host="127.0.0.1")
+    loop.call(disc.start())
+    watcher = DiscoveryClient(disc.address)
+    loop.call(watcher.watch("gateway/", lambda e: events.append(
+        (time.perf_counter() - t_phase, e))))
+    gw_ports = [random_port() for _ in GATEWAY_PROTOCOLS]
+    worker_mport, gw_mport, cloud_port = random_port(), random_port(), random_port()
+    handler = GatewayRequestHandler({"start-gateway": []}, {}, name="gateway")
+    runtime = AsyncNewLoopRuntime(handler, protocols=list(GATEWAY_PROTOCOLS), ports=gw_ports,
+                                  port_monitoring=gw_mport, cors=True, name="gateway")
+    serving = asyncio.run_coroutine_threadsafe(runtime._serve(), loop.loop)
+    cloud = pod = None
+    ports = [disc.port, cloud_port, worker_mport, gw_mport] + gw_ports
+    with tempfile.TemporaryDirectory() as work_dir:
+        uses_with = {"ocr_engine": "default", "device": SERVER_DEVICE,
+                     "work_dir": os.path.join(work_dir, "gateway")}
+        try:
+            # (a) the topology from discovery
+            pod = Pod("worker", uses=uses, uses_with=uses_with, name=name, deployment=name,
+                      discovery_address=disc.address, port_monitoring=worker_mport)
+            t_launch = time.perf_counter()
+            pod.launch()
+            deadline = time.perf_counter() + 30
+            while runtime._monitoring_server is None:  # set once every server is up
+                if time.perf_counter() > deadline or serving.done():
+                    raise AssertionError(f"the gateway did not start: {serving}")
+                time.sleep(0.05)
+            loop.call(handler.start_discovery(disc.address))
+            pod.wait_ready()
+            row["pod_start_s"] = time.perf_counter() - t_launch
+            pool = handler.streamer.connection_pool
+            deadline = time.perf_counter() + 10
+            while pool.addresses(name) != [pod.address] and time.perf_counter() < deadline:
+                time.sleep(0.05)
+            # the watch's put event, from the launch (the key goes in once the
+            # worker has warmed up and bound its server, just before readiness)
+            registered = [t for t, e in events if e["op"] == "put" and e["key"] == key]
+            row["register_s"] = registered[0] - (t_launch - t_phase) if registered else None
+            items = loop.call(watcher.get_prefix("gateway/"))
+            row["registry"] = items
+            row["topology"] = {d: pool.addresses(d) for d in pool.deployments()}
+            if items != {key: json.dumps({"address": pod.address})} \
+                    or row["topology"] != {name: [pod.address]}:
+                raise AssertionError(f"discovery: registry {items}, topology {row['topology']}")
+
+            # (b) the 8 requests in flight on one socket
+            monitor = HTTPClient(port=worker_mport)
+            before = _served_launches(monitor)
+            replies = []
+
+            async def over_websocket():
+                client = WebSocketClient(port=gw_ports[2])
+                docs = [d for i, pair in enumerate(pairs) for d in docs_of(i, pair)]
+                t0 = time.perf_counter()
+                bodies = await client.apost(
+                    "/document/extract", docs, request_size=2, return_responses=True,
+                    timeout=900, on_done=lambda b: replies.append(time.perf_counter() - t0))
+                return bodies, time.perf_counter() - t0
+
+            bodies, ws_wall = asyncio.run(over_websocket())
+            after_b = _served_launches(monitor)
+            ws_pages = []
+            for i, (body, pair) in enumerate(zip(bodies, pairs)):
+                if [d["id"] for d in body["data"]] != [f"p{i}-{k}" for k in range(len(pair))]:
+                    raise AssertionError(f"reply {i} is another request's: "
+                                         f"{[d['id'] for d in body['data']]}")
+                ws_pages.append(_json_pages(body, len(pair), h, w))
+            ws_flat = [p for got in ws_pages for p in got]
+            row["websocket"] = {**stats([t * 1e3 for t in replies], ws_wall, n),
+                                "word_diffs_vs_serve": _word_diffs(ws_flat, http_pages)
+                                + abs(len(ws_flat) - len(http_pages))}
+            row["launches_b"] = _launch_delta(before, after_b)
+
+            # (c) pairs 0 and 1 over HTTP and over gRPC, through the same gateway
+            first = list(enumerate(pairs[:GATEWAY_HTTP_GRPC_PAIRS]))
+            http_client = HTTPClient(port=gw_ports[1])
+            t0 = time.perf_counter()
+            http_got, http_ms = [], []
+            for i, pair in first:
+                t = time.perf_counter()
+                http_got.append(_json_pages(http_client.post(
+                    "/document/extract", docs_of(i, pair), return_responses=True, timeout=900),
+                    len(pair), h, w))
+                http_ms.append((time.perf_counter() - t) * 1e3)
+            http_wall = time.perf_counter() - t0
+
+            async def over_grpc():
+                client = GRPCClient(port=gw_ports[0])
+                got, ms = [], []
+                t0 = time.perf_counter()
+                for i, pair in first:
+                    t = time.perf_counter()
+                    got.append(_grpc_pages(await client.apost(
+                        "/document/extract", docs_of(i, pair), return_responses=True,
+                        timeout=900), len(pair), h, w))
+                    ms.append((time.perf_counter() - t) * 1e3)
+                wall = time.perf_counter() - t0
+                await client.aclose()
+                return got, ms, wall
+
+            grpc_got, grpc_ms, grpc_wall = asyncio.run(over_grpc())
+            want = [p for got in ws_pages[:GATEWAY_HTTP_GRPC_PAIRS] for p in got]
+            for proto, got, ms, wall in (("http", http_got, http_ms, http_wall),
+                                         ("grpc", grpc_got, grpc_ms, grpc_wall)):
+                flat = [p for g in got for p in g]
+                row[proto] = {**stats(ms, wall, len(flat)),
+                              "word_diffs_vs_websocket": _word_diffs(flat, want)
+                              + abs(len(flat) - len(want))}
+            after_c = _served_launches(monitor)
+            row["launches_c"] = _launch_delta(before, after_c)
+            conn = http.client.HTTPConnection("127.0.0.1", gw_ports[1], timeout=30)
+            conn.request("OPTIONS", "/post", headers={"Origin": "http://example"})
+            r = conn.getresponse()
+            r.read()
+            row["preflight"] = {"status": r.status, **{k: r.getheader(k) for k in (
+                "Access-Control-Allow-Origin", "Access-Control-Allow-Methods",
+                "Access-Control-Allow-Headers")}}
+            conn.close()
+            http_client.close()
+
+            # (d) one traced gRPC request
+            replica = pool._deployments[name].replicas[0]
+            channel = replica.get_channel()
+            sent = []
+            plain_call = channel.unary_unary
+
+            async def recording(path, request, timeout=None, metadata=None):
+                sent.append(dict(metadata or ()))
+                return await plain_call(path, request, timeout=timeout, metadata=metadata)
+
+            channel.unary_unary = recording
+            tracing.collector.drain()
+            try:
+                async def traced():
+                    client = GRPCClient(port=gw_ports[0])
+                    with tracing.start_span("smoke/gateway") as span:
+                        resp = await client.apost(
+                            "/document/extract", docs_of(0, pairs[0]), return_responses=True,
+                            timeout=900)
+                    await client.aclose()
+                    return span, resp
+
+                root, resp = asyncio.run(traced())
+            finally:
+                del channel.unary_unary
+            _grpc_pages(resp, 2, h, w)
+            spans = {s.name: s for s in tracing.collector.drain()}
+            client_span, rpc_span = spans.get("client/post"), spans.get("rpc/handler")
+            pool_tp = [m.get("traceparent") for m in sent]
+            row["trace"] = {
+                "trace_id": root.trace_id, "spans": sorted(spans),
+                "client": client_span is not None and client_span.trace_id == root.trace_id,
+                "gateway_rpc": rpc_span is not None and rpc_span.trace_id == root.trace_id
+                and rpc_span.parent_span_id == client_span.span_id,
+                "pool_traceparent": pool_tp,
+                "pool": rpc_span is not None
+                and pool_tp == [f"00-{root.trace_id}-{rpc_span.span_id}-01"]}
+            row["launches"] = _launch_delta(before, _served_launches(monitor))
+            monitor.close()
+
+            # (e) the cloud app over a second handler of the executor, in this process
+            cloud = SagemakerHTTPServer(WorkerRequestHandler(
+                uses=uses, uses_with={**uses_with, "work_dir": os.path.join(work_dir, "cloud")},
+                name=name), port=cloud_port)
+            loop.call(cloud.setup_server())
+            ping = _rest(cloud_port, "GET", "/ping")
+            payload = {"data": DocumentArray(docs_of(0, pairs[0])).to_dict(),
+                       "execEndpoint": "/document/extract", "parameters": {}}
+            _reset_counts()
+            t = time.perf_counter()
+            status, body = _rest(cloud_port, "POST", "/invocations", payload)
+            cloud_ms = (time.perf_counter() - t) * 1e3
+            torch.cuda.synchronize()
+            cloud_launches = _read_counts()
+            if status != 200:
+                raise AssertionError(f"/invocations answered {status}: {str(body)[:500]}")
+            cloud_pages = _json_pages(body, 2, h, w)
+            row["cloud"] = {"ping": list(ping), "invocations_status": status,
+                            "first_ms": cloud_ms, "launches": cloud_launches,
+                            "word_diffs_vs_websocket": _word_diffs(cloud_pages, ws_pages[0])}
+        finally:
+            # the gateway first, as a Flow closes (its channels to the worker
+            # close from its side: no TIME_WAIT on the worker's port)
+            loop.call(handler.stop_discovery())
+            loop.loop.call_soon_threadsafe(runtime._cancel_event.set)
+            serving.result(60)
+            # (f) the worker closed: it deregisters, and the child ends
+            if pod is not None:
+                t = time.perf_counter()
+                pod.terminate()
+                gone = None
+                while time.perf_counter() - t < SERVE_CLOSE_S:
+                    if key not in loop.call(watcher.get_prefix("gateway/")):
+                        gone = time.perf_counter() - t
+                        break
+                    time.sleep(0.05)
+                while pod.is_alive() and time.perf_counter() - t < SERVE_CLOSE_S:
+                    time.sleep(0.05)  # the graceful stop runs on (one SIGTERM)
+                pod.close(timeout=SERVE_CLOSE_S)
+                row["deregister_s"] = gone
+                row["pod_close_s"] = time.perf_counter() - t
+                row["pod_exitcode"] = pod.exitcode
+                ports += [pod.port]
+            if cloud is not None:
+                loop.call(cloud.shutdown())
+            loop.call(watcher.close())
+            loop.call(disc.stop())
+            loop.close()
+    row["events"] = [(round(t, 3), e["op"], e["key"]) for t, e in events]
+    row["expired"] = [e["key"] for _, e in events if e["op"] == "expire"]
+    row["ports_free"] = _ports_free(ports)
+    row["seconds"] = time.perf_counter() - t_phase
+    fused = {k: {"b": row["launches_b"].get(k, {}).get("fused", 0),
+                 "c": row["launches_c"].get(k, {}).get("fused", 0)}
+             for k in ("crop_resize", "flash_attention")}
+    row["fused"] = fused
+    row["within_limits"] = (
+        row["websocket"]["word_diffs_vs_serve"] <= SERVE_WORD_DIFFS
+        and fused["crop_resize"] == {"b": SERVE_PAIRS, "c": SERVE_PAIRS + 4}
+        and fused["flash_attention"] == {"b": 6 * SERVE_PAIRS, "c": 6 * (SERVE_PAIRS + 4)}
+        and all(row[p]["word_diffs_vs_websocket"] <= SERVE_WORD_DIFFS for p in ("http", "grpc"))
+        and row["preflight"] == {"status": 204, "Access-Control-Allow-Origin": "*",
+                                 "Access-Control-Allow-Methods": "*",
+                                 "Access-Control-Allow-Headers": "*"}
+        and row["trace"]["client"] and row["trace"]["gateway_rpc"] and row["trace"]["pool"]
+        and row["cloud"]["ping"] == [200, {}]
+        and row["cloud"]["word_diffs_vs_websocket"] <= SERVE_WORD_DIFFS
+        and row["deregister_s"] is not None and row["deregister_s"] <= GATEWAY_DEREGISTER_S
+        and row["register_s"] is not None
+        and row["pod_close_s"] <= SERVE_CLOSE_S and row["pod_exitcode"] == 0
+        and not row["expired"] and all(row["ports_free"]))
+    emit(row)
+    if not row["within_limits"]:
+        raise AssertionError(f"gateway checks failed: {row}")
+    return {k: {"fused": row["launches"].get(k, {}).get("fused", 0),
+                "cloud_fused": row["cloud"]["launches"][k].get("fused", 0)}
+            for k in ("crop_resize", "flash_attention")}
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -4952,6 +5282,7 @@ def main() -> int:
     del ner_tree
     grpc_launches = run("grpc", phase_grpc, shipped, http_pages)
     server_launches = run("server", phase_server, shipped, http_pages)
+    gateway_launches = run("gateway", phase_gateway, shipped, http_pages)
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
@@ -4984,7 +5315,8 @@ def main() -> int:
             "single": single_launches[name].get("single", 0),
             **{f"serve_{k}": v for k, v in serve_launches[name].items()},
             **{f"grpc_{k}": v for k, v in grpc_launches[name].items() if k != "all"},
-            **{f"server_{k}": v for k, v in server_launches[name].items()}}
+            **{f"server_{k}": v for k, v in server_launches[name].items()},
+            **{f"gateway_{k}": v for k, v in gateway_launches[name].items()}}
     # the gradient runs only in the trainers: its launches are theirs
     k2_bwd["launches_by_path"] = {
         run_name: counts["flash_attention_backward"].get("train", 0)

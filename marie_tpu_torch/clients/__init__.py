@@ -1,11 +1,11 @@
 """Clients of the port's serving plane: gRPC (the default, as in the JAX
-package) and HTTP; the WebSocket client is not ported (ROADMAP item 10)."""
+package), HTTP and WebSocket."""
 
 from typing import Optional
 
 from marie_tpu_torch.clients.grpc_client import GRPCClient
 from marie_tpu_torch.clients.http_client import HTTPClient
-from marie_tpu_torch.excepts import not_ported
+from marie_tpu_torch.clients.websocket_client import WebSocketClient
 
 
 def Client(host: str = "127.0.0.1", port: Optional[int] = None, protocol: str = "grpc",
@@ -17,8 +17,8 @@ def Client(host: str = "127.0.0.1", port: Optional[int] = None, protocol: str = 
     if protocol == "http":
         return HTTPClient(host=host, port=port, **kwargs)
     if protocol == "websocket":
-        raise not_ported("the websocket client")
+        return WebSocketClient(host=host, port=port, **kwargs)
     raise ValueError(f"unknown protocol {protocol!r}")
 
 
-__all__ = ["Client", "GRPCClient", "HTTPClient"]
+__all__ = ["Client", "GRPCClient", "HTTPClient", "WebSocketClient"]

@@ -13,7 +13,9 @@ submission order), ``astream_doc`` the server-streaming ``stream_doc``;
 a sync form.  The async calls of one event loop share one HTTP/2
 connection (:meth:`aclose` ends it); a sync call makes its own.
 ``wire_mode="docs"`` sends the documents as a ``DocListProto`` in place of
-JSON, and the answer comes back in the same form.
+JSON, and the answer comes back in the same form.  Each request of
+``apost`` runs in a ``client/post`` span, and every call carries the active
+trace context as W3C ``traceparent`` metadata.
 """
 
 import asyncio
@@ -25,6 +27,7 @@ from marie_tpu_torch.excepts import BadServer
 from marie_tpu_torch.helper import run_async
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.proto import messages
+from marie_tpu_torch.serve.instrumentation import tracing
 from marie_tpu_torch.serve.networking.grpc_wire import (
     COMPRESSION, MAX_MESSAGE, Channel, RpcError, StatusCode)
 from marie_tpu_torch.types.docs import Document, DocumentArray
@@ -70,6 +73,10 @@ class GRPCClient:
             await self._ch.close()
         self._ch = self._ch_loop = None
 
+    def _metadata_now(self):
+        """The call's metadata: the key's, then the active traceparent."""
+        return tracing.inject_metadata(self._metadata) or None
+
     def _request(self, docs, on: str, parameters, target_executor: str) -> DataRequest:
         req = DataRequest.from_docs(docs, endpoint=on, parameters=parameters,
                                     target_executor=target_executor)
@@ -105,8 +112,10 @@ class GRPCClient:
             while True:
                 attempt += 1
                 try:
-                    raw = await ch.unary_unary(_PROCESS_DATA, payload, timeout=timeout,
-                                               metadata=self._metadata)
+                    with tracing.start_span("client/post", {"endpoint": on,
+                                                            "request_id": req.request_id}):
+                        raw = await ch.unary_unary(_PROCESS_DATA, payload, timeout=timeout,
+                                                   metadata=self._metadata_now())
                     resp = DataRequest.from_bytes(raw)
                     break
                 except RpcError as ex:
@@ -140,7 +149,7 @@ class GRPCClient:
 
     async def adry_run(self, timeout: float = 5.0) -> bool:
         raw = await self._channel().unary_unary(_DRY_RUN, b"", timeout=timeout,
-                                                metadata=self._metadata)
+                                                metadata=self._metadata_now())
         return messages.decode("jina.StatusProto", raw).get("code", 0) == \
             messages.STATUS_SUCCESS
 
@@ -153,7 +162,7 @@ class GRPCClient:
         import json
 
         raw = await self._channel().unary_unary(_INFO, b"", timeout=timeout,
-                                                metadata=self._metadata)
+                                                metadata=self._metadata_now())
 
         def _maybe_json(v):
             try:
@@ -185,7 +194,7 @@ class GRPCClient:
             return r
 
         async for raw in self._channel().stream_stream(_CALL, encoded(), timeout=timeout,
-                                                       metadata=self._metadata):
+                                                       metadata=self._metadata_now()):
             yield DataRequest.from_bytes(raw)
 
     async def astream_doc(self, on: str, doc: Document,
@@ -198,7 +207,7 @@ class GRPCClient:
             "parameters": messages.py_to_struct(parameters or {}),
             "document": doc.to_docarray_proto()})
         async for raw in self._channel().unary_stream(_STREAM_DOC, sreq, timeout=timeout,
-                                                      metadata=self._metadata):
+                                                      metadata=self._metadata_now()):
             resp = messages.decode("jina.SingleDocumentRequestProto", raw)
             yield Document.from_docarray_proto(resp.get("document", {}))
 
@@ -209,7 +218,7 @@ class GRPCClient:
         t0 = time.perf_counter()
         # an error response still carries routes: this measures latency
         raw = await self._channel().unary_unary(_PROCESS_DATA, to_request_list_bytes([req]),
-                                                timeout=timeout, metadata=self._metadata)
+                                                timeout=timeout, metadata=self._metadata_now())
         resp = DataRequest.from_bytes(raw)
         total = time.perf_counter() - t0
         routes = {}

@@ -51,9 +51,8 @@ class InternalNetworkError(BaseMarieException):
         return self._details or str(self.og_exception)
 
 
-#: the ROADMAP item the rest of the serving plane waits for (WebSocket,
-#: several protocols on one runtime, the cloud HTTP variants, the
-#: monitoring port, discovery, RAFT, hub references, hot reload)
+#: the ROADMAP item the rest of the serving plane waits for (RAFT-replicated
+#: workers, executor hub references, hot reload)
 GRPC_ITEM = "ROADMAP §1 item 10 (the rest of the serving plane)"
 
 

@@ -5,7 +5,8 @@ behind a gateway pod, from the Python API or from YAML.
 needs the last one added unless told otherwise; ``needs="gateway"``
 starts a branch), ``needs_all()`` joins every leaf, ``build()`` checks
 the graph, ``start()`` starts every deployment and then the gateway
-(``protocol`` ``"grpc"`` by default, or ``"http"``), ``close()`` stops
+(``protocol`` ``"grpc"`` by default, or a list: one gateway serving each,
+the first on ``port``), ``close()`` stops
 them; ``block()``, ``gateway_address`` and ``config_gateway`` as in the
 JAX flow.  ``Flow.load_config(yml)`` (JAML: ``jtype: Flow``, ``with:`` the
 constructor's keywords, ``executors:`` a list of ``add`` keywords with
@@ -104,6 +105,7 @@ class Flow(JAMLCompatible):
                 floating_deployments=[d.name for d in deps if d.floating],
                 node_conditions={d.name: d.when for d in deps if d.when},
                 name=f"{self.name}/gateway", protocols=self.protocols,
+                ports=[self.port] + [None] * (len(self.protocols) - 1),
                 port=self.port).start()
         except BaseException:
             self.close()

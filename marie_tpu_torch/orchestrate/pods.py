@@ -9,10 +9,16 @@ parent waits for that.  Kinds: ``"worker"`` (a
 :class:`HeaderRequestHandler` over ``shard_addresses`` with ``polling``)
 and ``"gateway"`` (a :class:`GatewayRequestHandler` over
 ``graph_representation`` and ``executor_addresses``).  The protocol is
-``"grpc"`` by default, or ``"http"``.  SIGTERM
-stops the child gracefully (server shutdown, then the executor's
-``close``).  The child inherits ``CUDA_VISIBLE_DEVICES`` and the rest of
-the environment; the executor's device comes from ``uses_with``, and
+``"grpc"`` by default, or any of the runtime's (``protocols`` for several
+at once, on ``ports``); ``port_monitoring`` serves ``/metrics`` on a port of
+its own.  With ``discovery_address`` the child registers
+``gateway/<deployment>/<name>`` (``{"address": "127.0.0.1:<port>"}``)
+under a lease of ``DEFAULT_LEASE_TTL`` kept alive every third of it, once
+its server is bound and before it signals readiness, and deletes the key
+on a graceful stop.  SIGTERM stops the child gracefully (the key deleted,
+server shutdown, then the executor's ``close``).  The child inherits
+``CUDA_VISIBLE_DEVICES`` and the rest of the environment; the executor's
+device comes from ``uses_with``, and
 ``uses`` travels as a class (pickled by reference), a dotted path, a
 ``jtype`` mapping or YAML.  A worker runs its executor's programs once
 before it signals readiness (:func:`marie_tpu_torch.utils.program_zoo.prewarm`;
@@ -21,8 +27,7 @@ a warm-up that raises fails the start (:class:`RuntimeFailToStart`).
 The CUDA kernels the child launches load from the libraries the parent
 built (``ops/kernels/_build.py`` names them by a hash of their source).
 
-RAFT replication, discovery and the separate monitoring port are not
-ported (ROADMAP item 10).
+RAFT replication is not ported (ROADMAP item 10).
 """
 
 import multiprocessing
@@ -94,9 +99,11 @@ def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> Non
         handler,
         protocol=kwargs.get("protocol", "grpc"),
         protocols=kwargs.get("protocols"),
+        ports=kwargs.get("ports"),
         port=kwargs.get("port"),
         host=kwargs.get("bind_host"),
         name=kwargs.get("name", kind),
+        port_monitoring=kwargs.get("port_monitoring"),
     )
 
     async def _serve():
@@ -107,7 +114,20 @@ def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> Non
         for sig in (signal.SIGTERM, signal.SIGINT):
             loop.add_signal_handler(sig, stop.set)
         await runtime.server.setup_server()
+        if runtime.port_monitoring:
+            await runtime._start_monitoring()
         port_value.value = runtime.server.port
+        discovery = discovery_key = None
+        if kwargs.get("discovery_address"):
+            import json
+
+            from marie_tpu_torch.serve.discovery import DiscoveryClient
+
+            discovery = DiscoveryClient(kwargs["discovery_address"])
+            deployment = kwargs.get("deployment", kwargs.get("name", kind))
+            discovery_key = f"gateway/{deployment}/{kwargs.get('name', kind)}"
+            await discovery.register(
+                discovery_key, json.dumps({"address": f"127.0.0.1:{port_value.value}"}))
         ready_event.set()
         try:
             serve_task = asyncio.create_task(runtime.server.run_server())
@@ -120,7 +140,16 @@ def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> Non
             if serve_task in done:
                 serve_task.result()  # surface a server crash
         finally:
+            if discovery is not None:
+                # a graceful stop deregisters at once, so that a gateway
+                # reroutes now rather than at the lease's expiry
+                try:
+                    await discovery.delete(discovery_key)
+                except Exception:  # noqa: BLE001 — the registry may be gone
+                    pass
+                await discovery.close()
             await runtime.server.shutdown()
+            await runtime._stop_monitoring()
             await handler.close()
 
     try:
@@ -135,14 +164,8 @@ class Pod:
 
         if kind not in ("worker", "head", "gateway"):
             raise ValueError(f"unknown pod kind {kind}")
-        for key in ("raft", "discovery_address", "port_monitoring"):
-            if kwargs.get(key):
-                raise not_ported(f"a {kind} pod with {key!r}")
-        protocols = kwargs.get("protocols") or [kwargs.get("protocol", "grpc")]
-        if len(protocols) != 1 or protocols[0].lower() not in ("grpc", "http"):
-            # refused here rather than in the child, where it would look
-            # like a start-up failure
-            raise not_ported(f"a {kind} pod over {protocols!r}")
+        if kwargs.get("raft"):
+            raise not_ported(f"a {kind} pod with 'raft'")
         if APIKeyManager.enabled() and not kwargs.get("auth_keys"):
             kwargs["auth_keys"] = [
                 {"name": info["name"], "api_key": key, "enabled": info["enabled"],

@@ -4,8 +4,7 @@ The JAX tree less ``hub`` (ROADMAP item 10); ``server --watch`` (the live
 console) waits for ROADMAP item 12.  The port adds ``server --device``
 (``cuda`` by default: the kernels build on the card before the flow
 starts; ``cpu`` serves without one) and ``server --rest-port`` (the
-control plane's port, a free one by default); ``server --protocol`` is
-``grpc`` by default, as a gateway of the port serves one protocol.
+control plane's port, a free one by default).
 """
 
 import argparse
@@ -20,7 +19,7 @@ def build_parser() -> argparse.ArgumentParser:
     server.add_argument("--start", action="store_true", help="start the server")
     server.add_argument("--uses", type=str, help="YAML config for the flow")
     server.add_argument("--port", type=int, default=None)
-    server.add_argument("--protocol", type=str, default="grpc")
+    server.add_argument("--protocol", type=str, default="grpc,http")
     server.add_argument("--env-file", type=str, default=None)
     server.add_argument("--watch", action="store_true", help="live status console")
     server.add_argument("--device", type=str, default="cuda",

@@ -1,1 +1,2 @@
-"""The serving plane of the port (HTTP on the standard library)."""
+"""The serving plane of the port, on the standard library: gRPC, HTTP and
+WebSocket servers, discovery, tracing and monitoring."""

@@ -1,7 +1,9 @@
 """GrpcConnectionPool (port of ``marie_tpu/serve/networking/connection_pool.py``):
 the replicas of each deployment, balanced round robin (or by fewest calls
 in flight), with retries that reset the failed replica's channel and move
-on to the next one on UNAVAILABLE, DEADLINE_EXCEEDED and NOT_FOUND.
+on to the next one on UNAVAILABLE, DEADLINE_EXCEEDED and NOT_FOUND.  A
+request carries the active trace context to the worker as W3C
+``traceparent`` metadata.
 
 The JAX pool's retry on a RAFT follower's "not the leader" answer goes
 with RAFT workers, which are not ported (ROADMAP item 10).
@@ -14,6 +16,7 @@ from typing import Any, Dict, List, Optional, Sequence
 from marie_tpu_torch.excepts import EstablishGrpcConnectionError, InternalNetworkError
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.proto import messages
+from marie_tpu_torch.serve.instrumentation import tracing
 from marie_tpu_torch.serve.networking.grpc_wire import MAX_MESSAGE, Channel, RpcError, StatusCode
 from marie_tpu_torch.types.request import DataRequest, to_request_list_bytes
 
@@ -112,8 +115,10 @@ class GrpcConnectionPool:
             replica = rl.pick()
             replica.in_flight += 1
             try:
-                raw = await replica.get_channel().unary_unary(_PROCESS_DATA, payload,
-                                                              timeout=timeout)
+                # the active trace context goes on as the call's traceparent
+                raw = await replica.get_channel().unary_unary(
+                    _PROCESS_DATA, payload, timeout=timeout,
+                    metadata=tracing.inject_metadata(None) or None)
                 return DataRequest.from_bytes(raw)
             except RpcError as ex:
                 last_error = ex

@@ -2,10 +2,14 @@
 one asyncio loop per serving process, serving a request handler until
 SIGINT/SIGTERM or :meth:`cancel`, then tearing down.
 
-``"grpc"`` (the default, :class:`GRPCServer`) and ``"http"``
-(:class:`HTTPServer`, which also serves ``/metrics``) are ported.
-WebSocket, several protocols at once, the cloud HTTP variants and a
-separate monitoring port are not (ROADMAP item 10).
+Protocols: ``"grpc"`` (the default, :class:`GRPCServer`), ``"http"``
+(:class:`HTTPServer`), ``"websocket"`` (:class:`WebSocketServer`),
+``"sagemaker"`` and ``"azure"`` (the cloud HTTP apps); ``protocols`` of
+more than one gives a :class:`CompositeServer` on ``ports``.  A
+``port_monitoring`` serves ``/metrics`` on a port of its own (the
+registry's metrics and the kernels' launches, as the HTTP server's
+``/metrics``).  ``cors`` goes to the HTTP servers (the JAX runtime leaves
+it to the HTTP server's own argument).
 """
 
 import asyncio
@@ -13,39 +17,59 @@ import signal
 import threading
 from typing import Optional
 
-from marie_tpu_torch.excepts import not_ported
 from marie_tpu_torch.logging_core import MarieLogger
 
 
 class AsyncNewLoopRuntime:
     def __init__(self, req_handler, protocol: str = "grpc", port: Optional[int] = None,
                  host: Optional[str] = None, name: str = "runtime", protocols=None,
-                 ports=None, port_monitoring: Optional[int] = None):
+                 ports=None, port_monitoring: Optional[int] = None, cors: bool = False):
         self.logger = MarieLogger(f"runtime/{name}")
         self.req_handler = req_handler
         self.name = name
         self._cancel_event: Optional[asyncio.Event] = None
-        if port_monitoring:
-            raise not_ported("a separate monitoring port (HTTP serves /metrics)")
-        self.port_monitoring = None
-        self.server = self._build_server(protocol, port, host, name, protocols)
+        self.port_monitoring = port_monitoring
+        self._monitoring_server = None
+        self.server = self._build_server(protocol, port, host, name, protocols, ports, cors)
 
-    def _build_server(self, protocol, port, host, name, protocols):
-        from marie_tpu_torch.serve.runtimes.servers import GRPCServer, HTTPServer
+    def _build_server(self, protocol, port, host, name, protocols, ports, cors=False):
+        from marie_tpu_torch.serve.runtimes.servers import (
+            AzureHTTPServer, CompositeServer, GRPCServer, HTTPServer, SagemakerHTTPServer,
+            WebSocketServer)
 
+        extra = {"cors": True} if cors else {}
         if protocols and len(protocols) > 1:
-            raise not_ported(f"serving several protocols at once ({list(protocols)})")
+            return CompositeServer(self.req_handler, protocols=protocols, ports=ports,
+                                   host=host, name=name, **extra)
         proto = (protocols[0] if protocols else protocol).lower()
-        if proto in ("websocket", "sagemaker", "azure"):
-            raise not_ported(f"the {proto!r} protocol")
-        cls = {"grpc": GRPCServer, "http": HTTPServer}.get(proto)
+        cls = {"grpc": GRPCServer, "http": HTTPServer, "websocket": WebSocketServer,
+               "sagemaker": SagemakerHTTPServer, "azure": AzureHTTPServer}.get(proto)
         if cls is None:
             raise ValueError(f"unknown protocol {proto!r}")
-        return cls(self.req_handler, port=port, host=host, name=name)
+        return cls(self.req_handler, port=port, host=host, name=name, **extra)
+
+    async def _start_monitoring(self) -> None:
+        """``/metrics`` on ``port_monitoring``, for any protocol."""
+        from marie_tpu_torch.helper import default_bind_host
+        from marie_tpu_torch.serve.runtimes.servers.http_server import HTTPServer
+
+        server = HTTPServer(None, port=self.port_monitoring, host=default_bind_host(),
+                            name=f"{self.name}/monitoring", routes=[])
+        server.add_route("GET", "/metrics", server._metrics)
+        await server.setup_server()
+        self._monitoring_server = server
+        self.logger.debug(f"metrics on :{self.port_monitoring}/metrics")
+
+    async def _stop_monitoring(self) -> None:
+        if self._monitoring_server is not None:
+            await self._monitoring_server.shutdown()
+            self._monitoring_server = None
 
     async def _serve(self) -> None:
         self._cancel_event = asyncio.Event()
         await self.server.setup_server()
+        if self.port_monitoring:
+            await self._start_monitoring()
         loop = asyncio.get_running_loop()
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGINT, signal.SIGTERM):
@@ -61,6 +85,7 @@ class AsyncNewLoopRuntime:
             run_task.cancel()
             cancel_task.cancel()
             await self.server.shutdown()
+            await self._stop_monitoring()
             if hasattr(self.req_handler, "close"):
                 await self.req_handler.close()
 

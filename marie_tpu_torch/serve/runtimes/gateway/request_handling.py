@@ -1,13 +1,15 @@
 """GatewayRequestHandler (port of
 ``marie_tpu/serve/runtimes/gateway/request_handling.py``): the flow's
 entry handler over a :class:`GatewayStreamer`, with the worker's handler
-interface, so that the same servers serve both.  Discovery-driven
-elasticity (etcd, ``start_discovery``) is not ported (ROADMAP item 10)."""
+interface, so that the same servers serve both.  ``start_discovery``
+takes the routing from the discovery registry and rebuilds it as workers
+come and go."""
 
+import asyncio
+import json
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
-from marie_tpu_torch.excepts import not_ported
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.proto import messages
 from marie_tpu_torch.serve.runtimes.gateway.streamer import GatewayStreamer
@@ -76,10 +78,48 @@ class GatewayRequestHandler:
             yield Document.from_docarray_proto(item.get("document", {}))
 
     async def start_discovery(self, discovery_address: str, prefix: str = "gateway/") -> None:
-        raise not_ported("discovery-driven topology (etcd, serve/discovery/)")
+        """Watch the registry and rebuild the streamer when workers come
+        and go.  Workers register as ``<prefix><deployment>/<name>`` with
+        ``{"address": "host:port"}`` under a lease; its expiry or delete
+        takes them out of the routing.  Each deployment hangs off the
+        gateway on its own; an empty prefix keeps the last topology."""
+        from marie_tpu_torch.serve.discovery import DiscoveryClient
+
+        self._discovery = DiscoveryClient(discovery_address)
+        self._discovery_prefix = prefix
+
+        async def rebuild():
+            items = await self._discovery.get_prefix(prefix)
+            deployments: Dict[str, List[str]] = {}
+            for key, raw in items.items():
+                deployment = key[len(prefix):].split("/")[0]
+                try:
+                    address = json.loads(raw)["address"]
+                except (json.JSONDecodeError, KeyError):
+                    address = raw
+                deployments.setdefault(deployment, []).append(address)
+            if not deployments:
+                return
+            graph = {"start-gateway": list(deployments)}
+            for d in deployments:
+                graph[d] = ["end-gateway"]
+            self.streamer.update_topology(graph, deployments)
+            self.logger.info(f"topology rebuilt from discovery: {sorted(deployments)}")
+
+        await rebuild()
+
+        def on_event(event: dict) -> None:
+            asyncio.get_running_loop().create_task(rebuild())
+
+        self._watch_task = await self._discovery.watch(prefix, on_event)
 
     async def stop_discovery(self) -> None:
-        pass
+        task = getattr(self, "_watch_task", None)
+        if task is not None:
+            task.cancel()
+        client = getattr(self, "_discovery", None)
+        if client is not None:
+            await client.close()
 
     async def stream(self, request_iterator):
         """The bidirectional stream: order kept when the first request

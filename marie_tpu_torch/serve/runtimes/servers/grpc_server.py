@@ -18,8 +18,10 @@ keys configured every call but the health check needs
 The handler's model work leaves the event loop (the executor's sync
 endpoints run on the loop's thread pool, the engine's page programs on
 its kept device thread), so a long request does not hold up the PINGs,
-WINDOW_UPDATEs and other streams of the connection.  The JAX server's W3C
-trace propagation (``serve/instrumentation``) is not ported.
+WINDOW_UPDATEs and other streams of the connection.  A call's W3C
+``traceparent`` metadata is adopted (``serve/instrumentation/tracing.py``):
+each request runs in an ``rpc/<handler name>`` span under the caller's
+context, and the gateway's bidirectional stream in an ``rpc-stream/`` one.
 """
 
 import asyncio
@@ -32,6 +34,7 @@ from typing import Optional
 
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.proto import messages
+from marie_tpu_torch.serve.instrumentation import tracing
 from marie_tpu_torch.serve.networking import grpc_wire
 from marie_tpu_torch.serve.networking.grpc_wire import (
     COMPRESSION, STREAM_STREAM, UNARY_STREAM, UNARY_UNARY, StatusCode)
@@ -84,10 +87,18 @@ class GRPCServer:
             store.popitem(last=False)
 
     # -- the services ----------------------------------------------------
-    async def _process(self, requests) -> bytes:
+    def _span_name(self, prefix: str) -> str:
+        return f"{prefix}/{getattr(self.req_handler, 'name', 'handler')}"
+
+    async def _process(self, requests, context) -> bytes:
         if isinstance(requests, DataRequest):
             requests = [requests]
-        resp = await self.req_handler.process_data(requests)
+        # adopt the caller's W3C traceparent
+        with tracing.activate(tracing.extract_metadata(context.invocation_metadata())):
+            with tracing.start_span(self._span_name("rpc"),
+                                    {"request_id": requests[0].request_id,
+                                     "endpoint": requests[0].exec_endpoint}):
+                resp = await self.req_handler.process_data(requests)
         out = resp.to_bytes()
         recorder = getattr(self.req_handler, "record_response_bytes", None)
         if recorder is not None:
@@ -95,10 +106,10 @@ class GRPCServer:
         return out
 
     async def process_data(self, request: bytes, context) -> bytes:
-        return await self._process(from_request_list_bytes(request))
+        return await self._process(from_request_list_bytes(request), context)
 
     async def process_single_data(self, request: bytes, context) -> bytes:
-        return await self._process(DataRequest.from_bytes(request))
+        return await self._process(DataRequest.from_bytes(request), context)
 
     async def call_stream(self, request_iterator, context):
         async def requests():
@@ -109,11 +120,12 @@ class GRPCServer:
         if handler_stream is not None:
             # the gateway: requests in flight at once, answered in completion
             # order (or in submission order when the client asks)
-            async for resp in handler_stream(requests()):
-                yield resp.to_bytes()
+            with tracing.start_span(self._span_name("rpc-stream")):
+                async for resp in handler_stream(requests()):
+                    yield resp.to_bytes()
             return
         async for req in requests():
-            yield await self._process(req)
+            yield await self._process(req, context)
 
     async def endpoint_discovery(self, request: bytes, context) -> bytes:
         eps = self.req_handler.endpoints()

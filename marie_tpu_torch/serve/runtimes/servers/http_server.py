@@ -23,8 +23,11 @@ the limit).  The refusal goes out first; what the client still sends of
 the body is then read and dropped a chunk at a time for at most 10 s
 (aiohttp's lingering close), and the connection closes.  A connection the
 server ends after its response waits up to 1 s for the client to close
-first, so that no server port is left in TIME_WAIT.  The gateway's extra
-routes and CORS come with the gateway (ROADMAP §1 item 10).
+first, so that no server port is left in TIME_WAIT.  ``cors=True``
+answers any ``OPTIONS`` with 204 and adds the three allow-all headers to
+every routed answer, as the JAX server's middleware does.  A handler may
+return an :class:`Upgrade`: the 101 goes out and the connection is handed
+over (the WebSocket server).
 
 Other applications (the server shell's control plane) give their own
 ``routes``: ``(method, path, handler)`` where a path segment ``{name}``
@@ -110,6 +113,21 @@ class StreamResponse:
         self.headers = dict(headers or {})
 
 
+class Upgrade:
+    """A response that takes the connection over: the 101 head with
+    ``headers``, then ``run(reader, writer)`` owns the socket; the
+    connection ends after it, the client closing first."""
+
+    def __init__(self, headers: Dict[str, str], run: Callable):
+        self.headers = dict(headers)
+        self.run = run
+
+
+#: the headers ``cors=True`` adds (allow-all, as the JAX server's)
+CORS_HEADERS = {"Access-Control-Allow-Origin": "*", "Access-Control-Allow-Methods": "*",
+                "Access-Control-Allow-Headers": "*"}
+
+
 def json_response(payload, status: int = 200) -> Response:
     """aiohttp's ``web.json_response``: ``json.dumps`` of the payload."""
     return Response(status, json.dumps(payload).encode())
@@ -164,7 +182,7 @@ class _Request:
 class HTTPServer:
     def __init__(self, req_handler, port: Optional[int] = None, host: Optional[str] = None,
                  name: str = "http", routes: Optional[Sequence[Tuple[str, str, Callable]]] = None,
-                 **kwargs):
+                 cors: bool = False, **kwargs):
         from marie_tpu_torch.helper import default_bind_host
 
         self.req_handler = req_handler
@@ -174,6 +192,7 @@ class HTTPServer:
         self._server: Optional[asyncio.AbstractServer] = None
         self._connections: set = set()
         self.name = name
+        self.cors = cors
         self._routes = {
             ("GET", "/"): self._index,
             ("GET", "/health"): self._health,
@@ -456,8 +475,8 @@ class HTTPServer:
         lines += [f"{k}: {v}" for k, v in headers.items()]
         return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
-    async def _respond(self, request: _Request, writer: asyncio.StreamWriter,
-                       keep_alive: bool) -> bool:
+    async def _respond(self, request: _Request, reader: asyncio.StreamReader,
+                       writer: asyncio.StreamWriter, keep_alive: bool) -> bool:
         """Answer one request; False when the connection must close."""
         # HEAD is served by the GET route, without the body
         method = "GET" if request.method == "HEAD" else request.method
@@ -473,12 +492,25 @@ class HTTPServer:
                 if handler is not None:
                     request.match_info = found
                     resp = await handler(request)
+                    if self.cors and isinstance(resp, Response):
+                        resp.headers.update(CORS_HEADERS)
+                elif self.cors and method == "OPTIONS":  # the preflight
+                    resp = Response(204, headers=CORS_HEADERS)
                 else:
+                    if self.cors:  # the preflight route takes every path
+                        found = sorted(set(found) | {"OPTIONS"})
                     resp = _error(405) if found else _error(404)
                     if found:
                         resp.headers["Allow"] = ",".join(found)
             if isinstance(resp, StreamResponse):
                 await self._stream(writer, resp)
+                return False
+            if isinstance(resp, Upgrade):
+                lines = ["HTTP/1.1 101 Switching Protocols"]
+                lines += [f"{k}: {v}" for k, v in resp.headers.items()]
+                writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
+                await writer.drain()
+                await resp.run(reader, writer)
                 return False
         except (ConnectionError, asyncio.CancelledError):
             raise
@@ -506,8 +538,10 @@ class HTTPServer:
                     keep_alive: bool) -> None:
         headers = {"Content-Type": resp.content_type, "Content-Length": str(len(resp.body)),
                    **resp.headers}
+        if resp.status == 204:  # no content, and no content headers
+            headers = dict(resp.headers)
         writer.write(self._head(resp.status, headers, keep_alive))
-        if method != "HEAD":
+        if method != "HEAD" and resp.status != 204:
             writer.write(resp.body)
         await writer.drain()
 
@@ -538,7 +572,7 @@ class HTTPServer:
                         continue
                     await _linger(reader, None if request.chunked else request.content_length)
                     break
-                if not await self._respond(request, writer, request.keep_alive):
+                if not await self._respond(request, reader, writer, request.keep_alive):
                     # the client closes first: its side keeps the TIME_WAIT
                     await _linger(reader, None, _CLOSE_WAIT_S)
                     break

@@ -287,8 +287,24 @@ def test_flow_api_and_refusals():
         Flow.load_config("flow.yml")
     with pytest.raises(JBadConfigSource, match="cannot find config file"):
         type(j).load_config("flow.yml")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        asyncio.run(GatewayRequestHandler({"start-gateway": []}, {}).start_discovery("x:1"))
+    # discovery is ported: with no registry at the address, both gateways'
+    # start_discovery fails UNAVAILABLE and keeps no topology
+    import grpc
+
+    from marie_tpu_torch.serve.networking.grpc_wire import RpcError, StatusCode
+
+    async def no_registry(gate, error):
+        try:
+            await gate.start_discovery("127.0.0.1:1")
+        except error as ex:
+            return ex.code().name, gate.streamer.connection_pool.deployments()
+        finally:
+            await gate.stop_discovery()
+
+    assert asyncio.run(no_registry(GatewayRequestHandler({"start-gateway": []}, {}), RpcError)) \
+        == asyncio.run(no_registry(SIDES["jax"]["gateway"]({"start-gateway": []}, {}),
+                                   grpc.aio.AioRpcError)) \
+        == (StatusCode.UNAVAILABLE.name, [])
     for doc, cond in ((Document(tags={"a": {"b": 2}}), {"tags__a__b": {"$gt": 1, "$ne": 3}}),
                       (Document(text="t"), {"text": "t", "uri": {"$exists": False}})):
         from marie_tpu.serve.runtimes.gateway.conditions import doc_matches as jmatch

@@ -1,6 +1,7 @@
 """marie_tpu_torch and chip_smoke.py stand alone: they import neither JAX
 (nor flax, orbax, PIL, cv2, pydantic, grpc, protobuf, aiohttp, PyYAML,
-psycopg2) nor anything of the JAX package."""
+psycopg2, prometheus_client, etcd3, opentelemetry) nor anything of the JAX
+package."""
 
 import os
 import pathlib
@@ -13,7 +14,8 @@ PKG = REPO / "marie_tpu_torch"
 
 #: modules the card's machine does not have
 BLOCKED = ("jax", "jaxlib", "flax", "orbax", "orbax.checkpoint", "PIL", "cv2", "pydantic",
-           "grpc", "google.protobuf", "aiohttp", "yaml", "psycopg2")
+           "grpc", "google.protobuf", "aiohttp", "yaml", "psycopg2", "prometheus_client", "etcd3",
+           "opentelemetry")
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
@@ -260,14 +262,18 @@ def test_serving_plane_imports_and_serves_with_its_absent_packages_blocked():
 
 def test_serving_entry_points_default_to_the_card_and_refuse_what_waits():
     """The executors take ``device`` defaulting to the card; gRPC is the
-    default protocol of the runtime, the pods and the client; every
-    protocol and option that is not ported raises, naming its ROADMAP
-    item: WebSocket, the cloud HTTP variants, several protocols on one
-    runtime, the monitoring port, RAFT (``raft``, ``stateful``)."""
+    default protocol of the runtime, the pods and the client.  WebSocket,
+    the cloud HTTP apps, several protocols on one runtime, the monitoring
+    port and the WebSocket client build what the JAX package builds for
+    them; what is not ported raises, naming its ROADMAP item: RAFT
+    (``raft``, ``stateful``)."""
     import inspect
 
     import pytest
 
+    from marie_tpu.clients import Client as JClient
+    from marie_tpu.orchestrate.pods import Pod as JPod
+    from marie_tpu.serve.runtimes.asyncio_runtime import AsyncNewLoopRuntime as JRuntime
     from marie_tpu_torch.clients import Client, GRPCClient
     from marie_tpu_torch.executor import (
         DocumentClassificationExecutor, NerExtractionExecutor, OverlayExecutor,
@@ -283,15 +289,25 @@ def test_serving_entry_points_default_to_the_card_and_refuse_what_waits():
     assert isinstance(AsyncNewLoopRuntime(None).server, GRPCServer)
     assert isinstance(Client(port=1), GRPCClient)
     assert Pod("gateway").kwargs.get("protocol", "grpc") == "grpc"
-    for call in (lambda: Pod("worker", protocol="websocket"),
-                 lambda: Pod("worker", protocols=["http", "grpc"]),
-                 lambda: Pod("worker", raft={"node_id": 1}),
-                 lambda: Pod("head", port_monitoring=9000),
-                 lambda: AsyncNewLoopRuntime(None, protocol="websocket"),
-                 lambda: AsyncNewLoopRuntime(None, protocol="sagemaker"),
-                 lambda: AsyncNewLoopRuntime(None, protocols=["http", "grpc"]),
-                 lambda: AsyncNewLoopRuntime(None, port_monitoring=9000),
-                 lambda: Client(port=1, protocol="websocket"),
+
+    def built(runtime):
+        server = runtime.server
+        return (type(server).__name__, [type(s).__name__ for s in getattr(server, "servers", [])],
+                runtime.port_monitoring)
+
+    for kwargs in ({"protocol": "websocket"}, {"protocol": "sagemaker"}, {"protocol": "azure"},
+                   {"protocols": ["http", "grpc"]}, {"protocols": ["grpc", "http", "websocket"]},
+                   {"port_monitoring": 9000}):
+        assert built(AsyncNewLoopRuntime(None, **kwargs)) == built(JRuntime(None, **kwargs)), \
+            kwargs
+    for kind, kwargs in (("worker", {"protocol": "websocket"}),
+                         ("worker", {"protocols": ["http", "grpc"]}),
+                         ("head", {"port_monitoring": 9000})):
+        pod, jpod = Pod(kind, **kwargs), JPod(kind, **kwargs)
+        assert (pod.kind, pod.name, pod.kwargs) == (jpod.kind, jpod.name, jpod.kwargs), kwargs
+    ws, jws = Client(port=1, protocol="websocket"), JClient(port=1, protocol="websocket")
+    assert (type(ws).__name__, ws.url) == (type(jws).__name__, jws.url)
+    for call in (lambda: Pod("worker", raft={"node_id": 1}),
                  lambda: Deployment(stateful=True)):
         with pytest.raises(NotImplementedError, match="item 10"):
             call()

@@ -436,13 +436,13 @@ def test_cli_parser_help_new_and_check(tmp_path, capsys):
              ["gateway", "--deployments", '{"a": ["127.0.0.1:1"]}'], ["flow", "--uses", "f.yml"],
              ["export", "--uses", "f.yml", "--kind", "kubernetes", "--namespace", "prod"],
              ["new", "proj", "--type", "deployment"], ["help", "port"], ["completions", "zsh"]]
-    port_only = {"device", "rest_port", "protocol"}
+    port_only = {"device", "rest_port"}
     for argv in argvs:
         got, want = vars(build_parser().parse_args(argv)), vars(jparser().parse_args(argv))
         assert {k: v for k, v in got.items() if k not in port_only} == \
             {k: v for k, v in want.items() if k not in port_only}, argv
     args = build_parser().parse_args(["server", "--start"])
-    assert (args.device, args.rest_port, args.protocol) == ("cuda", None, "grpc")
+    assert (args.device, args.rest_port, args.protocol) == ("cuda", None, "grpc,http")
     with pytest.raises(SystemExit):
         build_parser().parse_args(["hub", "list"])
     for argv in (["help", "port"], ["help", "nothing-like-this"]):
