@@ -761,9 +761,10 @@ def phase_profile(setups):
     ``slice``'s two box sources, ``chain``'s heatmap engine, the
     ``trained`` engine, the ``best`` engine on one page, a first pass of
     the ``extract`` phase's ``full_pipeline`` job on its last 8 pages and
-    its generator on the 4 dirty pages, the job with both optional stages,
-    the ink, DiT and TextFuseNet engines of ``detectors`` on 2 pages), on
-    every thread; wall time,
+    its generator on the 4 dirty pages; the job with both optional stages
+    and the ``detectors`` engines are not traced again: their breakdowns
+    stand from the runs of the PRs that ported them), on every thread; wall
+    time,
     device busy time, the
     ``marie.*`` stage ranges (counts and times summed over threads;
     ``marie.heads`` for the chained heads) and the kernels with the most
@@ -4611,7 +4612,7 @@ def phase_grpc(shipped, http_pages):
     emit(row)
     if not row["within_limits"]:
         raise AssertionError(f"grpc checks failed: {row}")
-    return launches
+    return launches, row["docs_bytes"]["p50_ms"]
 
 
 SERVER_READY_S = 300.0  # a boot: two engines, the base indexer and their warm-ups
@@ -5227,6 +5228,303 @@ def phase_gateway(shipped, http_pages):
             for k in ("crop_resize", "flash_attention")}
 
 
+STATEFUL_REPLICAS = 3
+STATEFUL_BEFORE = 4  # pairs 0-3, one at a time, before the leader's kill
+STATEFUL_AFTER = 2  # pairs 4 and 5 after it
+STATEFUL_FAILOVER_S = 30.0  # SIGKILL to a new leader, and to the first answered write
+STATEFUL_LEADER_S = 30.0  # the pods' readiness to a first leader
+STATEFUL_APPLY_S = 30.0  # an answered write to its application on every live replica
+STATEFUL_BUNDLE = ("ocr-extract", "1.0.0")
+# the hub bundle: the serve phase's worker, a work directory of each replica's own
+# (every replica applies the same requests)
+STATEFUL_CONFIG = """jtype: TextExtractionExecutor
+with:
+  ocr_engine: default
+  device: cuda
+  work_dir: ${{ ENV.MARIE_STATEFUL_WORK }}/${{ ENV.MARIE_RAFT_NODE_ID }}
+py_modules:
+  - executor.py
+"""
+STATEFUL_MODULE = ("# registers the jtype of config.yml\n"
+                   "from marie_tpu_torch.executor import TextExtractionExecutor  # noqa: F401\n")
+
+
+def _bundle_registry():
+    """A remote hub registry in this process (``GET/PUT /v1/bundles/<name>/<version>``,
+    ``GET /v1/index/<name>``) on a thread: (server, url)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    bundles = {}
+
+    class Registry(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _send(self, code, body=b""):
+            self.send_response(code)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_PUT(self):
+            _, _, kind, name, version = self.path.split("/")
+            data = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            bundles[(name, version)] = (data, self.headers.get("X-Bundle-Sha256", ""))
+            self._send(200)
+
+        def do_GET(self):
+            parts = self.path.split("/")
+            if parts[2] == "index":
+                self._send(200, json.dumps({v: {"sha256": d} for (n, v), (_, d)
+                                            in bundles.items() if n == parts[3]}).encode())
+                return
+            item = bundles.get((parts[3], parts[4]))
+            self._send(200, item[0]) if item else self._send(404)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Registry)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _ports_unbound(ports) -> list:
+    """Whether a server could bind each port again (SO_REUSEADDR, as the
+    servers bind): no socket listens there.  For a killed process's ports,
+    whose connections the kernel closed and left in TIME_WAIT."""
+    import socket
+
+    free = []
+    for port in ports:
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("127.0.0.1", port))
+                free.append(True)
+            except OSError:
+                free.append(False)
+    return free
+
+
+def phase_stateful(shipped, http_pages, grpc_p50_ms):
+    """RAFT-replicated OCR workers from a hub bundle, behind a gRPC gateway.
+
+    (a) A hub bundle (``config.yml`` of ``jtype: TextExtractionExecutor``
+    configured as the ``serve`` phase's worker, its ``py_modules``) pushed
+    to a hub under a temporary directory and to a remote registry served
+    by this process (``MARIE_HUB_REGISTRY``); its resolve and install
+    timed here, into the directories the pods then read (``env``).  (b)
+    ``Flow().add(uses="hub://ocr-extract:1.0.0", replicas=3,
+    stateful=True)`` behind a gRPC gateway, warm-up on; a first leader.
+    (c) Pairs 0-3 of the 16 shipped pages as four 2-page
+    ``/document/extract`` writes, one at a time through the gateway (the
+    executor declares no ``@write``: every request replicates; the pool
+    retries a follower's "not the leader").  (d) SIGKILL of the leader's
+    pod, then pairs 4 and 5.  (e) The Flow closed.  Gates: every answer's
+    words equal the ``serve`` phase's for its pair (0 differences); every
+    live replica's commit and applied index equal the writes, read from
+    its ``info()["raft"]`` through gRPC ``_status``; K1 1 / K2 6 on
+    ``"fused"`` a write on every live replica (warm-up apart): K1 4 / K2
+    24 on each of the three before the kill, K1 6 / K2 36 on both
+    survivors after it (no write applied twice); a new leader within
+    STATEFUL_FAILOVER_S of the kill, and the first write after it answered
+    within that too; every pod gone within SERVE_CLOSE_S and every port of
+    the phase free (the killed pod's and the registry's, which close their
+    connections first and so wait in TIME_WAIT: nothing listens there).
+    Reports the
+    pods' start s, the bundle's push and resolve s, write ms (first, p50)
+    beside ``grpc``'s one-at-a-time p50, the re-election and failover s.
+    Returns the launches: ``{kernel: {"fused": the replicas' sum}}``."""
+    import asyncio
+    import tempfile
+
+    from marie_tpu_torch.clients import GRPCClient
+    from marie_tpu_torch.hub import ExecutorHub
+    from marie_tpu_torch.orchestrate.flow import Flow
+    from marie_tpu_torch.types import Document
+
+    t_phase = time.perf_counter()
+    pages = list(shipped["pages"])
+    h, w = pages[0].shape
+    n_writes = STATEFUL_BEFORE + STATEFUL_AFTER
+    pairs = [pages[2 * i:2 * i + 2] for i in range(n_writes)]
+    name, (bundle, version) = "extract", STATEFUL_BUNDLE
+    ref = f"hub://{bundle}:{version}"
+    row = {"phase": "stateful", "replicas": STATEFUL_REPLICAS, "uses": ref,
+           "writes": n_writes, "grpc_p50_ms": grpc_p50_ms}
+
+    def docs_of(i, pair):
+        return [Document(id=f"s{i}-{k}", tensor=p) for k, p in enumerate(pair)]
+
+    async def raft_info(pod):
+        client = GRPCClient(port=pod.port)
+        try:
+            info = await client.ainfo(timeout=10)
+        finally:
+            await client.aclose()
+        launches = info.get("kernel_launches", {})
+        return info["raft"], {k: launches.get(k, {}).get("fused", 0)
+                              for k in ("crop_resize", "flash_attention")}
+
+    async def infos(pods):
+        return await asyncio.gather(*(raft_info(p) for p in pods))
+
+    async def applied(pods, want):
+        """Every pod's raft state once each has applied ``want`` entries."""
+        deadline = time.perf_counter() + STATEFUL_APPLY_S
+        got = await infos(pods)
+        while {r["applied_index"] for r, _ in got} != {want} \
+                and time.perf_counter() < deadline:
+            await asyncio.sleep(0.05)
+            got = await infos(pods)
+        return got
+
+    async def leader_of(pods, not_this=""):
+        deadline = time.perf_counter() + STATEFUL_FAILOVER_S
+        while time.perf_counter() < deadline:
+            leaders = {r["leader"] for r, _ in await infos(pods)}
+            if len(leaders) == 1 and "" not in leaders and not_this not in leaders:
+                return leaders.pop()
+            await asyncio.sleep(0.05)
+        return None
+
+    registry, url = _bundle_registry()
+    answers, write_ms = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the bundle
+        pkg = os.path.join(tmp, "bundle", bundle)
+        os.makedirs(pkg)
+        with open(os.path.join(pkg, "config.yml"), "w") as fp:
+            fp.write(STATEFUL_CONFIG)
+        with open(os.path.join(pkg, "executor.py"), "w") as fp:
+            fp.write(STATEFUL_MODULE)
+        env = {"MARIE_HUB_REGISTRY": url, "MARIE_HUB_DIR": os.path.join(tmp, "hub"),
+               "MARIE_HUB_INSTALL": os.path.join(tmp, "install"),
+               "MARIE_STATEFUL_WORK": os.path.join(tmp, "work")}
+        t = time.perf_counter()
+        ExecutorHub(hub_dir=os.path.join(tmp, "publisher"), registry_url=url).push(
+            pkg, bundle, version)
+        row["bundle_push_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        installed = ExecutorHub(hub_dir=env["MARIE_HUB_DIR"], registry_url=url,
+                                install_dir=env["MARIE_HUB_INSTALL"]).resolve(ref)
+        row["bundle_resolve_s"] = time.perf_counter() - t
+        row["bundle_installed"] = os.path.relpath(installed, tmp)
+
+        # (b) the stateful Flow
+        flow = Flow().add(name=name, uses=ref, uses_with={"device": SERVER_DEVICE},
+                          replicas=STATEFUL_REPLICAS, stateful=True, env=env)
+        t = time.perf_counter()
+        flow.start()
+        row["pods_start_s"] = time.perf_counter() - t
+        pods = list(flow._deployments[name].pods)
+        ports = [p.port for p in flow.pods] + [int(p.kwargs["raft"]["bind_addr"].rsplit(":")[1])
+                                               for p in pods]
+        killed = None
+        try:
+            async def drive():
+                out = {}
+                t0 = time.perf_counter()
+                out["leader"] = await leader_of(pods)
+                out["leader_s"] = time.perf_counter() - t0
+                out["start"] = await infos(pods)
+                client = GRPCClient(port=flow.port_gateway)
+
+                async def write(i, **kwargs):
+                    t = time.perf_counter()
+                    resp = await client.apost("/document/extract", docs_of(i, pairs[i]),
+                                              parameters={"ref_id": f"pair-{i}"},
+                                              return_responses=True, timeout=900, **kwargs)
+                    write_ms.append((time.perf_counter() - t) * 1e3)
+                    answers[i] = _grpc_pages(resp, len(pairs[i]), h, w)
+
+                # (c) the writes
+                for i in range(STATEFUL_BEFORE):
+                    await write(i)
+                out["before"] = await applied(pods, STATEFUL_BEFORE)
+                # (d) the leader's kill
+                leader = pods[int(out["leader"].rsplit("-", 1)[1])]
+                survivors = [p for p in pods if p is not leader]
+                t_kill = time.perf_counter()
+                leader._process.kill()
+                leader._process.join(10)
+                out["killed"] = leader
+                out["new_leader"] = await leader_of(survivors, not_this=out["leader"])
+                out["reelect_s"] = time.perf_counter() - t_kill
+                first = None
+                while first is None and time.perf_counter() - t_kill < STATEFUL_FAILOVER_S:
+                    try:
+                        await write(STATEFUL_BEFORE, max_attempts=3, initial_backoff=0.2)
+                        first = time.perf_counter() - t_kill
+                    except Exception as ex:  # noqa: BLE001 — an election in progress: again
+                        out.setdefault("retried", []).append(repr(ex)[:200])
+                        await asyncio.sleep(0.2)
+                out["failover_s"] = first
+                for i in range(STATEFUL_BEFORE + 1, n_writes):
+                    await write(i)
+                out["after"] = await applied(survivors, n_writes)
+                await client.aclose()
+                return out
+
+            d = asyncio.run(drive())
+            killed = d["killed"]
+        except BaseException:
+            row["exitcodes_at_failure"] = [p.exitcode for p in pods]
+            row["write_ms"], row["answered"] = write_ms, sorted(answers)
+            emit(row)
+            raise
+        finally:
+            t = time.perf_counter()
+            flow.close()
+            row["close_s"] = time.perf_counter() - t
+            registry.shutdown()
+            registry.server_close()
+        row["exitcodes"] = [p.exitcode for p in pods]
+        own = [p.port for p in pods if p is killed] + \
+              [int(p.kwargs["raft"]["bind_addr"].rsplit(":")[1]) for p in pods if p is killed]
+        row["ports_free"] = _ports_free([p for p in ports if p not in own])
+        # the registry answers HTTP/1.0 and closes first: its port waits in TIME_WAIT
+        row["killed_ports_unbound"] = _ports_unbound(own + [registry.server_port])
+    row["leader"], row["new_leader"] = d["leader"], d["new_leader"]
+    row["leader_s"], row["reelect_s"], row["failover_s"] = (d["leader_s"], d["reelect_s"],
+                                                           d["failover_s"])
+    row["retried_writes"] = d.get("retried", [])
+    for part in ("start", "before", "after"):
+        row[part] = [{"id": next(s["id"] for s in r["servers"] if s["self"]), "leader": r["leader"],
+                      "term": r["term"], "commit_index": r["commit_index"],
+                      "applied_index": r["applied_index"], "fused": counts}
+                     for r, counts in d[part]]
+    row["write_ms"] = write_ms
+    row["write_first_ms"] = write_ms[0]
+    row["write_p50_ms"] = _percentile(write_ms, 0.5)
+    row["word_diffs_vs_serve"] = sum(
+        _word_diffs(answers.get(i, []), http_pages[2 * i:2 * i + 2])
+        + abs(len(answers.get(i, [])) - len(pairs[i])) for i in range(n_writes))
+    row["seconds"] = time.perf_counter() - t_phase
+
+    def counts_are(part, writes):
+        return all(r["commit_index"] == r["applied_index"] == writes
+                   and r["fused"] == {"crop_resize": writes, "flash_attention": 6 * writes}
+                   for r in row[part])
+
+    row["within_limits"] = (
+        row["word_diffs_vs_serve"] == SERVE_WORD_DIFFS and len(answers) == n_writes
+        and all(r["fused"] == {"crop_resize": 0, "flash_attention": 0} for r in row["start"])
+        and len(row["before"]) == STATEFUL_REPLICAS and counts_are("before", STATEFUL_BEFORE)
+        and len(row["after"]) == STATEFUL_REPLICAS - 1 and counts_are("after", n_writes)
+        and row["new_leader"] is not None and row["new_leader"] != row["leader"]
+        and row["reelect_s"] <= STATEFUL_FAILOVER_S
+        and row["failover_s"] is not None and row["failover_s"] <= STATEFUL_FAILOVER_S
+        and row["close_s"] <= SERVE_CLOSE_S and all(c is not None for c in row["exitcodes"])
+        and all(row["ports_free"]) and all(row["killed_ports_unbound"]))
+    emit(row)
+    if not row["within_limits"]:
+        raise AssertionError(f"stateful checks failed: {row}")
+    before = {r["id"]: r["fused"] for r in row["before"]}
+    after = {r["id"]: r["fused"] for r in row["after"]}
+    return {k: {"fused": sum({**before, **after}[i][k] for i in before)}
+            for k in ("crop_resize", "flash_attention")}
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -5270,8 +5568,8 @@ def main() -> int:
     extract_launches, extract_setups = run("extract", phase_extract, shipped, cls_tree,
                                            ner_tree)
     del cls_tree
-    register_launches, register_setups = run("register", phase_register, shipped)
-    detector_launches, detector_setups = run("detectors", phase_detectors, shipped,
+    register_launches, _ = run("register", phase_register, shipped)
+    detector_launches, _ = run("detectors", phase_detectors, shipped,
                                              trained_engine)
     reading_launches = run("reading_order", phase_reading_order, shipped, trained_engine)
     k2_bwd, train_launches = run("train", phase_train, shipped, trained_engine)
@@ -5280,17 +5578,17 @@ def main() -> int:
     single_launches = run("single", phase_single, shipped, trained_engine)
     serve_launches, http_pages = run("serve", phase_serve, shipped, ner_tree)
     del ner_tree
-    grpc_launches = run("grpc", phase_grpc, shipped, http_pages)
+    grpc_launches, grpc_p50_ms = run("grpc", phase_grpc, shipped, http_pages)
     server_launches = run("server", phase_server, shipped, http_pages)
     gateway_launches = run("gateway", phase_gateway, shipped, http_pages)
+    stateful_launches = run("stateful", phase_stateful, shipped, http_pages, grpc_p50_ms)
     run("profile", phase_profile,
         {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
          "chain_heatmap": (chain_engines["heatmap"], pages),
          "trained": (trained_engine, shipped["pages"]),
          # one page: tracing the best engine's ~8,700 launches a page
          # costs the profiler ~8 s a page
-         "best": (best, list(shipped["pages"][:1])), **extract_setups, **register_setups,
-         **detector_setups})
+         "best": (best, list(shipped["pages"][:1])), **extract_setups})
     # the trained engine's 16-page run is the main path (OCR program and
     # chained heads); the forms phase adds the fragments path, the best
     # phase the voting engine's recognisers
@@ -5316,7 +5614,8 @@ def main() -> int:
             **{f"serve_{k}": v for k, v in serve_launches[name].items()},
             **{f"grpc_{k}": v for k, v in grpc_launches[name].items() if k != "all"},
             **{f"server_{k}": v for k, v in server_launches[name].items()},
-            **{f"gateway_{k}": v for k, v in gateway_launches[name].items()}}
+            **{f"gateway_{k}": v for k, v in gateway_launches[name].items()},
+            **{f"stateful_{k}": v for k, v in stateful_launches[name].items()}}
     # the gradient runs only in the trainers: its launches are theirs
     k2_bwd["launches_by_path"] = {
         run_name: counts["flash_attention_backward"].get("train", 0)

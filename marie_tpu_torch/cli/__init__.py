@@ -5,9 +5,12 @@ Commands: ``server`` (``--start --uses <yml>`` boots the port through
 :func:`marie_tpu_torch.server.run_server`, on the card unless ``--device
 cpu``), ``executor``, ``flow``, ``deployment``, ``gateway``, ``ping``,
 ``dryrun``, ``client``, ``job`` (the control plane's REST API through
-``urllib``), ``check``, ``export``, ``new``, ``help``, ``completions``.
-``hub`` is not ported (ROADMAP item 10); ``server --watch`` waits for
-ROADMAP item 12.
+``urllib``), ``hub`` (push, pull, versions, manifest, list over
+:class:`~marie_tpu_torch.hub.ExecutorHub`; a ``docker://`` name or
+reference goes to the OCI registry at ``MARIE_REGISTRY``), ``check``,
+``export``, ``new``, ``help``, ``completions``.  ``server --watch [--uses
+host:port]`` opens the live console: the curses TUI on a terminal, else a
+plain poller (:mod:`marie_tpu_torch.server.watch`).
 """
 
 import json
@@ -22,7 +25,7 @@ def main(argv=None) -> int:
     commands = {
         "server": _server, "executor": _executor, "flow": _flow, "deployment": _deployment,
         "gateway": _gateway, "ping": _ping, "dryrun": _ping, "client": _client, "job": _job,
-        "check": _check, "export": _export, "new": _new,
+        "check": _check, "export": _export, "new": _new, "hub": _hub,
     }
     if args.cli in commands:
         return commands[args.cli](args)
@@ -147,10 +150,79 @@ def _new(args) -> int:
     return 0
 
 
+def _hub(args) -> int:
+    """Executor hub operations over the local or remote bundle store; a
+    ``docker://`` name goes to an OCI registry (``MARIE_REGISTRY``,
+    ``MARIE_REGISTRY_USER``, ``MARIE_REGISTRY_PASSWORD``)."""
+    import os
+
+    from marie_tpu_torch.hub import ExecutorHub
+    from marie_tpu_torch.hub import parse_hub_ref as _parse
+
+    def parse_hub_ref(ref: str):
+        # the CLI takes a bare name[:version]; the library hub://name[:version]
+        return _parse(ref if ref.startswith("hub://") else f"hub://{ref}")
+
+    def registry_client():
+        from marie_tpu_torch.hub_docker import RegistryClient
+
+        url = os.environ.get("MARIE_REGISTRY")
+        if not url:
+            raise SystemExit("docker:// hub refs need MARIE_REGISTRY (registry URL)")
+        return RegistryClient(url, username=os.environ.get("MARIE_REGISTRY_USER"),
+                              password=os.environ.get("MARIE_REGISTRY_PASSWORD"))
+
+    hub = ExecutorHub()
+    cmd = args.hub_cmd
+    if cmd == "push":
+        name = args.name or os.path.basename(os.path.abspath(args.path))
+        if name.startswith("docker://"):
+            from marie_tpu_torch.hub_docker import push_executor_image
+
+            digest, _ = push_executor_image(registry_client(), args.path,
+                                            name[len("docker://"):], tag=args.version)
+            print(f"pushed {name}:{args.version} {digest}")
+            return 0
+        bundle = hub.push(args.path, name=name, version=args.version)
+        print(f"pushed {name}:{args.version} -> {bundle}")
+        return 0
+    if cmd == "pull":
+        if args.ref.startswith("docker://"):
+            from marie_tpu_torch.hub_docker import pull_executor_image
+
+            image, _, tag = args.ref[len("docker://"):].partition(":")
+            dest = os.path.join(os.path.expanduser("~/.marie/hub-images"),
+                                image.replace("/", "__"), tag or "latest")
+            pull_executor_image(registry_client(), image, tag or "latest", dest)
+            print(dest)
+            return 0
+        name, version = parse_hub_ref(args.ref)
+        print(hub.pull(name, version))
+        return 0
+    if cmd == "versions":
+        name, _ = parse_hub_ref(args.ref)
+        for v in hub.versions(name):
+            print(v)
+        return 0
+    if cmd == "manifest":
+        name, version = parse_hub_ref(args.ref)
+        print(json.dumps(hub.manifest(name, version), indent=1, sort_keys=True))
+        return 0
+    if cmd == "list":
+        for entry in hub.list():
+            line = f"{entry['name']}:{entry['version']}"
+            if "sha256" in entry:
+                line += f"  sha256:{entry['sha256'][:12]}"
+            print(line)
+        return 0
+    return 1
+
+
 def _server(args) -> int:
     if args.watch:
-        raise NotImplementedError("the live server console (server --watch) is not ported: "
-                                  "ROADMAP §1 item 12")
+        from marie_tpu_torch.server.watch import main as watch_main
+
+        return watch_main([args.uses] if args.uses else None)
     from marie_tpu_torch.server import run_server
 
     return run_server(uses=args.uses, port=args.port,

@@ -49,13 +49,3 @@ class InternalNetworkError(BaseMarieException):
 
     def details(self) -> str:
         return self._details or str(self.og_exception)
-
-
-#: the ROADMAP item the rest of the serving plane waits for (RAFT-replicated
-#: workers, executor hub references, hot reload)
-GRPC_ITEM = "ROADMAP §1 item 10 (the rest of the serving plane)"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error a serving feature that is not ported yet raises."""
-    return NotImplementedError(f"{what} is not ported: it waits for {GRPC_ITEM}")

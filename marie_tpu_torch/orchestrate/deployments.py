@@ -4,14 +4,16 @@ head pod when ``shards > 1`` (``polling`` ALL, ANY or a dict of endpoint
 -> mode).  The workers share the process's card; ``uses_with`` gives an
 executor its device.  ``external=True`` attaches an executor already
 serving at ``host:port`` that the deployment does not manage.
-``stateful=True`` (RAFT replication) is not ported (ROADMAP item 10).
+``stateful=True`` replicates the executor's writes through RAFT: each
+worker gets a RAFT port of its own and its peers' (node ids
+``<name>-<i>``), and wraps its handler (``Pod(raft=...)``).  ``env`` goes
+to every worker's environment.
 """
 
 import time
 from typing import Any, Dict, List, Optional, Type, Union
 
 from marie_tpu_torch.enums import PollingType
-from marie_tpu_torch.excepts import not_ported
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.orchestrate.pods import Pod
 
@@ -25,8 +27,6 @@ class Deployment:
                  floating: bool = False, when: Optional[Dict[str, Any]] = None,
                  stateful: bool = False, env: Optional[Dict[str, str]] = None,
                  external: bool = False, host: str = "127.0.0.1", **kwargs):
-        if stateful:
-            raise not_ported("a stateful (RAFT-replicated) Deployment")
         self.logger = MarieLogger(f"deployment/{name}")
         self.name = name
         self.external = external
@@ -52,13 +52,7 @@ class Deployment:
             if not self.port:
                 raise ValueError(f"external deployment {self.name!r} needs port=")
             return self  # nothing to spawn: addresses point at it
-        n_workers = self.replicas * self.shards
-        for i in range(n_workers):
-            self.pods.append(Pod(
-                "worker", uses=self.uses, uses_with=self.uses_with,
-                name=self.name if n_workers == 1 else f"{self.name}/rep-{i}",
-                workspace=self.workspace, protocol="grpc",
-                port=self.port if (n_workers == 1 and self.shards == 1) else None))
+        self.pods = self._worker_pods()
         try:
             # every child starts at once; each is then awaited in turn
             for pod in self.pods:
@@ -79,6 +73,33 @@ class Deployment:
             self.close()
             raise
         return self
+
+    def _worker_pods(self) -> List[Pod]:
+        """The worker pods (not started), with their RAFT node ids, ports
+        and peers when the deployment is stateful."""
+        n_workers = self.replicas * self.shards
+        raft_ports = None
+        if self.stateful:
+            from marie_tpu_torch.helper import random_port
+
+            raft_ports = [random_port() for _ in range(n_workers)]
+        pods = []
+        for i in range(n_workers):
+            extra: Dict[str, Any] = {}
+            if raft_ports is not None:
+                extra["raft"] = {
+                    "node_id": f"{self.name}-{i}",
+                    "bind_addr": f"127.0.0.1:{raft_ports[i]}",
+                    "peers": [(f"{self.name}-{j}", f"127.0.0.1:{raft_ports[j]}")
+                              for j in range(n_workers) if j != i]}
+            if self.env:
+                extra["env"] = dict(self.env)
+            pods.append(Pod(
+                "worker", uses=self.uses, uses_with=self.uses_with,
+                name=self.name if n_workers == 1 else f"{self.name}/rep-{i}",
+                workspace=self.workspace, protocol="grpc",
+                port=self.port if (n_workers == 1 and self.shards == 1) else None, **extra))
+        return pods
 
     @property
     def addresses(self) -> List[str]:

@@ -26,15 +26,21 @@ on by default on the card, ``MARIE_PROGRAM_ZOO_ENABLE=0`` turns it off);
 a warm-up that raises fails the start (:class:`RuntimeFailToStart`).
 The CUDA kernels the child launches load from the libraries the parent
 built (``ops/kernels/_build.py`` names them by a hash of their source).
-
-RAFT replication is not ported (ROADMAP item 10).
+``env`` sets variables in the child before it builds its handler.  A
+worker with ``raft`` (``{"node_id", "bind_addr", "peers": [(id,
+addr), ...]}``) serves through a
+:class:`~marie_tpu_torch.serve.consensus.stateful.StatefulReplicatedHandler`:
+its writes replicate through RAFT.  Its child sets ``MARIE_RAFT_NODE_ID``
+to the node id before the executor loads, so that a config can give each
+replica its own paths (``${{ ENV.MARIE_RAFT_NODE_ID }}``): every replica
+applies the same requests.
 """
 
 import multiprocessing
 import time
 from typing import Any, Dict
 
-from marie_tpu_torch.excepts import RuntimeFailToStart, not_ported
+from marie_tpu_torch.excepts import RuntimeFailToStart
 from marie_tpu_torch.logging_core import MarieLogger
 
 #: how long :meth:`Pod.start` waits for the child's readiness by default
@@ -45,9 +51,14 @@ READY_TIMEOUT_S = 120.0
 def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> None:
     """The child's entry point: serve until SIGTERM/SIGINT."""
     import asyncio
+    import os
     import signal
 
     from marie_tpu_torch.serve.runtimes.asyncio_runtime import AsyncNewLoopRuntime
+
+    os.environ.update(kwargs.get("env") or {})
+    if kwargs.get("raft"):
+        os.environ["MARIE_RAFT_NODE_ID"] = kwargs["raft"]["node_id"]
 
     if kwargs.get("auth_keys"):
         # a spawned child starts with no keys: load the parent's
@@ -72,6 +83,15 @@ def _pod_main(kind: str, kwargs: Dict[str, Any], ready_event, port_value) -> Non
             # the executor's programs run once before readiness; a failure
             # here ends the child, and the parent's start raises
             prewarm(handler.executor)
+        if kwargs.get("raft"):
+            # a stateful replica: writes replicate through RAFT, and the
+            # node joins its peers once the executor is warm
+            from marie_tpu_torch.serve.consensus.stateful import StatefulReplicatedHandler
+
+            raft = kwargs["raft"]
+            handler = StatefulReplicatedHandler(handler, node_id=raft["node_id"],
+                                                bind_addr=raft["bind_addr"],
+                                                peers=raft.get("peers", []))
     elif kind == "gateway":
         from marie_tpu_torch.serve.runtimes.gateway.request_handling import (
             GatewayRequestHandler)
@@ -164,8 +184,6 @@ class Pod:
 
         if kind not in ("worker", "head", "gateway"):
             raise ValueError(f"unknown pod kind {kind}")
-        if kwargs.get("raft"):
-            raise not_ported(f"a {kind} pod with 'raft'")
         if APIKeyManager.enabled() and not kwargs.get("auth_keys"):
             kwargs["auth_keys"] = [
                 {"name": info["name"], "api_key": key, "enabled": info["enabled"],

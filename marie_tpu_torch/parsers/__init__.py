@@ -1,7 +1,7 @@
 """The CLI's argument parser tree (port of ``marie_tpu/parsers/__init__.py``).
 
-The JAX tree less ``hub`` (ROADMAP item 10); ``server --watch`` (the live
-console) waits for ROADMAP item 12.  The port adds ``server --device``
+The JAX tree, ``hub`` and ``server --watch`` (the live console) included.
+The port adds ``server --device``
 (``cuda`` by default: the kernels build on the card before the flow
 starts; ``cpu`` serves without one) and ``server --rest-port`` (the
 control plane's port, a free one by default).
@@ -80,6 +80,17 @@ def build_parser() -> argparse.ArgumentParser:
     new = sub.add_parser("new", help="scaffold a new marie project")
     new.add_argument("name", type=str, help="project directory to create")
     new.add_argument("--type", type=str, default="flow", choices=["flow", "deployment"])
+
+    hub = sub.add_parser("hub", help="executor hub operations")
+    hub_sub = hub.add_subparsers(dest="hub_cmd", required=True)
+    hp = hub_sub.add_parser("push", help="publish an executor bundle")
+    hp.add_argument("path", type=str, help="executor directory (with config.yml)")
+    hp.add_argument("--name", type=str, default=None)
+    hp.add_argument("--version", type=str, default="0.1.0")
+    for name in ("pull", "versions", "manifest"):
+        p = hub_sub.add_parser(name)
+        p.add_argument("ref", type=str, help="executor ref (name[:version])")
+    hub_sub.add_parser("list", help="list local hub bundles")
 
     comp = sub.add_parser("completions", help="emit a shell completion script")
     comp.add_argument("shell", type=str, choices=["bash", "zsh"])

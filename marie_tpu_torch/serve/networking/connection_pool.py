@@ -5,8 +5,13 @@ on to the next one on UNAVAILABLE, DEADLINE_EXCEEDED and NOT_FOUND.  A
 request carries the active trace context to the worker as W3C
 ``traceparent`` metadata.
 
-The JAX pool's retry on a RAFT follower's "not the leader" answer goes
-with RAFT workers, which are not ported (ROADMAP item 10).
+A RAFT follower answers a write with "not the leader" (a ``NotTheLeader``
+exception under ``executor="raft"``): the pool sends the request again,
+with its status clear as the caller sent it, to the next replica, at most
+``retries * len(replicas)`` attempts in all, backing off once every
+replica has been tried (an election in progress).  Only that answer is
+retried: a replicated write that failed on the leader (a timeout) may
+have applied, and is answered as it stands.
 """
 
 import asyncio
@@ -25,6 +30,14 @@ RETRYABLE_CODES = (StatusCode.UNAVAILABLE, StatusCode.DEADLINE_EXCEEDED, StatusC
 _PROCESS_DATA = "/jina.JinaDataRequestRPC/process_data"
 _DISCOVER = "/jina.JinaDiscoverEndpointsRPC/endpoint_discovery"
 _STREAM_DOC = "/jina.JinaSingleDocumentRequestRPC/stream_doc"
+
+
+def _not_the_leader(resp: DataRequest) -> bool:
+    """A RAFT follower's answer to a write."""
+    if not resp.is_error():
+        return False
+    ex = resp.status.exception
+    return ex.executor == "raft" and ex.name == "NotTheLeader"
 
 
 class _Replica:
@@ -111,7 +124,8 @@ class GrpcConnectionPool:
             req.exec_endpoint = endpoint
         payload = to_request_list_bytes([req])
         last_error: Optional[BaseException] = None
-        for attempt in range(max(self.retries, self.retries * len(rl.replicas))):
+        attempts = max(self.retries, self.retries * len(rl.replicas))
+        for attempt in range(attempts):
             replica = rl.pick()
             replica.in_flight += 1
             try:
@@ -119,7 +133,16 @@ class GrpcConnectionPool:
                 raw = await replica.get_channel().unary_unary(
                     _PROCESS_DATA, payload, timeout=timeout,
                     metadata=tracing.inject_metadata(None) or None)
-                return DataRequest.from_bytes(raw)
+                resp = DataRequest.from_bytes(raw)
+                if _not_the_leader(resp) and attempt + 1 < attempts:
+                    # the original payload goes again: the status clear
+                    self.logger.debug(f"{deployment}@{replica.address} is not the raft "
+                                      "leader; retrying the next replica")
+                    if attempt + 1 >= len(rl.replicas):
+                        await asyncio.sleep(min(0.05 * (2 ** (attempt // len(rl.replicas))),
+                                                1.0))
+                    continue
+                return resp
             except RpcError as ex:
                 last_error = ex
                 if ex.code() not in RETRYABLE_CODES:

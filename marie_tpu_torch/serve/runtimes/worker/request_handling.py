@@ -10,8 +10,13 @@ metrics and the job records in a sqlite KV (``job_kv_path`` or
 ``MARIE_JOB_KV``).  The executor comes from a class, a dotted class path
 (the JAX package's executor paths map onto the port's), a ``jtype``
 mapping, a YAML file or inline YAML (JAML; a file's ``py_modules`` are
-imported first, relative to it); hub references and hot reload are not
-ported (ROADMAP item 10).
+imported first, relative to it) or a hub reference (``hub://name[:version]``:
+the bundle resolved and installed by :class:`~marie_tpu_torch.hub.ExecutorHub`,
+from ``MARIE_HUB_REGISTRY`` when set, then its ``config.yml`` loaded).
+``hot_reload=True`` polls the mtime of the executor's source module and,
+when it changes, reloads the module and rebuilds the executor; a reload
+that fails keeps the old executor serving.  The poll starts on the
+running loop at construction, or with :meth:`start_hot_reload`.
 """
 
 import importlib
@@ -22,7 +27,6 @@ import time
 from datetime import datetime, timezone
 from typing import Any, Dict, Optional, Sequence, Type, Union
 
-from marie_tpu_torch.excepts import not_ported
 from marie_tpu_torch.logging_core import MDC, MarieLogger
 from marie_tpu_torch.serve.executors import BaseExecutor
 from marie_tpu_torch.serve.runtimes.worker.batch_queue import BatchQueue
@@ -42,8 +46,6 @@ class WorkerRequestHandler:
         job_kv_path: Optional[str] = None,
         **kwargs,
     ):
-        if hot_reload:
-            raise not_ported("hot reload of the executor")
         self.logger = MarieLogger(f"worker/{name}")
         self.name = name
         from marie_tpu_torch.metrics import MetricUnit, get_registry
@@ -66,6 +68,7 @@ class WorkerRequestHandler:
                 self._job_kv = SqliteKV(kv_path)
             except Exception as ex:  # noqa: BLE001
                 self.logger.warning(f"job KV unavailable: {ex!r}")
+        self._uses_with, self._workspace = uses_with, workspace
         if executor is not None:
             self._executor = executor
         else:
@@ -76,6 +79,55 @@ class WorkerRequestHandler:
             ep: dict(cfg) for ep, cfg in self._executor.dynamic_batching.items()}
         self._batch_queues: Dict[str, Dict[str, BatchQueue]] = {
             ep: {} for ep in self._batch_queue_config}
+        self._reload_task = None
+        if hot_reload:
+            import asyncio
+
+            try:
+                asyncio.get_running_loop()
+            except RuntimeError:
+                pass  # no loop yet: the caller starts it (start_hot_reload)
+            else:
+                self.start_hot_reload()
+
+    def start_hot_reload(self, interval: float = 1.0):
+        """Start the source poll on the running loop; returns its task."""
+        import asyncio
+
+        if self._reload_task is None:
+            self._reload_task = asyncio.get_running_loop().create_task(
+                self._hot_reload_loop(interval))
+        return self._reload_task
+
+    async def _hot_reload_loop(self, interval: float = 1.0) -> None:
+        """Reload the executor when its source module changes on disk (an
+        mtime poll)."""
+        import asyncio
+        import inspect
+
+        module = inspect.getmodule(type(self._executor))
+        src = getattr(module, "__file__", None)
+        if src is None:
+            return
+        last = os.path.getmtime(src)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                mtime = os.path.getmtime(src)
+            except OSError:
+                continue
+            if mtime == last:
+                continue
+            last = mtime
+            self.logger.info(f"source change detected in {src}; reloading")
+            try:
+                importlib.reload(module)
+                cls = getattr(module, type(self._executor).__name__)
+                self._executor.close()
+                self._executor = cls(runtime_args={"name": self.name},
+                                     workspace=self._workspace, **(self._uses_with or {}))
+            except Exception as ex:  # noqa: BLE001 — the old code keeps serving
+                self.logger.error(f"hot reload failed: {ex!r}")
 
     @staticmethod
     def _load_executor(uses, uses_with, name, workspace) -> BaseExecutor:
@@ -93,7 +145,7 @@ class WorkerRequestHandler:
                 "runtime_args": runtime_args, "workspace": workspace, **uses_with})
         if isinstance(uses, str):
             if uses.startswith("hub://"):
-                raise not_ported(f"the executor hub reference {uses!r}")
+                return _load_hub_executor(uses, runtime_args, uses_with)
             if not os.path.exists(uses) and "." in uses and "\n" not in uses:
                 mod_name, _, cls_name = resolve_jtype_path(uses).rpartition(".")
                 try:
@@ -286,6 +338,8 @@ class WorkerRequestHandler:
         self._executor.restore(snapshot_file)
 
     async def close(self) -> None:
+        if self._reload_task is not None:
+            self._reload_task.cancel()
         for instances in self._batch_queues.values():
             for q in instances.values():
                 await q.close()
@@ -309,6 +363,26 @@ def _clone_request(req: DataRequest, docs: DocumentArray,
     clone.parameters = parameters
     clone.docs = docs
     return clone
+
+
+def _load_hub_executor(uses: str, runtime_args: Dict[str, Any],
+                       uses_with: Dict[str, Any]) -> BaseExecutor:
+    """The executor of a ``hub://`` reference: the bundle resolved and
+    installed, put on ``sys.path``, its ``config.yml``'s ``py_modules``
+    imported and the config loaded."""
+    import sys
+
+    from marie_tpu_torch.hub import ExecutorHub
+
+    pkg_dir = ExecutorHub(registry_url=os.environ.get("MARIE_HUB_REGISTRY")).resolve(uses)
+    if pkg_dir not in sys.path:
+        sys.path.insert(0, os.path.dirname(pkg_dir))
+        sys.path.insert(0, pkg_dir)
+    config = os.path.join(pkg_dir, "config.yml")
+    if not os.path.exists(config):
+        raise FileNotFoundError(f"{uses}: bundle has no config.yml ({pkg_dir})")
+    _import_py_modules(config)
+    return BaseExecutor.load_config(config, runtime_args=runtime_args, **uses_with)
 
 
 def _import_py_modules(config_path: str) -> None:

@@ -214,10 +214,16 @@ def test_kernel_cache_builds_only_what_is_missing(monkeypatch, tmp_path):
     asked = []
     monkeypatch.setattr(_build, "build_all", lambda names: asked.append(list(names)) or
                         {n: 1.0 for n in names})
+    # the RAFT core (host C++) builds beside the kernels when it is missing
+    from marie_tpu_torch.serve import consensus
+
+    monkeypatch.setattr(consensus, "build_library",
+                        lambda: None if "raft" in present else asked.append(["raft"]) or 2.0)
     got = kernel_cache.enable_persistent_cache()
-    assert asked == [[n for n in _build.sources() if n not in present]]
-    assert set(got) == set(_build.sources()) - present
+    assert asked == [[n for n in _build.sources() if n not in present], ["raft"]]
+    assert set(got) == set(_build.sources()) - present | {"raft"} and got["raft"] == 2.0
     present.update(_build.sources())
+    present.add("raft")
     asked.clear()
     assert kernel_cache.enable_persistent_cache() == {} and asked == []
 

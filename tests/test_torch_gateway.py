@@ -265,8 +265,8 @@ def test_topologies_answer_as_the_jax_gateway(loop, name):
 
 
 def test_flow_api_and_refusals():
-    """The Flow's graph, leaves and errors are the JAX flow's; what is
-    not ported names its ROADMAP item."""
+    """The Flow's graph, leaves and errors are the JAX flow's; a stateful
+    deployment builds its replicas' RAFT peers."""
     f, j = Flow(), SIDES["jax"]["flow"]()
     for flow in (f, j):
         flow.add(name="a").add(name="b", needs="gateway").needs_all(name="c")
@@ -277,8 +277,10 @@ def test_flow_api_and_refusals():
         Flow().add(name="a").add(name="a")
     with pytest.raises(FlowMissingDeploymentError):
         Flow().add(name="a", needs="nowhere")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Deployment(stateful=True)
+    # a stateful deployment is ported: its replicas get RAFT peers, as in JAX
+    stateful = Deployment(name="s", replicas=3, stateful=True)
+    assert stateful.stateful and [p.kwargs["raft"]["node_id"] for p in stateful._worker_pods()] \
+        == ["s-0", "s-1", "s-2"]
     # a Flow from YAML is ported (JAML): a missing file raises as in JAX
     from marie_tpu.excepts import BadConfigSource as JBadConfigSource
     from marie_tpu_torch.excepts import BadConfigSource

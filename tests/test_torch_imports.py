@@ -265,8 +265,8 @@ def test_serving_entry_points_default_to_the_card_and_refuse_what_waits():
     default protocol of the runtime, the pods and the client.  WebSocket,
     the cloud HTTP apps, several protocols on one runtime, the monitoring
     port and the WebSocket client build what the JAX package builds for
-    them; what is not ported raises, naming its ROADMAP item: RAFT
-    (``raft``, ``stateful``)."""
+    them; so do a RAFT pod (``raft``) and a stateful deployment, which no
+    longer raise."""
     import inspect
 
     import pytest
@@ -307,10 +307,14 @@ def test_serving_entry_points_default_to_the_card_and_refuse_what_waits():
         assert (pod.kind, pod.name, pod.kwargs) == (jpod.kind, jpod.name, jpod.kwargs), kwargs
     ws, jws = Client(port=1, protocol="websocket"), JClient(port=1, protocol="websocket")
     assert (type(ws).__name__, ws.url) == (type(jws).__name__, jws.url)
-    for call in (lambda: Pod("worker", raft={"node_id": 1}),
-                 lambda: Deployment(stateful=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    from marie_tpu.orchestrate.deployments import Deployment as JDeployment
+
+    raft = {"node_id": "d-0", "bind_addr": "127.0.0.1:1", "peers": [("d-1", "127.0.0.1:2")]}
+    pod, jpod = Pod("worker", raft=raft), JPod("worker", raft=raft)
+    assert (pod.kind, pod.name, pod.kwargs) == (jpod.kind, jpod.name, jpod.kwargs)
+    dep, jdep = Deployment(stateful=True, replicas=3), JDeployment(stateful=True, replicas=3)
+    assert (dep.stateful, dep.replicas) == (jdep.stateful, jdep.replicas) == (True, 3)
+    assert len({p.kwargs["raft"]["bind_addr"] for p in dep._worker_pods()}) == 3
 
 
 _GRPC_SERVING = r"""
@@ -456,3 +460,46 @@ def test_server_shell_imports_with_its_absent_packages_blocked():
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split() == ["6", "True", "succeeded", "png", "cuda", "cuda"]
+
+
+_STATEFUL_AND_HUB = r"""
+import sys, tempfile, time
+for name in BLOCKED:
+    sys.modules[name] = None
+from marie_tpu_torch import hub, hub_docker
+from marie_tpu_torch.serve.consensus import RaftNode, library_path
+from marie_tpu_torch.serve.consensus.stateful import StatefulReplicatedHandler
+from marie_tpu_torch.server import ctl, watch
+from marie_tpu_torch.helper import random_port
+node = RaftNode("solo", f"127.0.0.1:{random_port()}").start()
+deadline = time.time() + 10
+while not node.is_leader and time.time() < deadline:
+    time.sleep(0.05)
+index = node.submit(b"x\0y")
+while node.applied != [b"x\0y"] and time.time() < deadline:
+    time.sleep(0.05)
+node.shutdown()
+with tempfile.TemporaryDirectory() as d:
+    import os
+    os.makedirs(f"{d}/pkg")
+    open(f"{d}/pkg/config.yml", "w").write("jtype: BaseExecutor\n")
+    h = hub.ExecutorHub(hub_dir=f"{d}/hub", install_dir=f"{d}/inst")
+    h.push(f"{d}/pkg", "e", "1.0.0", metadata={"note": "a: b"})
+    manifest = h.manifest("e")
+    installed = h.resolve("hub://e")
+print(index, library_path().parent.name, manifest["note"], os.path.basename(installed),
+      len(ctl.render_help(40, 12)))
+"""
+
+
+def test_stateful_and_hub_import_with_their_absent_packages_blocked():
+    """The RAFT bindings, the stateful handler, the hub and its OCI client,
+    and the consoles import and run with JAX, the JAX package, PyYAML,
+    aiohttp, PIL (and the rest) blocked: a node of the port's core commits
+    an entry, and a bundle's manifest goes through the port's YAML."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", f"BLOCKED = {BLOCKED!r}\n" + _STATEFUL_AND_HUB],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["1", "_build", "a:", "b", "e", "12"]

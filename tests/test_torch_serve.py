@@ -213,8 +213,11 @@ def test_process_data_matches_jax(tmp_path):
         WorkerRequestHandler(uses="conf/executor.yml")
     with pytest.raises(JBadConfigSource, match="cannot find config file"):
         JWorkerRequestHandler(uses="conf/executor.yml")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a hub reference is ported: a malformed one raises as in JAX
+    with pytest.raises(ValueError, match="not a hub reference"):
         WorkerRequestHandler(uses="hub://some/executor")
+    with pytest.raises(ValueError, match="not a hub reference"):
+        JWorkerRequestHandler(uses="hub://some/executor")
 
 
 class _Loop:

@@ -290,6 +290,38 @@ def _png(h=32, w=32):
     return base64.b64encode(buf.getvalue()).decode()
 
 
+def test_consoles_read_both_control_planes(planes):
+    """``fetch_snapshot`` of either package reads either control plane
+    alike (a job submitted first), and the port's poller renders the
+    nodes and jobs it reads."""
+    from marie_tpu_server import ctl as jctl
+    from marie_tpu_torch.server import ctl, watch
+
+    for side in ("port", "jax"):
+        status, body = call(planes[side], "POST", "/api/jobs/submit",
+                            {"queue": "console", "entrypoint": "/echo"})
+        assert status == 200, body
+    for side in ("port", "jax"):
+        base = f"http://127.0.0.1:{planes[side]}"
+        snaps = [ctl.fetch_snapshot(base), jctl.fetch_snapshot(base)]
+        assert all(s.ok and not s.error for s in snaps), snaps
+        mine, theirs = snaps
+        assert (mine.gateway, mine.deployments, mine.events) == \
+            (theirs.gateway, theirs.deployments, theirs.events)
+        assert [j["id"] for j in mine.jobs] == [j["id"] for j in theirs.jobs]
+        assert sorted(mine.deployments) == ["caps", "echo", "extract_t"]
+        assert any(j["name"] == "console" for j in mine.jobs)
+    nodes = watch._get(f"http://127.0.0.1:{planes['port']}", "/api/nodes")
+    jobs = watch._get(f"http://127.0.0.1:{planes['port']}", "/api/jobs")
+    lines = watch.render(nodes, jobs, "x:1")
+    assert f"  gateway: 127.0.0.1:{planes['flows'][0].port_gateway}" in lines
+    assert "  deployment echo                 1 replica(s)" in lines
+    assert any("console" in ln for ln in lines) and lines[-1].startswith("    ")
+    assert watch.render(None, None, "x:1")[-1] == "  server unreachable"
+    down = ctl.fetch_snapshot(f"http://127.0.0.1:{_free_port()}", timeout=0.5)
+    assert not down.ok and down.error
+
+
 def test_forwarders_and_their_errors_equal_jax(planes):
     payload = {"data": _png()}
 
@@ -435,7 +467,8 @@ def test_cli_parser_help_new_and_check(tmp_path, capsys):
              ["deployment", "--uses", "pkg.Mod", "--replicas", "2", "--shards", "2"],
              ["gateway", "--deployments", '{"a": ["127.0.0.1:1"]}'], ["flow", "--uses", "f.yml"],
              ["export", "--uses", "f.yml", "--kind", "kubernetes", "--namespace", "prod"],
-             ["new", "proj", "--type", "deployment"], ["help", "port"], ["completions", "zsh"]]
+             ["new", "proj", "--type", "deployment"], ["help", "port"], ["completions", "zsh"],
+             ["hub", "list"], ["hub", "pull", "n:1"], ["server", "--watch", "--uses", "h:1"]]
     port_only = {"device", "rest_port"}
     for argv in argvs:
         got, want = vars(build_parser().parse_args(argv)), vars(jparser().parse_args(argv))
@@ -443,8 +476,10 @@ def test_cli_parser_help_new_and_check(tmp_path, capsys):
             {k: v for k, v in want.items() if k not in port_only}, argv
     args = build_parser().parse_args(["server", "--start"])
     assert (args.device, args.rest_port, args.protocol) == ("cuda", None, "grpc,http")
+    with pytest.raises(SystemExit):  # a hub command is required, as in JAX
+        build_parser().parse_args(["hub"])
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["hub", "list"])
+        jparser().parse_args(["hub"])
     for argv in (["help", "port"], ["help", "nothing-like-this"]):
         codes = [cli.main(argv), None]
         mine = capsys.readouterr().out
@@ -459,8 +494,20 @@ def test_cli_parser_help_new_and_check(tmp_path, capsys):
     assert "torch" in json.loads(capsys.readouterr().out)
     assert cli.main(["completions", "bash"]) == 0
     assert "complete -F _marie_complete marie" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(["server", "--watch"])
+    # server --watch: the console (a plain poller off a terminal), here once
+    # against a port nothing serves
+    import functools
+
+    from marie_tpu_torch.server import watch as twatch
+
+    once = functools.partial(twatch.watch, iterations=1, interval=0)
+    orig, twatch.watch = twatch.watch, once
+    try:
+        assert cli.main(["server", "--watch", "--uses", f"127.0.0.1:{_free_port()}"]) == 0
+    finally:
+        twatch.watch = orig
+    out = capsys.readouterr().out
+    assert "marie server watch" in out and "server unreachable" in out
 
 
 def _ping_outputs(main, port, capsys):
