@@ -65,7 +65,7 @@ from a ``Flow`` of gateway, head and two worker pods (all in flight, the
 error envelope, a deadline, the children gone on close) (``grpc``);
 boots the server shell from YAML through the CLI (``python -m
 marie_tpu_torch.cli server --start --uses <yml>``) in a child process,
-twice in turns, with the workers' warm-up and without, and drives its REST
+with the workers' warm-up, and drives its REST
 control plane: a job, the 8 requests as 2-page TIFFs against the
 ``serve`` answers with K1 and K2 counted on ``"fused"`` in the workers (the
 warm-up's apart), a NER request, SIGTERM (``server``); serves one gateway
@@ -73,7 +73,12 @@ on gRPC, HTTP and WebSocket at once with its worker pod from the
 discovery registry: the 8 requests in flight on one WebSocket, pairs over
 HTTP and gRPC, a W3C trace across the gRPC hops, the worker's kernels
 counted on its monitoring port, the Sagemaker app, the worker's
-deregistration on close (``gateway``);
+deregistration on close (``gateway``); serves three RAFT replicas of the
+OCR worker from a hub bundle (``stateful``); splits the trained engine's
+page group over a local mesh of two entries of the card and trains the
+serving recogniser on worlds (2, 1) and (1, 2) of two ranks, against the
+unsplit and one-rank runs, with the pipeline, expert and sequence legs
+and a one-rank NCCL world (``parallel``);
 traces one more
 run per
 box source, of the chained engine, of the trained engine, of the
@@ -758,12 +763,12 @@ def phase_precision():
 def phase_profile(setups):
     """Where the serving slice's time goes: torch.profiler over one more
     extract per engine on its pages (``setups``: {name: (engine, pages)};
-    ``slice``'s two box sources, ``chain``'s heatmap engine, the
-    ``trained`` engine, the ``best`` engine on one page, a first pass of
-    the ``extract`` phase's ``full_pipeline`` job on its last 8 pages and
-    its generator on the 4 dirty pages; the job with both optional stages
-    and the ``detectors`` engines are not traced again: their breakdowns
-    stand from the runs of the PRs that ported them), on every thread; wall
+    the ``trained`` engine, the ``best`` engine on one page, a first pass
+    of the ``extract`` phase's ``full_pipeline`` job on its last 8 pages
+    and its generator on the 4 dirty pages; ``slice``'s and ``chain``'s
+    seeded engines, the job with both optional stages and the
+    ``detectors`` engines are not traced again: their breakdowns stand
+    from the runs of the PRs that ported them), on every thread; wall
     time,
     device busy time, the
     ``marie.*`` stage ranges (counts and times summed over threads;
@@ -962,15 +967,14 @@ def phase_chain(setups, pages):
     ms/page, classified pages, NER-labelled words, K1/K2 launches by
     path.  Every page must be classified and K2 must launch 8 times (4
     layers x 2 heads) on the "heads" path of the one 16-page group.
-    Returns (the heatmap run's launches, the engines, the heatmap run's
-    results)."""
+    Returns (the heatmap run's launches, the heatmap run's results)."""
     import torch
 
     from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
 
     n, h, w = pages.shape
     cls, ner = chain_heads("cuda")
-    engines, launches, results = {}, None, None
+    launches, results = None, None
     for source in ("ink", "heatmap"):
         base = setups[source]
         engine = PipelineOcrEngine(base.box_processor, base.ocr_processor,
@@ -1003,8 +1007,7 @@ def phase_chain(setups, pages):
                                  "times, not 8 on the heads path of one group")
         if labelled <= 0:
             raise AssertionError(f"{source}: no word got an NER label")
-        engines[source] = engine
-    return launches, engines, results
+    return launches, results
 
 
 def _seeded_page(n_words: int, seed: int):
@@ -4619,6 +4622,7 @@ SERVER_READY_S = 300.0  # a boot: two engines, the base indexer and their warm-u
 SERVER_JOB_S = 90.0  # a submitted job reaches a terminal state (the scheduler polls)
 WARMUP_ENV = "MARIE_PROGRAM_ZOO_ENABLE"
 SERVER_DEVICE = "cuda"
+SERVER_COLD_PAIRS = 2  # the cold boot's requests: the first on cold workers, and one after it
 
 
 def _free_port() -> int:
@@ -4840,14 +4844,16 @@ def phase_server(shipped, http_pages):
     child process, with a Flow of ``TextExtractionExecutor`` (``ocr_engine:
     default``) and ``NerExtractionExecutor`` (its own ``default`` engine,
     reading order on).  Booted twice in turns: with the warm-up (on by
-    default on the card) and with ``MARIE_PROGRAM_ZOO_ENABLE=0``.  Each
-    boot: startup s (to ``/health/status`` 200), the kernels' build s and
-    the warm-up's s and launches (``/metrics``); one job through
-    ``/api/jobs/submit`` reaches a terminal state; the 16 shipped pages as
-    8 two-page ``POST /api/document/extract`` requests (each a 2-page TIFF
-    by ``uri``): first-request ms and the p50 of the rest, the words equal
-    to the ``serve`` phase's HTTP answers (0 differences), K1 8 and K2 48
-    on ``"fused"`` in the workers (the warm-up's apart); one
+    default on the card) and with ``MARIE_PROGRAM_ZOO_ENABLE=0``, the cold
+    start.  Each boot: startup s (to ``/health/status`` 200), the kernels'
+    build s and the warm-up's s and launches (``/metrics``: none on the
+    cold boot); one job through ``/api/jobs/submit`` reaches a terminal
+    state; two-page ``POST /api/document/extract`` requests (each a
+    2-page TIFF by ``uri``), the 16 shipped pages as 8 on the warm boot
+    and the first SERVER_COLD_PAIRS pairs on the cold one: first-request
+    ms and the p50 of the rest, the words equal to the ``serve`` phase's
+    HTTP answers of those pages (0 differences), K1 once and K2 6 times a
+    request on ``"fused"`` in the workers (the warm-up's apart); one
     ``/api/ner/extract`` of a PNG page: K2 on ``"heads"`` and
     ``"reading_order"``; SIGTERM stops the child and every process under
     it within SERVE_CLOSE_S, with every port free.  Returns the warm
@@ -4860,17 +4866,18 @@ def phase_server(shipped, http_pages):
     pairs = [pages[2 * i:2 * i + 2] for i in range(SERVE_PAIRS)]
     row = {"phase": "server", "pages": n, "requests": SERVE_PAIRS, "boots": []}
     with tempfile.TemporaryDirectory() as work_dir:
-        for label, warmup in (("warm", True), ("cold", False)):
-            row["boots"].append(_boot(repo, work_dir, label, warmup, pairs, pages[0],
-                                      http_pages, h, w))
+        for label, warmup, k in (("warm", True, SERVE_PAIRS), ("cold", False, SERVER_COLD_PAIRS)):
+            row["boots"].append(_boot(repo, work_dir, label, warmup, pairs[:k], pages[0],
+                                      http_pages[:2 * k], h, w))
     ok = True
     for b in row["boots"]:
         fused = {k: b["launches"].get(k, {}).get("fused", 0)
                  for k in ("crop_resize", "flash_attention")}
+        requests = len(b["request_ms"])
         ner = b["ner_launches"].get("flash_attention", {})
         b["within_limits"] = (
             b["word_diffs_vs_serve"] <= SERVE_WORD_DIFFS
-            and fused == {"crop_resize": SERVE_PAIRS, "flash_attention": 6 * SERVE_PAIRS}
+            and fused == {"crop_resize": requests, "flash_attention": 6 * requests}
             and ner.get("heads", 0) > 0 and ner.get("reading_order", 0) > 0
             and b["job_state"] == "completed" and b["exitcode"] == 0
             and b["stop_s"] <= SERVE_CLOSE_S and b["children"] >= 3
@@ -5525,6 +5532,328 @@ def phase_stateful(shipped, http_pages, grpc_p50_ms):
             for k in ("crop_resize", "flash_attention")}
 
 
+PARALLEL_ENTRIES = 2  # a local mesh of two entries of the one card; a world of two ranks on it
+PARALLEL_TRAIN_SHAPES = ((2, 1), (1, 2))  # (data, model)
+PARALLEL_TRAIN_STEPS = 3
+PARALLEL_TRAIN_SEED = SEED + 100  # init_flax_defaults' tree at fast_v3_g2_d6's width
+PARALLEL_TRAIN_BATCH = 64  # crops of the shipped pages' truth words
+PARALLEL_TOL = 1e-5  # train loss (relative) and parameters (of each leaf's largest);
+# the pipeline, expert and sequence legs against their plain composition
+PARALLEL_GRAD_LIMIT = 5e-5  # each step's gradients, of each leaf's largest
+PARALLEL_RESOLVED = 0.5  # the least share of the live leaves' elements that resolve
+PARALLEL_LR = 1e-4  # optax.adamw(1e-4), the training step's optimizer
+PARALLEL_WORLD_S = 300.0
+
+
+def _parallel_batch(shipped, tokenizer):
+    """(images [64, 48, 320, 3] float32, tokens [64, 32] int64): the first
+    64 truth words of the shipped pages cut with K1 at the recogniser's
+    crop size, and their characters after BOS, with EOS, padded."""
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.models.configs import TrOCRConfig
+    from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
+
+    cfg = TrOCRConfig.fast_v3_g2_d6()
+    words = [(i, w, b) for i, page in enumerate(shipped["truth"]["pages"]) for w, b in page]
+    words = words[:PARALLEL_TRAIN_BATCH]
+    pages = torch.from_numpy(np.ascontiguousarray(shipped["pages"])).cuda()
+    boxes = torch.tensor([[x, y, x + w, y + h] for _, _, (x, y, w, h) in words],
+                         dtype=torch.float32, device="cuda")
+    page_of = torch.tensor([i for i, _, _ in words], dtype=torch.int32, device="cuda")
+    h, w = cfg.encoder.image_size
+    crops, _ = crop_resize(pages, page_of, boxes, h, w)
+    images = crops[..., None].expand(*crops.shape, 3).cpu().numpy().astype(np.float32)
+    n = cfg.decoder.max_len
+    rows = []
+    for _, text, _ in words:
+        ids = ([cfg.decoder.bos_id] + tokenizer.encode(text, add_eos=True))[:n]
+        rows.append(ids + [cfg.decoder.pad_id] * (n - len(ids)))
+    return images, np.asarray(rows, np.int64)
+
+
+def _train_compare(world, ref, live, resolved) -> dict:
+    """A world run's losses, gradients and parameters against the one-rank
+    run's, on the card: losses (relative), each step's gradients of the
+    live leaves (of each leaf's largest) and the parameters (of each
+    leaf's largest) where the gradient resolves; ``live`` and
+    ``resolved`` are :func:`~marie_tpu_torch.parallel.check.step_masks`'
+    of the one-rank run, with a gradient error of PARALLEL_GRAD_LIMIT."""
+    from marie_tpu_torch.parallel.check import resolved_share
+
+    (losses, state, grads), (ref_losses, ref_state, ref_grads) = world, ref
+    param_err, worst = 0.0, None
+    for name, w in ref_state.items():
+        ok = resolved[(name,)]
+        if bool(ok.any()):
+            err = float((state[name] - w).abs()[ok].max()) / float(w.abs().max())
+            if err > param_err:
+                param_err, worst = err, name
+    grad_err = max(float((g_step[name] - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                   for g_step, r_step in zip(grads, ref_grads)
+                   for name, r in r_step.items() if live[(name,)])
+    return {"losses": losses, "ref_losses": ref_losses,
+            "loss_err": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+            "param_err": param_err, "worst_leaf": worst, "grad_err": grad_err,
+            "resolved_share": resolved_share(live, resolved),
+            "noise_leaves": sorted(k[0] for k, v in live.items() if not v)}
+
+
+def _train_run(mesh, tree, images, tokens):
+    """PARALLEL_TRAIN_STEPS steps of the sharded step at the serving
+    recogniser's width: (losses, every parameter after them, each step's
+    gradients), whole on the card on every rank."""
+    from marie_tpu_torch.models.configs import TrOCRConfig
+    from marie_tpu_torch.ops.kernels._build import launch_path
+    from marie_tpu_torch.parallel import make_train_step
+    from marie_tpu_torch.registry.convert import build_model
+
+    init_fn, step_fn = make_train_step(build_model(TrOCRConfig.fast_v3_g2_d6()), mesh)
+    params, opt_state = init_fn(tree)
+    images, tokens = step_fn.place_batch(images, tokens)
+    losses, grads = [], []
+    for _ in range(PARALLEL_TRAIN_STEPS):
+        with launch_path("train"):
+            params, opt_state, loss = step_fn(params, opt_state, images, tokens)
+        losses.append(float(loss))
+        grads.append(step_fn.full_state(params, grads=True))
+    return losses, step_fn.full_state(params), grads
+
+
+def parallel_world_rank(images, tokens):
+    """One rank of the ``parallel`` phase's world of two on the card: the
+    training step on meshes (2, 1) and (1, 2) from init_flax_defaults'
+    tree (PARALLEL_TRAIN_SEED), the dryrun's world legs (pipeline,
+    expert, sequence; they raise outside 1e-5), then rank 0 holds the
+    step to its own one-rank run.  Returns this rank's figures and K2's
+    launches on ``"train"``."""
+    import torch
+    import torch.distributed as dist
+
+    from marie_tpu_torch.models.configs import TrOCRConfig
+    from marie_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+    )
+    from marie_tpu_torch.parallel import create_mesh
+    from marie_tpu_torch.parallel.check import step_masks
+    from marie_tpu_torch.parallel.distributed import world_device, world_staged
+    from marie_tpu_torch.parallel.dryrun import world_legs
+    from marie_tpu_torch.registry.convert import init_flax_defaults
+
+    rank = dist.get_rank()
+    tree = init_flax_defaults(TrOCRConfig.fast_v3_g2_d6(), PARALLEL_TRAIN_SEED)
+    out = {"rank": rank, "device": str(world_device()), "backend": dist.get_backend(),
+           "staged": world_staged()}
+    _reset_counts()
+    runs = {}
+    for shape in PARALLEL_TRAIN_SHAPES:
+        t = time.perf_counter()
+        run = _train_run(create_mesh(shape), tree, images, tokens)
+        runs[shape] = run if rank == 0 else None  # rank 0 compares
+        torch.cuda.synchronize()
+        out[f"train_{shape[0]}x{shape[1]}_s"] = time.perf_counter() - t
+    out["launches"] = {fn.__name__: fn.launches_by_path.get("train", 0)
+                       for fn in (flash_attention, flash_attention_backward)}
+    t = time.perf_counter()
+    legs = world_legs()
+    out["legs"] = {k: legs[k] for k in ("pipeline", "moe", "seq")}
+    out["legs_s"] = time.perf_counter() - t
+    if rank == 0:  # after the world's last collective: no rank waits on this
+        ref = _train_run(create_mesh((1, 1), devices=[world_device()]), tree, images, tokens)
+        live, resolved = step_masks(ref[2], ref[1], PARALLEL_TOL, PARALLEL_GRAD_LIMIT,
+                                    PARALLEL_LR)
+        out["train"] = {f"{s[0]}x{s[1]}": _train_compare(runs[s], ref, live, resolved)
+                        for s in runs}
+    return out
+
+
+def _nccl_world() -> dict:
+    """A one-rank NCCL world in this process on the card: initialise,
+    all-reduce, leave."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from marie_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+        shutdown_distributed,
+        world_device,
+    )
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="marie-nccl-") as tmp:
+        initialize_distributed(f"file://{os.path.join(tmp, 'store')}", 1, 0, device="cuda",
+                               backend="nccl")
+        try:
+            x = torch.arange(4, dtype=torch.float32, device=world_device())
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            return {"backend": dist.get_backend(), "all_reduce": x.tolist(),
+                    "seconds": time.perf_counter() - t0}
+        finally:
+            shutdown_distributed()
+
+
+def _stats_diffs(got, want) -> int:
+    return sum(int((got[k] != want[k]).sum()) for k in want)
+
+
+def phase_parallel(shipped, trained_engine):
+    """Parallelism on the card (``marie_tpu_torch/parallel/``).
+
+    (a) Mesh serving at full width: the trained engine's configuration on
+    the 16 shipped pages with a local mesh of two entries of the one card:
+    ``fused_ocr_pages`` on the engine's u2 upload of the 16 pages, the
+    engine's stream with the chained heads (``PipelineOcrEngine(mesh=)``),
+    and ``fused_ocr_chain``, each against the same call without the mesh.
+    Gates: 0 differing stats, token rows, words and boxes, equal page and
+    NER labels, class logits within 1e-5; K1 once and K2 once a layer per
+    entry on ``"fused"`` (K1 2, K2 12), the heads' K2 per entry on
+    ``"heads"`` (16); the stream's group split.  ms/page beside the
+    unsharded run's (informational).  (b) A world of two gloo ranks on
+    the card (NCCL refuses two ranks on one GPU; the collectives go
+    through host memory): the training step at the serving recogniser's
+    width (fast_v3_g2_d6) on meshes (2, 1) and (1, 2), 3 steps on 64 crops
+    of the shipped pages' truth words from a seeded tree of flax's
+    initialisers (the zoo's tree is trained on these words: its gradients
+    are near zero, and AdamW's steps would follow float32 noise), held to
+    a one-rank run (loss within 1e-5 relative; gradients within 1e-4 of
+    each leaf's largest; parameters within 1e-5 of each leaf's largest
+    where the gradient resolves, which must be more than half of the
+    elements), K2 and its gradient launched on ``"train"``; the pipeline
+    (2 stages), expert (2) and sequence (2-way) legs within 1e-5 of their
+    plain composition; and a one-rank NCCL world in this process that
+    initialises and all-reduces.  Returns the launches of (a) and (b) by
+    path."""
+    import torch
+
+    from marie_tpu_torch.ocr import fused as tfused
+    from marie_tpu_torch.ocr.fused_chain import fused_ocr_chain
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.parallel import create_mesh
+    from marie_tpu_torch.parallel.distributed import spawn_world
+
+    t_phase = time.perf_counter()
+    eng = trained_engine
+    bp, op, heads = eng.box_processor, eng.ocr_processor, (eng.classifier, eng.indexer)
+    pages = list(shipped["pages"])
+    n = len(pages)
+    mesh = create_mesh((PARALLEL_ENTRIES,), ("pages",), devices=["cuda:0"] * PARALLEL_ENTRIES)
+    row = {"phase": "parallel", "entries": PARALLEL_ENTRIES, "pages": n}
+    launches = {}
+
+    # (a) fused_ocr_pages on the engine's upload of the 16 pages
+    preps = [bp.prep_page(p) for p in pages]
+    stack, clip, psize, packed = tfused._upload_group(
+        preps, list(range(n)), eng.page_fuse_batch, eng.upload_format, bp.device)
+    kw = dict(n_real=n, total_slots=psize * eng.compact_slots, packed=packed)
+    want = tfused.fused_ocr_pages(bp, op, stack, clip, **kw)
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = tfused.fused_ocr_pages(bp, op, stack, clip, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    launches["pages"] = _read_counts()
+    row["pages_call"] = {"stats_diffs": _stats_diffs(got[0], want[0]),
+                         "token_row_diffs": int((got[1] != want[1]).any(dim=1).sum()),
+                         "rows": int(got[1].shape[0]),
+                         "kept": int(tfused.keep_predicate(got[0], bp.box_source,
+                                                           bp.text_threshold,
+                                                           float(bp.min_area)).sum()),
+                         "conf_max_abs_err": float((got[2] - want[2]).abs().max()),
+                         "launches": launches["pages"]}
+
+    # the engine's stream with the chained heads, with and without the mesh
+    meshed = PipelineOcrEngine(bp, op, upload_format=eng.upload_format,
+                               compact_slots=eng.compact_slots,
+                               page_fuse_batch=eng.page_fuse_batch, classifier=heads[0],
+                               indexer=heads[1], mesh=mesh)
+    meshed.extract(pages)  # each entry thread's first stream group
+    groups = dict(tfused.MESH_GROUPS)
+    t0 = time.perf_counter()
+    want_res = eng.extract(pages)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    got_res = meshed.extract(pages)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches["stream"] = _read_counts()
+    row["stream"] = {
+        "word_diffs": _word_diffs(got_res, want_res),
+        "label_diffs": sum(g["classification"]["label"] != w["classification"]["label"]
+                           for g, w in zip(got_res, want_res)),
+        "ner_diffs": sum(a.get("ner_label") != b.get("ner_label")
+                         for g, w in zip(got_res, want_res)
+                         for a, b in zip(g["words"], w["words"])),
+        "words": sum(len(r["words"]) for r in got_res),
+        "groups_sharded": tfused.MESH_GROUPS["sharded"] - groups["sharded"],
+        "groups_unsharded": tfused.MESH_GROUPS["unsharded"] - groups["unsharded"],
+        "ms_per_page": mesh_s / n * 1e3, "unsharded_ms_per_page": plain_s / n * 1e3,
+        "launches": launches["stream"]}
+
+    # fused_ocr_chain with the trained heads
+    want_c = fused_ocr_chain(bp, op, *heads, stack, clip, **kw)
+    got_c = fused_ocr_chain(bp, op, *heads, stack, clip, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    row["chain_call"] = {
+        "stats_diffs": _stats_diffs(got_c[0], want_c[0]),
+        "token_row_diffs": int((got_c[1] != want_c[1]).any(dim=1).sum()),
+        "cls_logits_err": float((got_c[3] - want_c[3]).abs().max()),
+        "ner_label_diffs": int((got_c[4] != want_c[4]).sum())}
+    row["serve_s"] = time.perf_counter() - t_phase
+    emit({**row, "part": "serve"})
+
+    # (b) the world: train at full width, then the pipeline, expert and sequence legs
+    t0 = time.perf_counter()
+    images, tokens = _parallel_batch(shipped, op.tokenizer)
+    ranks = spawn_world(parallel_world_rank, PARALLEL_ENTRIES, args=(images, tokens),
+                        device="cuda", timeout_s=PARALLEL_WORLD_S)
+    row["world"] = {"ranks": [{k: v for k, v in r.items() if k != "train"} for r in ranks],
+                    "train": ranks[0]["train"], "seconds": time.perf_counter() - t0}
+    row["nccl"] = _nccl_world()
+    row["seconds"] = time.perf_counter() - t_phase
+    train_launches = {k: sum(r["launches"][k] for r in ranks)
+                      for k in ("flash_attention", "flash_attention_backward")}
+    row["world"]["train_launches"] = train_launches
+
+    pc, st, wd = row["pages_call"], row["stream"], row["world"]
+    layers = op.model.cfg.encoder.num_layers
+    row["within_limits"] = (
+        pc["stats_diffs"] == 0 and pc["token_row_diffs"] == 0
+        and pc["launches"]["crop_resize"].get("fused") == PARALLEL_ENTRIES
+        and pc["launches"]["flash_attention"].get("fused") == PARALLEL_ENTRIES * layers
+        and st["word_diffs"] == 0 and st["label_diffs"] == 0 and st["ner_diffs"] == 0
+        and st["groups_sharded"] == 1 and st["groups_unsharded"] == 0
+        and st["launches"]["crop_resize"].get("fused") == PARALLEL_ENTRIES
+        and st["launches"]["flash_attention"].get("fused") == PARALLEL_ENTRIES * layers
+        and st["launches"]["flash_attention"].get("heads") == 8 * PARALLEL_ENTRIES
+        and row["chain_call"]["stats_diffs"] == 0 and row["chain_call"]["token_row_diffs"] == 0
+        and row["chain_call"]["cls_logits_err"] <= PARALLEL_TOL
+        and row["chain_call"]["ner_label_diffs"] == 0
+        and all(r["backend"] == "gloo" and r["staged"] for r in wd["ranks"])
+        and all(t["loss_err"] <= PARALLEL_TOL and t["param_err"] <= PARALLEL_TOL
+                and t["grad_err"] <= PARALLEL_GRAD_LIMIT
+                and t["resolved_share"] > PARALLEL_RESOLVED
+                for t in wd["train"].values())
+        and all(leg["max_abs_err"] <= PARALLEL_TOL
+                for r in wd["ranks"] for leg in r["legs"].values())
+        and all(v > 0 for v in train_launches.values())
+        and row["nccl"]["backend"] == "nccl" and row["nccl"]["all_reduce"] == [0.0, 1.0, 2.0, 3.0])
+    emit(row)
+    if not row["within_limits"]:
+        raise AssertionError(f"parallel checks failed: {row}")
+    return {name: {"parallel_pages": launches["pages"][name].get("fused", 0),
+                   "parallel_fused": launches["stream"][name].get("fused", 0),
+                   "parallel_heads": launches["stream"][name].get("heads", 0),
+                   **({"parallel_train": train_launches[name]}
+                      if name == "flash_attention" else {})}
+            for name in ("crop_resize", "flash_attention")}, train_launches
+
+
 def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "marie_tpu_torch")):
@@ -5558,7 +5887,7 @@ def main() -> int:
     run("precision", phase_precision)
     _, setups, pages = run("slice", phase_slice)
     run("stream", phase_stream, setups["heatmap"], pages)
-    launches, chain_engines, chain_results = run("chain", phase_chain, setups, pages)
+    launches, chain_results = run("chain", phase_chain, setups, pages)
     cls_tree, ner_tree = run("layoutlm_base", phase_layoutlm_base, pages, chain_results)
     shipped = run("trained", load_shipped)
     trained_engine, trained_launches = run("trained", phase_trained, shipped)
@@ -5582,10 +5911,9 @@ def main() -> int:
     server_launches = run("server", phase_server, shipped, http_pages)
     gateway_launches = run("gateway", phase_gateway, shipped, http_pages)
     stateful_launches = run("stateful", phase_stateful, shipped, http_pages, grpc_p50_ms)
+    parallel_launches, parallel_train = run("parallel", phase_parallel, shipped, trained_engine)
     run("profile", phase_profile,
-        {"ink": (setups["ink"], pages), "heatmap": (setups["heatmap"], pages),
-         "chain_heatmap": (chain_engines["heatmap"], pages),
-         "trained": (trained_engine, shipped["pages"]),
+        {"trained": (trained_engine, shipped["pages"]),
          # one page: tracing the best engine's ~8,700 launches a page
          # costs the profiler ~8 s a page
          "best": (best, list(shipped["pages"][:1])), **extract_setups})
@@ -5615,11 +5943,13 @@ def main() -> int:
             **{f"grpc_{k}": v for k, v in grpc_launches[name].items() if k != "all"},
             **{f"server_{k}": v for k, v in server_launches[name].items()},
             **{f"gateway_{k}": v for k, v in gateway_launches[name].items()},
-            **{f"stateful_{k}": v for k, v in stateful_launches[name].items()}}
+            **{f"stateful_{k}": v for k, v in stateful_launches[name].items()},
+            **parallel_launches[name]}
     # the gradient runs only in the trainers: its launches are theirs
     k2_bwd["launches_by_path"] = {
-        run_name: counts["flash_attention_backward"].get("train", 0)
-        for run_name, counts in train_launches.items()}
+        **{run_name: counts["flash_attention_backward"].get("train", 0)
+           for run_name, counts in train_launches.items()},
+        "parallel_train": parallel_train["flash_attention_backward"]}
     k2_bwd["launches"] = sum(k2_bwd["launches_by_path"].values())
     emit({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3), "phase_s": phase_s})
     print(card, flush=True)

@@ -1,6 +1,8 @@
 """TrOCR recogniser (port of ``marie_tpu/models/trocr.py``): ViT encoder,
 transformer decoder with prefilled cross K/V and per-layer self caches,
-:func:`greedy_decode` and :func:`beam_decode`.
+:func:`greedy_decode` and :func:`beam_decode`, and the teacher-forced
+forward (:meth:`TrOCRModel.forward`, the training step's model: causal
+self-attention through the fused attention kernel).
 
 Each JAX decode is a ``lax.while_loop`` in one compiled program; here
 each is a Python loop that checks once per step whether every row is
@@ -40,6 +42,16 @@ class TrOCRDecoder(nn.Module):
         """Project encoder states to per-layer cross-attention K/V once."""
         return [layer.compute_cross_kv(enc) for layer in self.layers()]
 
+    def forward(self, tokens: torch.Tensor, cross_kvs: List[KV],
+                enc_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence teacher-forced logits [B, L, V] of tokens [B, L]
+        (training and scoring): causal self-attention, no caches."""
+        x = self.token_embed(tokens)
+        x = x + self.pos_embed[:, :tokens.shape[1]].to(x.dtype)
+        for layer, ckv in zip(self.layers(), cross_kvs):
+            x = layer(x, ckv, enc_len)
+        return self.lm_head(self.ln_f(x))
+
     def step(self, token: torch.Tensor, pos: int, cross_kvs: List[KV],
              enc_len: Optional[torch.Tensor], self_caches: List[KV]):
         """One decode step -> logits [B, V]; ``self_caches`` are written
@@ -65,8 +77,17 @@ class TrOCRModel(nn.Module):
     def prefill(self, enc: torch.Tensor) -> List[KV]:
         return self.decoder.prefill(enc)
 
+    def decode_full(self, tokens: torch.Tensor, cross_kvs: List[KV],
+                    enc_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decoder(tokens, cross_kvs, enc_len)
+
     def decode_step(self, token, pos, cross_kvs, enc_len, self_caches):
         return self.decoder.step(token, pos, cross_kvs, enc_len, self_caches)
+
+    def forward(self, images: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced forward (training): images [B, H, W, C], tokens
+        [B, L] -> logits [B, L, V]."""
+        return self.decode_full(tokens, self.prefill(self.encode(images)))
 
 
 @torch.no_grad()

@@ -27,6 +27,7 @@ runs one page through them and :func:`fused_collect_many` collects their
 ``"single"`` launch path.
 """
 
+import copy
 import queue
 import threading
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -41,6 +42,7 @@ from marie_tpu_torch.models.trocr import greedy_decode
 from marie_tpu_torch.ops.kernels._build import launch_path
 from marie_tpu_torch.ops.kernels.crop_resize import crop_resize
 from marie_tpu_torch.preprocess.ops import crop_resize_pages, fma
+from marie_tpu_torch.utils.device import resolve_mesh
 from marie_tpu_torch.utils.pack4 import PACKERS
 
 UPLOAD_FORMATS = ("u8",) + tuple(PACKERS)
@@ -147,6 +149,36 @@ def _rows_and_decode(pages_u8, trocr_model, boxes, stride, row_keep, page_of, cl
     return tokens, conf, b
 
 
+def _detect_keep(craft_model, pages_u8, packed, page0: int, n_real: int, text_threshold,
+                 low_text, link_threshold, min_area, max_components, box_source, cc_stats,
+                 cc_runs, allow_tf32):
+    """The page-local stages of :func:`compact_program` on pages ``page0``
+    onwards of a batch: unpack, detect, connected components and the
+    keep predicate (ladder-padding pages, index >= ``n_real``, keep
+    nothing).  Returns (pages unpacked, stats, keep [P, M])."""
+    pages_u8 = _unpack_bits(pages_u8, _norm_pack_bits(packed))
+    if pages_u8.ndim not in (3, 4):
+        raise ValueError("the page program takes [P, H, W] or [P, H, W, 3] pages")
+    stats = detect_core(craft_model, pages_u8, text_threshold, low_text, link_threshold,
+                        max_components, box_source, cc_stats=cc_stats, cc_runs=cc_runs,
+                        allow_tf32=allow_tf32)
+    keep = keep_predicate(stats, box_source, text_threshold, min_area)
+    page = torch.arange(page0, page0 + pages_u8.shape[0], device=pages_u8.device)
+    return pages_u8, stats, keep & (page[:, None] < n_real)
+
+
+def _compact_order(keep: torch.Tensor, total_slots: int):
+    """The global compaction: (order [T] of flat (page, slot) ids, kept
+    first, page-major then slot-ascending; page_of [T] int32; keep of each
+    row [T])."""
+    p, m = keep.shape
+    flat_keep = keep.reshape(-1)
+    gid = torch.arange(p * m, device=keep.device)
+    order = torch.argsort(torch.where(flat_keep, gid, p * m + gid), stable=True)[:total_slots]
+    page_of = torch.div(order, m, rounding_mode="floor").to(torch.int32)
+    return order, page_of, flat_keep[order]
+
+
 @torch.no_grad()
 def compact_program(
     craft_model: nn.Module,
@@ -180,30 +212,97 @@ def compact_program(
     Returns (stats, tokens [T, max_steps] int32, conf [T] float32, rows)
     with what the chained heads read, rows = (keep [P, M] bool, boxes
     [T, 4] float32 xyxy page pixels, clip [T, 2] of each row's page)."""
-    pages_u8 = _unpack_bits(pages_u8, _norm_pack_bits(packed))
-    if pages_u8.ndim not in (3, 4):
-        raise ValueError("the page program takes [P, H, W] or [P, H, W, 3] pages")
-    dev = pages_u8.device
-    p = pages_u8.shape[0]
-    stats = detect_core(craft_model, pages_u8, text_threshold, low_text,
-                        link_threshold, max_components, box_source,
-                        cc_stats=cc_stats, cc_runs=cc_runs, allow_tf32=allow_tf32)
-    m = stats["boxes"].shape[1]
+    pages_u8, stats, keep = _detect_keep(
+        craft_model, pages_u8, packed, 0, n_real, text_threshold, low_text, link_threshold,
+        min_area, max_components, box_source, cc_stats, cc_runs, allow_tf32)
+    p, m = keep.shape
     stride = stats["stride"][0].to(torch.float32)
-    keep = keep_predicate(stats, box_source, text_threshold, min_area)
-    keep = keep & (torch.arange(p, device=dev)[:, None] < n_real)
-
-    flat_keep = keep.reshape(-1)
-    gid = torch.arange(p * m, device=dev)
-    order = torch.argsort(torch.where(flat_keep, gid, p * m + gid),
-                          stable=True)[:total_slots]
-    page_of = torch.div(order, m, rounding_mode="floor").to(torch.int32)
-    clip = clip_whs.to(device=dev, dtype=torch.float32)[page_of.long()]
-    sel_keep = flat_keep[order]
+    order, page_of, sel_keep = _compact_order(keep, total_slots)
+    clip = clip_whs.to(device=pages_u8.device, dtype=torch.float32)[page_of.long()]
     tokens, conf, b = _rows_and_decode(
         pages_u8, trocr_model, stats["boxes"].reshape(p * m, 4)[order], stride, sel_keep,
         page_of, clip, box_expand, out_h, out_w, dtype, max_steps, active=sel_keep)
     return stats, tokens, conf, (keep, b, clip)
+
+
+@torch.no_grad()
+def mesh_compact_program(mesh, craft_models, trocr_models, pages_u8: torch.Tensor,
+                         clip_whs: torch.Tensor, n_real: int, text_threshold, low_text,
+                         link_threshold, min_area, box_expand, max_components, box_source,
+                         total_slots, out_h, out_w, dtype, max_steps, packed: int = 0,
+                         cc_stats: str = "runs_cc", cc_runs: int = 48,
+                         allow_tf32: bool = False):
+    """:func:`compact_program` over a local mesh, with the same result.
+
+    The page batch splits into one block of consecutive pages per mesh
+    entry (``craft_models[i]`` / ``trocr_models[i]`` are entry i's
+    copies).  Each entry runs the page-local stages on its block (unpack,
+    detector, CC, keep); the keep masks and stats are gathered on the
+    batch's device, where the compaction's order comes from the whole
+    keep mask, as unsharded; each entry then crops (K1) and decodes the
+    rows of its own pages, and the rows are put back in the compacted
+    order.  Returns what :func:`compact_program` returns, on the batch's
+    device."""
+    devs = mesh.local_devices
+    n, p = len(devs), int(pages_u8.shape[0])
+    if p % n:
+        raise ValueError(f"page batch {p} not divisible by mesh devices {n}")
+    per, home = p // n, pages_u8.device
+
+    def page_stages(i, dev):
+        return _detect_keep(craft_models[i], pages_u8[i * per:(i + 1) * per].to(dev), packed,
+                            i * per, n_real, text_threshold, low_text, link_threshold,
+                            min_area, max_components, box_source, cc_stats, cc_runs,
+                            allow_tf32)
+
+    parts = mesh.run_each(page_stages)
+    stats = {k: torch.cat([part[1][k].to(home) for part in parts]) for k in parts[0][1]}
+    keep = torch.cat([part[2].to(home) for part in parts])
+    m = keep.shape[1]
+    stride = stats["stride"][0].to(torch.float32)
+    order, page_of, sel_keep = _compact_order(keep, total_slots)
+    clip = clip_whs.to(device=home, dtype=torch.float32)[page_of.long()]
+    boxes = stats["boxes"].reshape(p * m, 4)[order]
+    owner = torch.div(page_of, per, rounding_mode="floor")
+    rows = [torch.nonzero(owner == i)[:, 0] for i in range(n)]
+
+    def shard_rows(i, dev):
+        r = rows[i]
+        if r.numel() == 0:
+            return None
+        keep_r = sel_keep[r].to(dev)
+        return _rows_and_decode(
+            parts[i][0], trocr_models[i], boxes[r].to(dev), stride.to(dev), keep_r,
+            (page_of[r] - i * per).to(dev), clip[r].to(dev), box_expand, out_h, out_w, dtype,
+            max_steps, active=keep_r)
+
+    outs = mesh.run_each(shard_rows)
+    done = [(r, o) for r, o in zip(rows, outs) if o is not None]
+    t, steps = order.shape[0], done[0][1][0].shape[1]
+    tokens = torch.empty((t, steps), dtype=torch.int32, device=home)
+    conf = torch.empty((t,), dtype=torch.float32, device=home)
+    b = torch.empty((t, 4), dtype=torch.float32, device=home)
+    for r, (tok, cf, bx) in done:
+        tokens[r], conf[r], b[r] = tok.to(home), cf.to(home), bx.to(home)
+    return stats, tokens, conf, (keep, b, clip)
+
+
+def mesh_models(processor, mesh, attr: str = "model") -> List[nn.Module]:
+    """A processor's model replicated once per local mesh, one per entry
+    (cached on the processor by the mesh's devices, as the JAX package
+    caches its replicated trees): entries on the model's own device share
+    it, every other device gets one copy."""
+    cache = processor.__dict__.setdefault("_mesh_model_cache", {})
+    key = (attr, tuple(str(d) for d in mesh.local_devices))
+    if key not in cache:
+        base = getattr(processor, attr)
+        own = next(base.parameters()).device
+        copies: Dict[str, nn.Module] = {str(own): base}
+        for dev in mesh.local_devices:
+            if str(dev) not in copies:
+                copies[str(dev)] = copy.deepcopy(base).to(dev)
+        cache[key] = [copies[str(dev)] for dev in mesh.local_devices]
+    return cache[key]
 
 
 def fused_pages_compact(*args, **kwargs) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
@@ -376,12 +475,20 @@ def fused_ocr_pages(
         ``P * compact_slots``).
 
     Returns (stats, tokens, conf) on the device (row alignment contract
-    in the module docstring)."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is ROADMAP §1 item 9")
+    in the module docstring).
+
+    ``mesh``: a local :class:`~marie_tpu_torch.parallel.mesh.Mesh` (or
+    ``"local"``, see :func:`~marie_tpu_torch.utils.device.resolve_mesh`):
+    the page batch splits over its entries and both models are
+    replicated once per mesh (:func:`mesh_compact_program`); the batch
+    must divide by the entry count.  The result equals the call without
+    a mesh."""
     bp, op = box_processor, ocr_processor
+    mesh = resolve_mesh(mesh, bp.device)
     pack_bits = _norm_pack_bits(packed)
     p = int(pages.shape[0])
+    if mesh is not None and p % mesh.size:
+        raise ValueError(f"page batch {p} not divisible by mesh devices {mesh.size}")
     if clip_whs is None:
         h = int(pages.shape[1])
         w = int(pages.shape[2]) * (8 // pack_bits if pack_bits else 1)
@@ -389,9 +496,14 @@ def fused_ocr_pages(
     pages = torch.as_tensor(pages).to(bp.device)
     clip_whs = torch.as_tensor(clip_whs, dtype=torch.float32).to(bp.device)
     total_slots = p * compact_slots if total_slots is None else total_slots
+    n_real = p if n_real is None else int(n_real)
     with launch_path("fused"):
+        if mesh is not None:
+            return mesh_compact_program(
+                mesh, mesh_models(bp, mesh), mesh_models(op, mesh), pages, clip_whs, n_real,
+                *program_args(bp, op, total_slots), packed=pack_bits, **cc_kwargs(bp))[:3]
         return fused_pages_compact(
-            bp.model, op.model, pages, clip_whs, p if n_real is None else int(n_real),
+            bp.model, op.model, pages, clip_whs, n_real,
             *program_args(bp, op, total_slots),
             packed=pack_bits, **cc_kwargs(bp))
 
@@ -577,6 +689,16 @@ class _DeviceThread:
 # process-wide, as the per-thread caches it keeps warm are
 _DEVICE = _DeviceThread()
 
+#: stream groups run with a mesh: split over it, or whole because their
+#: padded size does not divide by its entry count
+MESH_GROUPS: Dict[str, int] = {"sharded": 0, "unsharded": 0}
+_MESH_GROUPS_LOCK = threading.Lock()
+
+
+def _count_group(kind: str) -> None:
+    with _MESH_GROUPS_LOCK:
+        MESH_GROUPS[kind] += 1
+
 
 def fused_dispatch_stream(box_processor, ocr_processor, images,
                           rec_slots: int = 256, page_batch: int = 4,
@@ -603,11 +725,17 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
 
     ``chain``: a (classifier, indexer) pair whose heads run in each
     group's program (:func:`marie_tpu_torch.ocr.fused_chain.fused_ocr_chain`);
-    their outputs ride on the handle."""
+    their outputs ride on the handle.
+
+    ``mesh``: a local mesh (as :func:`fused_ocr_pages` takes it).  A group
+    whose padded size divides by its entry count is split over it; any
+    other group runs whole on the processors' device, as the JAX stream
+    runs it unsharded (``mesh_used=None``), and adds one to
+    :data:`MESH_GROUPS`'s ``"unsharded"``.  Each entry's work runs on the
+    entry's kept thread."""
     from marie_tpu_torch.ocr.fused_chain import fused_ocr_chain
 
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is ROADMAP §1 item 9")
+    mesh = resolve_mesh(mesh, box_processor.device)
     if upload_format not in UPLOAD_FORMATS:
         raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "
                          f"got {upload_format!r}")
@@ -624,14 +752,17 @@ def fused_dispatch_stream(box_processor, ocr_processor, images,
             preps, group, page_batch, upload_format, device)
         total_slots = psize * compact_slots
         heads = None
+        used = mesh if mesh is not None and psize % mesh.size == 0 else None
+        if mesh is not None:
+            _count_group("sharded" if used is not None else "unsharded")
         if chain is None:
             stats, tokens, conf = fused_ocr_pages(
                 bp, op, pages, clip, n_real=len(group),
-                total_slots=total_slots, packed=packed)
+                total_slots=total_slots, packed=packed, mesh=used)
         else:
             stats, tokens, conf, *heads = fused_ocr_chain(
                 bp, op, *chain, pages, clip, n_real=len(group),
-                total_slots=total_slots, packed=packed)
+                total_slots=total_slots, packed=packed, mesh=used)
             heads = tuple(_to_host(t) for t in heads)
         stats = {k: _to_host(v) for k, v in stats.items()}
         tokens, conf = _to_host(tokens), _to_host(conf)

@@ -21,9 +21,13 @@ WORD, RAW_LINE and MULTI_LINE pages are cut into host fragments
 (``TrOcrProcessor.recognize_from_fragments``).  ``regions`` cuts each
 region out of its page and extracts it in its own mode.
 
-``mesh="local"`` is taken as the JAX engine takes it: on one device (the
-CPU, or a machine with one card) it is no mesh at all.  A mesh over more
-than one card, or a mesh object, is refused (ROADMAP §1 item 9).
+``mesh`` is taken as the JAX engine takes it: ``"local"`` is a local
+mesh over every visible card where there are two or more, and no mesh on
+the CPU or on one card; a :class:`~marie_tpu_torch.parallel.mesh.Mesh`
+is taken as it is (:func:`~marie_tpu_torch.utils.device.resolve_mesh`).
+The fused path splits each page group whose padded size divides by the
+mesh's entry count over the entries, and runs any other group whole
+(:func:`~marie_tpu_torch.ocr.fused.fused_dispatch_stream`).
 """
 
 from typing import Any, Dict, List, Optional
@@ -145,7 +149,7 @@ class PipelineOcrEngine:
             self.box_processor, self.ocr_processor, frames,
             rec_slots=self.rec_slots, page_batch=group_size,
             compact_slots=self.compact_slots, upload_format=self.upload_format,
-            chain=(None if self.classifier is None or self.indexer is None
+            mesh=self.mesh, chain=(None if self.classifier is None or self.indexer is None
                    else (self.classifier, self.indexer)),
         ):
             n = handle_page_count(handle)

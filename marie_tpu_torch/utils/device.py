@@ -24,21 +24,24 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-def resolve_mesh(mesh, device: DeviceLike = "cuda") -> None:
-    """The JAX engine's ``mesh`` argument on the port: ``None``, or
-    ``"local"`` where the device's kind has one device (the CPU, or a
-    machine with one card), is no mesh.  ``"local"`` over more cards, or a
-    mesh object, raises: a device mesh is ROADMAP §1 item 9."""
-    if mesh is None:
-        return None
+def resolve_mesh(mesh, device: DeviceLike = "cuda"):
+    """The JAX engine's ``mesh`` argument on the port: ``None`` is no mesh;
+    ``"local"`` is a local :class:`~marie_tpu_torch.parallel.mesh.Mesh`
+    over every visible card where there are two or more, and no mesh on
+    the CPU or on one card (as ``marie_tpu/ocr/ocr_engine.py`` builds
+    one only over several local devices); a port ``Mesh`` is taken as it
+    is.  Anything else raises ``TypeError``."""
+    from marie_tpu_torch.parallel.mesh import Mesh, create_mesh, visible_devices
+
+    if mesh is None or isinstance(mesh, Mesh):
+        return mesh
     if isinstance(mesh, str) and mesh == "local":
         dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cpu" or torch.cuda.device_count() == 1:
+        if dev.type == "cpu" or torch.cuda.device_count() < 2:
             return None
-        raise NotImplementedError(
-            f"mesh='local' over {torch.cuda.device_count()} cards: a device mesh is "
-            "ROADMAP §1 item 9")
-    raise NotImplementedError(f"a device mesh ({type(mesh).__name__}) is ROADMAP §1 item 9")
+        return create_mesh(axis_names=("pages",), devices=visible_devices())
+    raise TypeError(f"mesh must be None, 'local' or a marie_tpu_torch Mesh, "
+                    f"got {type(mesh).__name__}")
 
 
 def set_parity_precision() -> None:

@@ -283,9 +283,11 @@ def test_dispatch_stream_propagates_worker_errors(processors, monkeypatch):
 
 
 def test_engine_refuses_what_is_not_ported(processors, monkeypatch):
-    """What the port does not take yet raises, naming its ROADMAP item:
-    a device mesh (item 9); ``mesh="local"`` on one device is no mesh, as
-    in the JAX engine.  The other CC stats variants are ported:
+    """The engine's ``mesh``: ``"local"`` on one device is no mesh, as in
+    the JAX engine; a port mesh is taken as it is; any other object is
+    refused with ``TypeError``, and a page group that does not divide by
+    the mesh's entries raises ``ValueError`` in the page program.  The
+    other CC stats variants are ported:
     ``cc_stats="sort"`` gives the JAX detector's stats under
     ``MARIE_CC_STATS=sort``.  Beam search and the ``best`` engine are
     ported: a beam processor builds (and is kept off the fused path, as
@@ -297,9 +299,15 @@ def test_engine_refuses_what_is_not_ported(processors, monkeypatch):
     from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
 
     (jbp, _), (tbp, top) = processors
+    from marie_tpu_torch.parallel import create_mesh
+
     assert PipelineOcrEngine(tbp, top, mesh="local").mesh is None
-    with pytest.raises(NotImplementedError, match="item 9"):
+    mesh = create_mesh((2,), ("pages",), devices=["cpu", "cpu"])
+    assert PipelineOcrEngine(tbp, top, mesh=mesh).mesh is mesh
+    with pytest.raises(TypeError, match="mesh must be"):
         PipelineOcrEngine(tbp, top, mesh=object())
+    with pytest.raises(ValueError, match="not divisible by mesh devices 2"):
+        tfused.fused_ocr_pages(tbp, top, np.stack([_page(s) for s in (3, 4, 5)]), mesh=mesh)
     with pytest.raises(ValueError):
         PipelineOcrEngine(tbp, top, upload_format="u3")
     beam = TrOcrProcessor(tcfg.TrOCRConfig.tiny(), beam_size=5, device="cpu")

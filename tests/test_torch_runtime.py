@@ -81,17 +81,27 @@ def test_mesh_local_is_no_mesh_on_one_device():
 
 
 def test_mesh_refusals_name_item_9(monkeypatch):
+    """``resolve_mesh`` takes what the JAX engine takes: None and
+    ``"local"`` on one device are no mesh, ``"local"`` over several cards
+    is a local mesh over each card once, a port mesh is itself; any other
+    object or string raises ``TypeError``."""
+    from marie_tpu_torch.parallel import Mesh, create_mesh
+
     assert resolve_mesh(None, "cpu") is None
     assert resolve_mesh("local", "cpu") is None
-    with pytest.raises(NotImplementedError, match="item 9"):
+    mesh = create_mesh((2,), ("pages",), devices=["cpu", "cpu"])
+    assert resolve_mesh(mesh, "cpu") is mesh
+    with pytest.raises(TypeError, match="mesh must be"):
         resolve_mesh(object(), "cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="mesh must be"):
         resolve_mesh("pages", "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert resolve_mesh("local", "cuda") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="4 cards.*item 9"):
-        resolve_mesh("local", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    local = resolve_mesh("local", "cuda")
+    assert isinstance(local, Mesh) and local.shape == {"pages": 4}
+    assert local.local_devices == [torch.device("cuda", i) for i in range(4)]
 
 
 def test_time_context_tpu_on_cpu_tensors(monkeypatch):
