@@ -48,7 +48,12 @@ at the trainers' shapes, one AdamW step card against CPU, the splitter,
 the chained heads and the reading-order ranker at their scripts'
 settings, each held to the JAX-trained tree's held-out figures
 (``golden_train.json``) less 0.03, and 5 steps at LayoutLMv3-base width
-(``train``); checks the runtime glue (``mesh="local"``, ``TimeContextTPU``, the system
+(``train``); trains the OCR models on renders of the glyph atlas: K2 and
+its gradient at the recognizer's shapes, one step card against CPU of the
+recognizer, the CRNN and CRAFT (float64), warm starts of the three zoo
+trees held to ``golden_train.json``'s held-out figures measured on PIL's
+renders (CRAFT also in the engine on the 16 pages), and an untrained
+recognizer's first steps (``ocr_train``); checks the runtime glue (``mesh="local"``, ``TimeContextTPU``, the system
 metrics, the version table, and the numpy JPEG and G4 codecs against
 PIL's digests) (``runtime``); holds the rotated IoU, NMS and ROIAlign
 and the deformable convolution to the CPU (``rotated``); runs the
@@ -399,9 +404,9 @@ def _page_word_counts(b: int, cap: int):
     capped at ``cap`` tokens."""
     import torch
 
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
 
-    with open(os.path.join(ZOO_DIR, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         pages = json.load(f)["pages"][:b]
     if len(pages) != b:
         raise AssertionError(f"{len(pages)} golden pages, not {b}")
@@ -1312,12 +1317,12 @@ def load_shipped():
     package by ``scripts/export_torch_zoo.py``); missing files fail."""
     import numpy as np
 
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json
 
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         shipped = {k: data[k] for k in data.files}
     for name in ("truth", "golden"):
-        with open(os.path.join(ZOO_DIR, f"{name}.json")) as f:
+        with open_zoo_json(name) as f:
             shipped[name] = json.load(f)
     return shipped
 
@@ -1607,9 +1612,9 @@ def phase_best(shipped):
 
     from marie_tpu_torch.enums import PSMode
     from marie_tpu_torch.ocr.voting_ocr_engine import VotingOcrEngine
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
 
-    with open(os.path.join(ZOO_DIR, "golden_best.json")) as f:
+    with open_zoo_json("golden_best") as f:
         golden = json.load(f)
     engine = best_engine("cuda")
     pages = list(shipped["pages"])
@@ -1761,9 +1766,9 @@ def phase_classify(shipped, trained_engine, cls_tree):
     from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
     from marie_tpu_torch.pipe import ClassificationPipeline
     from marie_tpu_torch.registry.convert import init_flax_layout
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
 
-    with open(os.path.join(ZOO_DIR, "golden_classify.json")) as f:
+    with open_zoo_json("golden_classify") as f:
         golden = json.load(f)
     seeds, labels = golden["settings"]["seeds"], tuple(golden["settings"]["labels"])
     if seeds["classifier"] != SEED + 10:
@@ -2057,10 +2062,10 @@ def phase_extract(shipped, cls_tree, ner_tree):
     from marie_tpu_torch.ocr.util import craft_box_processor, trocr_processor
     from marie_tpu_torch.overlay.overlay import OverlayProcessor, _segment_batch_gray
     from marie_tpu_torch.pipe import ExtractPipeline
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
     from marie_tpu_torch.utils.image_io import encode_jpeg, write_png
 
-    with open(os.path.join(ZOO_DIR, "golden_extract.json")) as f:
+    with open_zoo_json("golden_extract") as f:
         golden = json.load(f)
     settings = golden["settings"]
     if settings["seeds"]["classifier"] != SEED + 10 or settings["seeds"]["indexer"] != SEED + 11:
@@ -2434,10 +2439,10 @@ def phase_register(shipped):
     from marie_tpu_torch.ocr.util import craft_box_processor, trocr_processor
     from marie_tpu_torch.overlay.overlay import OverlayProcessor
     from marie_tpu_torch.pipe import ExtractPipeline
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
     from marie_tpu_torch.utils.image_io import read_png
 
-    with open(os.path.join(ZOO_DIR, "golden_register.json")) as f:
+    with open_zoo_json("golden_register") as f:
         golden = json.load(f)
     pages = list(shipped["pages"])
     n, (h, w) = len(pages), pages[0].shape
@@ -3000,10 +3005,10 @@ def phase_detectors(shipped, trained_engine):
     from marie_tpu_torch.ocr.util import trocr_processor
     from marie_tpu_torch.preprocess.ops import normalize_page
     from marie_tpu_torch.registry.convert import init_flax_layout
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
     from marie_tpu_torch.utils.device import float32_precision
 
-    with open(os.path.join(ZOO_DIR, "golden_detectors.json")) as f:
+    with open_zoo_json("golden_detectors") as f:
         golden = json.load(f)
     pages = list(shipped["pages"])
     n, (h, w) = len(pages), pages[0].shape
@@ -3325,9 +3330,9 @@ def phase_reading_order(shipped, trained_engine):
     from marie_tpu_torch.document.layoutreader import page_word_boxes, reorder_page_result
     from marie_tpu_torch.models.reading_order import ReadingOrderConfig, TextLayout
     from marie_tpu_torch.registry.convert import init_flax_layout
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
 
-    with open(os.path.join(ZOO_DIR, "golden_reading_order.json")) as f:
+    with open_zoo_json("golden_reading_order") as f:
         golden = json.load(f)
     if golden["settings"]["seed"] != READING_ORDER_SEED:
         raise AssertionError("golden_reading_order.json is of another seed")
@@ -3412,7 +3417,44 @@ TRAIN_K2_CASES = [
     ("chain_heads", (32, 4, 192, 192, 64), False, "chain"),
     ("classifier_base", (8, 12, 512, 512, 64), False, "base"),
     ("causal_d64", (8, 4, 160, 128, 64), True, [128, 0, 100, 64, 1, 128, 37, 90]),
+    # the recognizer's teacher-forced step (fast_v3_g2_d6, batch 128): the
+    # encoder's 20 patch tokens, the decoder's causal self-attention over
+    # the 31 input tokens; no kv_len (None), as the model calls K2
+    ("recognizer_encoder", (128, 6, 20, 20, 64), False, None),
+    ("recognizer_decoder", (128, 6, 31, 31, 64), True, None),
 ]
+#: the cases of TRAIN_K2_CASES the ``ocr_train`` phase times (``train`` the rest)
+OCR_K2_CASES = ("recognizer_encoder", "recognizer_decoder")
+
+#: ``ocr_train``: the trees, the recognizer recipe of scripts/round4_chain4.sh,
+#: and the held-out sets of golden_train.json's "ocr" entry
+OCR_TREES = {"recognizer": "trocr-fast3g2d6ov-synth", "crnn": "crnn-synth",
+             "craft": "craft-s2d2-synth"}
+RECOGNIZER_RECIPE = dict(rotate_deg=2.0, text_mode="open", font_sizes=(14, 18, 20, 24, 30),
+                         bold_p=0.35, shear_p=0.15)
+OCR_HELDOUT_SEED = TRAIN_SEED + 9999  # train_recognizer_device's held-out seed
+OCR_EVAL_CROPS = 512
+CRNN_WIDTH = 256  # train_crnn_device's crop width
+CRAFT_PAGE_HW = (512, 384)  # train_craft_device's pages
+CRAFT_EVAL_PAGES = 32
+RENDER_FIDELITY = 0.01  # the zoo tree's CER on the port's renders, against PIL's golden
+CRAFT_LOSS_FIDELITY = 1e-3  # relative: the zoo CRAFT's held-out loss, against the golden's
+#: CRAFT's float32 card step against its float64 one: the largest gradient
+#: difference, of its leaf's largest (PERF.md: the sound readings and the
+#: planted faults' of scripts/craft_float32_gap.py)
+CRAFT_FLOAT32_GAP = 0.10
+#: relative: the fine-tuned CRAFT's held-out loss over the zoo tree's
+#: (64 pages overfit in 200 steps; the planted faults' readings in PERF.md)
+CRAFT_TUNED_SLACK = 0.07
+ENGINE_DELTA = 0.03  # the fine-tuned CRAFT in the engine: recall and precision, of golden.json's
+#: the warm starts: steps, the block they draw from, and a tenth of each
+#: recipe's peak learning rate (the zoo trees are trained to the end of
+#: their schedules; a fresh warmup to the full peak would first undo them)
+OCR_WARM = {"recognizer": dict(steps=300, dataset_size=2048, learning_rate=3e-5),
+            "crnn": dict(steps=300, dataset_size=2048, learning_rate=1e-4),
+            "craft": dict(steps=200, dataset_size=64, learning_rate=5e-5)}
+OCR_STEP_BATCH = {"recognizer": 16, "crnn": 16, "craft": 4}
+OCR_COLD_STEPS = 40  # (d): steps from an untrained recognizer
 
 
 def _train_kv_len(source, b, s):
@@ -3431,6 +3473,8 @@ def _train_kv_len(source, b, s):
 
     rng = np.random.default_rng(TRAIN_SEED)
     labels = tuple(tl.CLASS_POOLS)
+    if source is None:
+        return None
     if isinstance(source, list):
         lens = np.asarray(source)
     elif source == "reading_order":
@@ -3463,18 +3507,20 @@ def _bwd_work(mask, h, d):
     return nbytes, flops
 
 
-def _train_kernel_rows():
+def _train_kernel_rows(names, phase: str = "train"):
     """(a): K2's gradient kernel against autograd of the plain version on
-    the card at the trainers' shapes; times cold and warm, the bound, the
-    plain version's and SDPA forward + backward (the record's yardstick).
-    Returns the kernels line's row (the reading-order B=64 case)."""
+    the card at the TRAIN_K2_CASES named; times cold and warm, the bound,
+    the plain version's and SDPA forward + backward (the record's
+    yardstick).  Returns {case: its kernels-line row}."""
     import torch
     import torch.nn.functional as F
 
     from marie_tpu_torch.ops.kernels import flash_attention as k2
 
-    row = None
+    rows = {}
     for i, (name, (b, h, sq, skv, d), causal, source) in enumerate(TRAIN_K2_CASES):
+        if name not in names:
+            continue
         kv_len = _train_kv_len(source, b, skv)
         scale = d ** -0.5
         nbytes_in = 4 * (b * h * (2 * sq + 2 * skv) * d)
@@ -3527,9 +3573,10 @@ def _train_kernel_rows():
                  "bound_ms": max(bound_bytes, bound_ops),
                  "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
                  "library_ms": t_lib["cold"]}
-        emit({"phase": "train", "part": "k2_backward", "case": name,
+        emit({"phase": phase, "part": "k2_backward", "case": name,
               "shape": [b, h, sq, skv, d], "causal": causal,
-              "kv_len_mean": float(kv_len.float().mean()), "rel_err": errs,
+              "kv_len_mean": float(skv if kv_len is None else kv_len.float().mean()),
+              "rel_err": errs,
               "limit": TRAIN_BWD_LIMIT, "copies": copies, "bound_bytes": nbytes,
               "bound_flops": flops, "warm_ms": t_kernel["warm"],
               "plain_warm_ms": t_plain["warm"], "fwd_bwd_ms": t_fwd_bwd["cold"],
@@ -3538,22 +3585,31 @@ def _train_kernel_rows():
                                                       else ""),
               "library_warm_ms": t_lib["warm"],
               "bound_simt_ms": max(bound_bytes, flops / H100_FLOPS["fp32"] * 1e3), **entry})
-        if name == "reading_order_b64":
-            row = entry
-    return row
+        rows[name] = entry
+    return rows
 
 
-def _invariant_param(name: str, ranker: bool) -> bool:
+def _invariant_param(name: str, kind: str) -> bool:
     """Parameters the loss does not depend on: the attention key biases
-    (softmax is shift invariant in each row) and, for the reading-order
+    (softmax is shift invariant in each row); for the reading-order
     ranker, the score head's and ``ln_f``'s biases (they shift every score
-    alike, and the loss sees only differences)."""
-    return name.endswith("attn.kv.k.bias") or (ranker and name in ("head.bias", "ln_f.bias"))
+    alike, and the loss sees only differences); for CRAFT, a convolution's
+    bias right before a batch-statistics BatchNorm (the batch mean takes
+    it out again)."""
+    return (name.endswith("kv.k.bias")
+            or (kind == "ranker" and name in ("head.bias", "ln_f.bias"))
+            or (kind == "craft" and name.endswith("Conv_0.bias")
+                and not name.startswith("head_out")))
 
 
-def _one_step(model, loss_fn, batch, ranker):
-    """One AdamW step at the trainers' peak learning rate: (loss, {name:
-    grad}, {name: updated parameter}), the tensors copied to the host."""
+def _one_step(model, loss_fn, batch, lr, weight_decay, clip_norm=None, trainable=None,
+              after=None):
+    """One AdamW step at the constant learning rate ``lr`` over
+    ``trainable`` (default: every parameter), clipped first where
+    ``clip_norm`` is given; ``after(model)`` runs after it (CRAFT's
+    running-statistics update).  Returns (loss, {name: grad}, {name:
+    updated tensor}, {name: BatchNorm running statistic}), the tensors
+    copied to the host in float64."""
     import numpy as np
     import torch
 
@@ -3561,45 +3617,62 @@ def _one_step(model, loss_fn, batch, ranker):
     from marie_tpu_torch.train.loop import StepTrainer
     from marie_tpu_torch.utils.device import float32_precision
 
-    trainer = StepTrainer(model, loss_fn, lambda count: np.float32(TRAIN_STEP_LR),
-                          weight_decay=1e-4 if ranker else 0.01)
+    tensors = dict(model.named_parameters())
+    if trainable is not None:
+        ids = {id(t) for t in trainable}
+        tensors.update(model.named_buffers())
+        tensors = {n: t for n, t in tensors.items() if id(t) in ids}
+    trainer = StepTrainer(model, loss_fn, lambda count: np.float32(lr), weight_decay=weight_decay,
+                          clip_norm=clip_norm, params=trainable)
     with float32_precision(False), launch_path("train"):
         out = loss_fn(*batch)
         loss = out[0] if isinstance(out, tuple) else out
         loss.backward()
-    grads = {n: p.grad.detach().cpu() if p.grad is not None else torch.zeros(p.shape)
-             for n, p in model.named_parameters()}
+    grads = {n: t.grad.detach().double().cpu() if t.grad is not None
+             else torch.zeros(t.shape, dtype=torch.float64) for n, t in tensors.items()}
     trainer.opt.step()
-    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
-    return float(loss.detach()), grads, params
+    if after is not None:
+        after(model)
+    params = {n: t.detach().double().cpu() for n, t in tensors.items()}
+    stats = {n: b.detach().double().cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return float(loss.detach()), grads, params, stats
 
 
-def _step_card_vs_cpu(name, config, head, data, ranker):
-    """(b) for one model: the same tree and batch on the card and the
-    CPU."""
+def _step_card_vs_cpu(name, config, tree, make, data, kind, weight_decay, launches,
+                      head=None, phase="train", lr=TRAIN_STEP_LR, clip_norm=None,
+                      dtype_name="float32", after=None):
+    """(b) for one model: one AdamW step (``_one_step``) on the card and
+    the CPU from the same flax-layout ``tree`` and batch ``data`` (numpy;
+    floating arrays cast to ``dtype_name``).  ``make(model)`` gives (the
+    loss function, the tensors to step or None for every parameter).
+    Holds the loss, every gradient leaf, the updated parameters where the
+    gradient resolves, the BatchNorm running statistics, no leaf the loss
+    reaches left without a gradient on the card, and K2's forward and
+    gradient launched ``launches`` times each on ``"train"``."""
     import torch
 
-    from marie_tpu_torch.registry.convert import init_flax_defaults
-    from marie_tpu_torch.train.layout import head_loss
+    from marie_tpu_torch.train import batchnorm
     from marie_tpu_torch.train.loop import init_module
-    from marie_tpu_torch.train.reading_order import pairwise_rank_loss
 
-    tree = init_flax_defaults(config, TRAIN_SEED + 90, head)
+    dtype = getattr(torch, dtype_name)
     runs = {}
     for dev in ("cuda", "cpu"):
-        model = init_module(config, head, 0, tree, dev)
+        model = init_module(config, head, 0, tree, dev).to(dtype)
+        loss_fn, trainable = make(model)
         batch = [torch.from_numpy(a).to(next(model.parameters()).device) for a in data]
-        if ranker:
-            def loss_fn(boxes, ranks, n_valid, model=model):
-                return pairwise_rank_loss(model(boxes, n_valid), ranks, n_valid)
-        else:
-            loss_fn = head_loss(model, head)
+        batch = [b.to(dtype) if b.is_floating_point() else b for b in batch]
         _reset_counts()
-        runs[dev] = _one_step(model, loss_fn, batch, ranker)
+        try:
+            runs[dev] = _one_step(model, loss_fn, batch, lr, weight_decay, clip_norm, trainable,
+                                  after)
+        finally:
+            batchnorm.restore(model)
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = _read_train_counts()
-    (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+        del model
+    (l_card, g_card, p_card, s_card), (l_cpu, g_cpu, p_cpu, s_cpu) = runs["cuda"], runs["cpu"]
     top = max(float(g.abs().max()) for g in g_cpu.values())
     grad_err, param_err, noise, dropped = 0.0, 0.0, 0.0, []
     # Adam's first step moves a parameter by lr * g / (|g| + eps), about lr
@@ -3609,38 +3682,40 @@ def _step_card_vs_cpu(name, config, head, data, ranker):
     band_err, band_count, elements = 0.0, 0, 0
     for n, g in g_cpu.items():
         elements += g.numel()
-        if _invariant_param(n, ranker):
+        diff = (p_card[n] - p_cpu[n]).abs()
+        if _invariant_param(n, kind):
             noise = max(noise, float(g.abs().max()) / top, float(g_card[n].abs().max()) / top)
-            band_err = max(band_err, float((p_card[n] - p_cpu[n]).abs().max()))
+            band_err = max(band_err, float(diff.max()))
             continue
         if float(g_card[n].abs().max()) == 0.0:
             dropped.append(n)
         leaf_top = float(g.abs().max())
         grad_err = max(grad_err, float((g_card[n] - g).abs().max()) / leaf_top)
         resolved = g.abs() >= TRAIN_GRAD_LIMIT * leaf_top
-        diff = (p_card[n] - p_cpu[n]).abs()
         param_err = max(param_err, float(diff[resolved].max()))
         band_count += int((~resolved & (g != 0)).sum())
         if bool((~resolved).any()):
             band_err = max(band_err, float(diff[~resolved].max()))
+    stats_err = max((float((s_card[n] - s_cpu[n]).abs().max()) for n in s_cpu), default=0.0)
     loss_err = abs(l_card - l_cpu) / abs(l_cpu)
-    layers = config.num_layers
-    row = {"model": name, "loss_card": l_card, "loss_cpu": l_cpu, "loss_rel_err": loss_err,
-           "grad_rel_err": grad_err, "param_err": param_err, "invariant_noise": noise,
+    row = {"model": name, "dtype": dtype_name, "batch": len(data[0]), "loss_card": l_card,
+           "loss_cpu": l_cpu, "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+           "param_err": param_err, "bn_stats_err": stats_err, "invariant_noise": noise,
            "unresolved_nonzero_grads": band_count, "elements": elements,
            "unresolved_param_err": band_err, "dropped": dropped, "leaves": len(g_cpu),
            "launches": counts}
-    emit({"phase": "train", "part": "step_card_vs_cpu", **row,
+    emit({"phase": phase, "part": "step_card_vs_cpu", **row,
           "limits": {"loss": TRAIN_LOSS_LIMIT, "grad": TRAIN_GRAD_LIMIT,
-                     "param": TRAIN_PARAM_LIMIT, "noise": TRAIN_NOISE,
-                     "unresolved_param": 2 * TRAIN_STEP_LR}})
+                     "param": TRAIN_PARAM_LIMIT, "bn_stats": TRAIN_PARAM_LIMIT,
+                     "noise": TRAIN_NOISE, "unresolved_param": 2 * lr}})
     if (loss_err > TRAIN_LOSS_LIMIT or grad_err > TRAIN_GRAD_LIMIT
-            or param_err > TRAIN_PARAM_LIMIT or noise > TRAIN_NOISE or dropped
-            or band_err > 2 * TRAIN_STEP_LR):
-        raise AssertionError(f"train step card vs CPU outside the limits: {row}")
-    if (counts["flash_attention"].get("train") != layers
-            or counts["flash_attention_backward"].get("train") != layers):
-        raise AssertionError(f"train step launches: {counts}")
+            or param_err > TRAIN_PARAM_LIMIT or stats_err > TRAIN_PARAM_LIMIT
+            or noise > TRAIN_NOISE or dropped or band_err > 2 * lr):
+        raise AssertionError(f"{name} step card vs CPU outside the limits: {row}")
+    if (counts["flash_attention"].get("train", 0) != launches
+            or counts["flash_attention_backward"].get("train", 0) != launches):
+        raise AssertionError(f"{name} step launches: {counts}")
+    return row
 
 
 def _read_train_counts():
@@ -3652,29 +3727,32 @@ def _read_train_counts():
     return counts
 
 
-def _timed_run(label, fn, steps, layers, evals):
-    """Run a trainer with counts reset before and read after; fails
-    unless K2 launched forward (steps + held-out forwards) and backward
-    (steps) times a layer on ``"train"``.  Returns (result, row)."""
+def _timed_run(label, fn, expect_fwd, expect_bwd):
+    """Run a trainer with the counts reset before and read after, peak
+    memory tracked; fails unless K2 launched forward and backward the
+    predicted times, all on ``"train"``.  Returns (result, row, counts)."""
     import torch
 
     timing = {}
     _reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = fn(timing)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_train_counts()
     fwd, bwd = counts["flash_attention"], counts["flash_attention_backward"]
-    if (fwd.get("train") != (steps + evals) * layers or bwd.get("train") != steps * layers
-            or fwd.get("all") != fwd.get("train") or bwd.get("all") != bwd.get("train")):
-        raise AssertionError(f"{label}: K2 launches {counts}, expected {steps} steps of "
-                             f"{layers} layers and {evals} held-out forwards")
+    if (fwd.get("all", 0) != expect_fwd or bwd.get("all", 0) != expect_bwd
+            or fwd.get("all", 0) != fwd.get("train", 0)
+            or bwd.get("all", 0) != bwd.get("train", 0)):
+        raise AssertionError(f"{label}: K2 launches {counts}, predicted forward {expect_fwd} "
+                             f"and backward {expect_bwd} on \"train\"")
     row = {"steps": timing["steps"], "ms_per_step": timing["ms_per_step"],
-           "steps_per_s": timing["steps_per_s"], "train_s": timing["train_s"],
-           "wall_s": wall, "k2_forward_launches": fwd.get("train"),
-           "k2_backward_launches": bwd.get("train")}
+           "steps_per_s": timing["steps_per_s"], "train_s": timing["train_s"], "wall_s": wall,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "k2_forward_launches": fwd.get("train", 0),
+           "k2_backward_launches": bwd.get("train", 0)}
     return out, row, counts
 
 
@@ -3682,6 +3760,36 @@ def _gate(label, got, want):
     if not got >= want - TRAIN_GATE:
         raise AssertionError(f"{label}: held-out {got} below the JAX-trained tree's {want} "
                              f"less {TRAIN_GATE}")
+
+
+def _layout_steps_card_vs_cpu():
+    """``train`` (b): one step, card against CPU, of a ``LayoutLMConfig.
+    synth(2)`` splitter and of the ``ReadingOrderConfig.base()`` ranker."""
+    import numpy as np
+
+    from marie_tpu_torch.components.word_tokenizer import HashWordTokenizer
+    from marie_tpu_torch.models.configs import LayoutLMConfig
+    from marie_tpu_torch.models.reading_order import ReadingOrderConfig
+    from marie_tpu_torch.registry.convert import init_flax_defaults
+    from marie_tpu_torch.train import layout as tl
+    from marie_tpu_torch.train import reading_order as tr
+
+    cfg = LayoutLMConfig.synth(2)
+    rng = np.random.default_rng(TRAIN_SEED)
+    _step_card_vs_cpu("splitter synth(2)", cfg,
+                      init_flax_defaults(cfg, TRAIN_SEED + 90, "sequence"),
+                      lambda model: (tl.head_loss(model, "sequence"), None),
+                      tl.splitter_dataset(rng, 32, HashWordTokenizer(cfg.vocab_size), cfg),
+                      "layout", 0.01, cfg.num_layers, head="sequence")
+    rcfg = ReadingOrderConfig.base()
+
+    def ranker(model):
+        return (lambda boxes, ranks, n_valid: tr.pairwise_rank_loss(
+            model(boxes, n_valid), ranks, n_valid)), None
+
+    _step_card_vs_cpu("reading order base", rcfg, init_flax_defaults(rcfg, TRAIN_SEED + 90),
+                      ranker, tr.make_batch(np.random.default_rng(TRAIN_SEED), 32, 256), "ranker",
+                      1e-4, rcfg.num_layers)
 
 
 def phase_train(shipped, trained_engine):
@@ -3723,27 +3831,21 @@ def phase_train(shipped, trained_engine):
     from marie_tpu_torch.models.reading_order import ReadingOrderConfig
     from marie_tpu_torch.ops.kernels._build import launch_path
     from marie_tpu_torch.registry.checkpoints import load_params
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
     from marie_tpu_torch.train import layout as tl
     from marie_tpu_torch.train import reading_order as tr
     from marie_tpu_torch.train.loop import init_module
     from marie_tpu_torch.utils.device import float32_precision
 
-    with open(os.path.join(ZOO_DIR, "golden_train.json")) as f:
+    with open_zoo_json("golden_train") as f:
         golden = json.load(f)
     if (golden["settings"]["seed"] != TRAIN_SEED or golden["settings"]["dataset_size"]
             != TRAIN_DATASET or golden["settings"]["chain_max_seq_len"] != CHAIN_SEQ_LEN):
         raise AssertionError("golden_train.json is of other settings")
-    row = _train_kernel_rows()
+    row = _train_kernel_rows([c[0] for c in TRAIN_K2_CASES
+                              if c[0] not in OCR_K2_CASES])["reading_order_b64"]
 
-    # (b) one step, card against CPU
-    cfg = LayoutLMConfig.synth(2)
-    rng = np.random.default_rng(TRAIN_SEED)
-    _step_card_vs_cpu("splitter synth(2)", cfg, "sequence",
-                      tl.splitter_dataset(rng, 32, HashWordTokenizer(cfg.vocab_size), cfg),
-                      ranker=False)
-    _step_card_vs_cpu("reading order base", ReadingOrderConfig.base(), None,
-                      tr.make_batch(np.random.default_rng(TRAIN_SEED), 32, 256), ranker=True)
+    _layout_steps_card_vs_cpu()  # (b)
 
     launches = {}
     # (c) the splitter at its script's defaults
@@ -3752,7 +3854,7 @@ def phase_train(shipped, trained_engine):
         path = os.path.join(tmp, "layout-splitter.npz")
         (model, _, metrics, cfg), run, launches["train_splitter"] = _timed_run(
             "splitter", lambda timing: tl.train_layout_splitter(
-                checkpoint_path=path, device="cuda", timing=timing), 1500, 4, 1)
+                checkpoint_path=path, device="cuda", timing=timing), (1500 + 1) * 4, 1500 * 4)
         splitter = LayoutDocumentSplitter(config=cfg, params=load_params(path), device="cuda")
         prng = np.random.default_rng(TRAIN_SEED + 5)
         pages = [PageInput(*tl.synth_split_page(prng, i % 3 == 0)) for i in range(8)]
@@ -3781,7 +3883,8 @@ def phase_train(shipped, trained_engine):
         (model, params, acc, _), run, launches[f"train_chain_{kind}"] = _timed_run(
             f"chain {kind}", lambda timing, trainer=trainer, ccfg=ccfg, labels=labels: trainer(
                 labels=labels, config=ccfg, tokenizer=RollingWordTokenizer(ccfg.vocab_size),
-                shuffle_words=True, steps=2000, device="cuda", timing=timing), 2000, 4, 1)
+                shuffle_words=True, steps=2000, device="cuda", timing=timing), (2000 + 1) * 4,
+            2000 * 4)
         want = golden[f"{kind}_chain"]["accuracy" if kind == "classifier" else "token_accuracy"]
         emit({"phase": "train", "part": f"chain_{kind}", **run,
               ("accuracy" if kind == "classifier" else "token_accuracy"): acc,
@@ -3812,7 +3915,7 @@ def phase_train(shipped, trained_engine):
     (model, _, pair_acc, tau), run, launches["train_reading_order"] = _timed_run(
         "reading order", lambda timing: tr.train_reading_order_device(
             steps=3000, batch_size=64, pool_pages=4096, device="cuda", timing=timing),
-        3000, 4, 1)
+        (3000 + 1) * 4, 3000 * 4)
     rcfg = ReadingOrderConfig.base()
     boxes, ranks, n_valid = tr.make_batch(np.random.default_rng(TRAIN_SEED + 1), EVAL_PAGES,
                                           rcfg.max_boxes)
@@ -3833,20 +3936,284 @@ def phase_train(shipped, trained_engine):
                                  HashWordTokenizer(bcfg.vocab_size), bcfg, False)
     model = init_module(bcfg, "sequence", TRAIN_SEED, device="cuda")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base_mib = torch.cuda.max_memory_allocated() / 2**20
+    base_mib = torch.cuda.memory_allocated() / 2**20
     _, run, launches["train_classifier_base"] = _timed_run(
         "base classifier", lambda timing: timing.update(tl.train_head(
             model, "sequence", data, steps=BASE_STEPS, batch_size=8, dataset_size=64,
             learning_rate=3e-4, steps_per_dispatch=BASE_STEPS, seed=TRAIN_SEED,
-            logger=MarieLogger("train-classifier")).timing()), BASE_STEPS, bcfg.num_layers, 0)
+            logger=MarieLogger("train-classifier")).timing()), BASE_STEPS * bcfg.num_layers,
+        BASE_STEPS * bcfg.num_layers)
     emit({"phase": "train", "part": "classifier_base", **run, "batch": 8,
           "seq_len": bcfg.max_seq_len, "kv_len_mean": float(data[2][:8].mean()),
-          "params": sum(p.numel() for p in model.parameters()),
-          "weights_mib": base_mib, "peak_mib": torch.cuda.max_memory_allocated() / 2**20})
+          "params": sum(p.numel() for p in model.parameters()), "weights_mib": base_mib})
     del model
     torch.cuda.empty_cache()
     return row, launches
+
+
+def _ocr_step_card_vs_cpu(kind: str, config, tree, data, dtype_name: str = "float32"):
+    """(b) for one OCR model: ``_step_card_vs_cpu`` with its trainer's step
+    (clip 1.0, its weight decay, its peak learning rate held constant).
+    The CRNN steps its BatchNorm running statistics as parameters; CRAFT
+    normalises with the batch statistics and moves the running ones as
+    flax does after the step."""
+    from marie_tpu_torch.train import batchnorm
+    from marie_tpu_torch.train.craft import craft_loss
+    from marie_tpu_torch.train.crnn import crnn_loss, crnn_trainable
+    from marie_tpu_torch.train.recognizer import recognizer_loss
+
+    def make(model):
+        model.train()
+        if kind == "recognizer":
+            return recognizer_loss(model, config.decoder.pad_id), None
+        if kind == "crnn":
+            return crnn_loss(model), crnn_trainable(model)
+        batchnorm.use_batch_statistics(model)
+        return craft_loss(model), None
+
+    lr, decay = {"recognizer": (3e-4, 0.01), "crnn": (1e-3, 1e-4), "craft": (5e-4, 1e-4)}[kind]
+    launches = 2 * config.encoder.num_layers if kind == "recognizer" else 0
+    return _step_card_vs_cpu(kind, config, tree, make, data, kind, decay, launches,
+                             phase="ocr_train", lr=lr, clip_norm=1.0, dtype_name=dtype_name,
+                             after=batchnorm.update_running_statistics if kind == "craft"
+                             else None)
+
+
+def _craft_float32_gap(config, tree, batch, device="cuda") -> float:
+    """CRAFT's float32 gradient on ``device`` against its float64 gradient
+    there, on the same tree and batch (batch statistics, as the trainer
+    steps): the largest difference of a leaf, of that leaf's largest
+    (the convolution biases the loss does not depend on aside)."""
+    import torch
+
+    from marie_tpu_torch.train import batchnorm
+    from marie_tpu_torch.train.craft import craft_loss
+    from marie_tpu_torch.train.loop import init_module
+    from marie_tpu_torch.utils.device import float32_precision
+
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        model = init_module(config, None, 0, tree, device).to(dtype).train()
+        batchnorm.use_batch_statistics(model)
+        with float32_precision(False):
+            craft_loss(model)(*(torch.from_numpy(a).to(device, dtype) for a in batch)).backward()
+        grads[dtype] = {n: p.grad.double() for n, p in model.named_parameters()}
+        batchnorm.restore(model)
+        del model
+    return max(float((grads[torch.float32][n] - g).abs().max() / g.abs().max())
+               for n, g in grads[torch.float64].items() if not _invariant_param(n, "craft"))
+
+
+def _engine_quality(shipped, craft_tree):
+    """The serving engine (``zoo_engine``'s detector settings and TrOCR, no
+    heads) with ``craft_tree`` as its detector, on the 16 shipped pages:
+    recall, precision, mean IoU and CER against the truth."""
+    from marie_tpu_torch.boxes.craft_box_processor import BoxProcessorCraft
+    from marie_tpu_torch.models.configs import CraftConfig
+    from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
+    from marie_tpu_torch.ocr.util import trocr_processor
+
+    bp = BoxProcessorCraft(config=CraftConfig.fast_s2d2(), variables=craft_tree,
+                           box_source="heatmap", text_threshold=0.6, low_text=0.4,
+                           link_threshold=0.4, max_components=256, param_dtype="bfloat16",
+                           cc_runs=32, device="cuda")
+    engine = PipelineOcrEngine(bp, trocr_processor(device="cuda", batch_sizes=(32, 128, 256)),
+                               upload_format="u2", compact_slots=160, page_fuse_batch=16)
+    pages = list(shipped["pages"])
+    results = engine.extract(pages)
+    _check_results(results, len(pages), *pages[0].shape)
+    return _quality(results, shipped["truth"]["pages"], pages[0].shape)
+
+
+def phase_ocr_train(shipped):
+    """The OCR trainers on the card (their data drawn by the glyph atlas
+    and the numpy PIL operations on the host).  (a) K2 and its gradient
+    at the recognizer's two shapes against their plain versions
+    (``_train_kernel_rows``); (b) one AdamW step card against CPU of the
+    recognizer (``fast_v3_g2_d6``, untrained, batch 16), the CRNN
+    (``crnn-synth``'s configuration, untrained, batch 16) and CRAFT
+    (``fast_s2d2``, the zoo tree, batch 4; in float64 on both sides: the
+    float32 step's batch statistics are ill-conditioned), and CRAFT's
+    float32 card step within CRAFT_FLOAT32_GAP of its float64 one; (c)
+    warm starts from ``torch_zoo/``'s trees at the recipes' data settings:
+    the zoo tree's held-out CER on the port's renders within
+    RENDER_FIDELITY of ``golden_train.json``'s (measured on PIL's), the
+    fine-tuned tree's within TRAIN_GATE of it, the fine-tuned CRAFT's
+    held-out loss at most CRAFT_TUNED_SLACK over the zoo tree's and, in
+    the serving engine on the 16 shipped pages, recall and precision no
+    lower than golden.json's less ENGINE_DELTA, K2
+    launched as predicted; (d) OCR_COLD_STEPS steps of an untrained
+    recognizer, its loss reported.  Returns {run: launches}."""
+    import numpy as np
+    import torch
+
+    from marie_tpu_torch.models.configs import CraftConfig, CRNNConfig, TrOCRConfig
+    from marie_tpu_torch.models.tokenizer import CharTokenizer, CTCCharTokenizer
+    from marie_tpu_torch.registry.convert import init_flax_defaults
+    from marie_tpu_torch.registry.zoo import open_zoo_json, zoo_params
+    from marie_tpu_torch.train import craft as tcr
+    from marie_tpu_torch.train import crnn as trn
+    from marie_tpu_torch.train import recognizer as trec
+    from marie_tpu_torch.train.loop import init_module
+    from marie_tpu_torch.utils.device import card_name_and_power_limit, cudnn_benchmark
+
+    with open_zoo_json("golden_train") as f:
+        golden = json.load(f)["ocr"]
+    st = golden["settings"]
+    if (st["heldout_seed"] != OCR_HELDOUT_SEED or st["crops"] != OCR_EVAL_CROPS
+            or st["craft_pages"] != CRAFT_EVAL_PAGES or st["crnn_width"] != CRNN_WIDTH):
+        raise AssertionError("golden_train.json's ocr entry is of other settings")
+    card = card_name_and_power_limit()
+    launches = {}
+    kernel_rows = _train_kernel_rows(OCR_K2_CASES, phase="ocr_train")
+
+    # (b) one step, card against CPU
+    rcfg, ccfg, kcfg = TrOCRConfig.fast_v3_g2_d6(), CRNNConfig(), CraftConfig.fast_s2d2()
+    tok, ctok = CharTokenizer(), CTCCharTokenizer()
+    imgs, toks = trec.render_block(rcfg, tok, TRAIN_SEED + 91, OCR_STEP_BATCH["recognizer"],
+                                   **RECOGNIZER_RECIPE)
+    _ocr_step_card_vs_cpu("recognizer", rcfg, init_flax_defaults(rcfg, TRAIN_SEED + 90),
+                          (imgs.astype(np.float32) / 255.0, toks))
+    cimgs, labs, lens = trn.render_crnn_block(trn._crnn_render_config(CRNN_WIDTH, 32), ctok,
+                                              TRAIN_SEED + 91, OCR_STEP_BATCH["crnn"])
+    with cudnn_benchmark():  # as train_crnn_device steps
+        _ocr_step_card_vs_cpu("crnn", ccfg, init_flax_defaults(ccfg, TRAIN_SEED + 90),
+                              (cimgs.astype(np.float32) / 255.0, labs, lens))
+    pages, targets = tcr.render_pages(np.random.default_rng(TRAIN_SEED + 91),
+                                      OCR_STEP_BATCH["craft"], CRAFT_PAGE_HW, kcfg.out_stride)
+    craft_batch = (pages.astype(np.float32) / 255.0, targets.astype(np.float32) / 255.0)
+    craft_zoo = zoo_params(OCR_TREES["craft"])
+    _ocr_step_card_vs_cpu("craft", kcfg, craft_zoo, craft_batch, "float64")
+    # the float32 step the trainer takes, against the float64 one
+    gap = _craft_float32_gap(kcfg, craft_zoo, craft_batch)
+    emit({"phase": "ocr_train", "part": "craft_float32_step", "card": card,
+          "grad_rel_err_vs_float64": gap, "limit": CRAFT_FLOAT32_GAP})
+    if not gap <= CRAFT_FLOAT32_GAP:
+        raise AssertionError(f"CRAFT's float32 step is {gap} off its float64 step "
+                             f"(limit {CRAFT_FLOAT32_GAP})")
+
+    # (c) the recognizer: the zoo tree on the port's held-out renders, then a warm start
+    held = trec.SyntheticWordDataset(rcfg, tok, seed=OCR_HELDOUT_SEED, noise=0.0,
+                                     rotate_deg=RECOGNIZER_RECIPE["rotate_deg"], lowres_p=0.0,
+                                     text_mode=RECOGNIZER_RECIPE["text_mode"],
+                                     font_sizes=RECOGNIZER_RECIPE["font_sizes"])
+    t0 = time.perf_counter()
+    h_imgs, _, h_texts = held.sample(OCR_EVAL_CROPS)
+    crops_per_s = OCR_EVAL_CROPS / (time.perf_counter() - t0)
+    rec_zoo = zoo_params(OCR_TREES["recognizer"])
+    model = init_module(rcfg, None, 0, rec_zoo, "cuda").eval()
+    zoo_cer = trec.decode_cer(model, h_imgs, h_texts, tok)
+    del model
+    want = golden["recognizer"]["cer"]
+    warm = OCR_WARM["recognizer"]
+    layers = rcfg.encoder.num_layers + rcfg.decoder.num_layers
+    losses = []
+    (model, _, cer), run, launches["ocr_train_recognizer"] = _timed_run(
+        "recognizer", lambda timing: trec.train_recognizer_device(
+            config=rcfg, batch_size=128, steps_per_dispatch=50, noise=0.03, seed=TRAIN_SEED,
+            eval_samples=OCR_EVAL_CROPS, refresh_every=0, init_params=rec_zoo, device="cuda",
+            timing=timing, losses=losses, **warm, **RECOGNIZER_RECIPE),
+        warm["steps"] * layers + rcfg.encoder.num_layers, warm["steps"] * layers)
+    emit({"phase": "ocr_train", "part": "recognizer", "card": card, **run, **warm,
+          "batch": 128, "tree": OCR_TREES["recognizer"], "zoo_cer_port_renders": zoo_cer,
+          "golden_cer_pil_renders": want, "finetuned_cer": cer,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "host_crops_per_s": crops_per_s, "limits": {"fidelity": RENDER_FIDELITY,
+                                                      "gate": TRAIN_GATE}})
+    if abs(zoo_cer - want) > RENDER_FIDELITY:
+        raise AssertionError(f"the zoo recognizer reads the port's renders at CER {zoo_cer}, "
+                             f"PIL's at {want}")
+    if cer > want + TRAIN_GATE:
+        raise AssertionError(f"the fine-tuned recognizer's CER {cer} > {want} + {TRAIN_GATE}")
+    del model
+    torch.cuda.empty_cache()
+
+    # the CRNN
+    crnn_held = trec.SyntheticWordDataset(trn._crnn_render_config(CRNN_WIDTH, 32),
+                                          seed=OCR_HELDOUT_SEED, noise=0.0, lowres_p=0.0)
+    c_imgs, _, c_texts = crnn_held.sample(OCR_EVAL_CROPS)
+    crnn_zoo = zoo_params(OCR_TREES["crnn"])
+    model = init_module(ccfg, None, 0, crnn_zoo, "cuda").eval()
+    crnn_zoo_cer = trn.crnn_cer(model, c_imgs, c_texts, ctok)
+    del model
+    want = golden["crnn"]["cer"]
+    warm = OCR_WARM["crnn"]
+    losses = []
+    (model, _, _), run, launches["ocr_train_crnn"] = _timed_run(
+        "crnn", lambda timing: trn.train_crnn_device(
+            config=ccfg, batch_size=128, width=CRNN_WIDTH, steps_per_dispatch=50,
+            refresh_every=0, seed=TRAIN_SEED, init_params=crnn_zoo, device="cuda",
+            timing=timing, losses=losses, **warm), 0, 0)
+    cer = trn.crnn_cer(model, c_imgs, c_texts, ctok)
+    emit({"phase": "ocr_train", "part": "crnn", "card": card, **run, **warm, "batch": 128,
+          "tree": OCR_TREES["crnn"], "zoo_cer_port_renders": crnn_zoo_cer,
+          "golden_cer_pil_renders": want, "finetuned_cer": cer, "loss_first": losses[0],
+          "loss_last": losses[-1]})
+    if abs(crnn_zoo_cer - want) > RENDER_FIDELITY:
+        raise AssertionError(f"the zoo CRNN reads the port's renders at CER {crnn_zoo_cer}, "
+                             f"PIL's at {want}")
+    if cer > want + TRAIN_GATE:
+        raise AssertionError(f"the fine-tuned CRNN's CER {cer} > {want} + {TRAIN_GATE}")
+    del model
+    torch.cuda.empty_cache()
+
+    # CRAFT
+    t0 = time.perf_counter()
+    h_pages, h_targets = tcr.render_pages(np.random.default_rng(OCR_HELDOUT_SEED),
+                                          CRAFT_EVAL_PAGES, CRAFT_PAGE_HW, kcfg.out_stride)
+    pages_per_s = CRAFT_EVAL_PAGES / (time.perf_counter() - t0)
+    model = init_module(kcfg, None, 0, craft_zoo, "cuda").eval()
+    zoo_loss = tcr.craft_heldout_loss(model, h_pages, h_targets)
+    del model
+    want = golden["craft"]["weighted_mse"]
+    warm = OCR_WARM["craft"]
+    losses = []
+    (model, variables), run, launches["ocr_train_craft"] = _timed_run(
+        "craft", lambda timing: tcr.train_craft_device(
+            config=kcfg, batch_size=4, page_hw=CRAFT_PAGE_HW, steps_per_dispatch=25,
+            refresh_every=0, seed=TRAIN_SEED, init_params=craft_zoo, device="cuda",
+            timing=timing, losses=losses, **warm), 0, 0)
+    tuned_loss = tcr.craft_heldout_loss(model, h_pages, h_targets)
+    del model
+    # the engine's device thread makes its own cuBLAS handle: give the
+    # trainers' cached blocks back to CUDA first
+    torch.cuda.empty_cache()
+    quality = _engine_quality(shipped, variables)
+    golden_quality = _quality(shipped["golden"]["pages"], shipped["truth"]["pages"],
+                              shipped["pages"][0].shape)
+    emit({"phase": "ocr_train", "part": "craft", "card": card, **run, **warm, "batch": 4,
+          "tree": OCR_TREES["craft"], "zoo_loss_port_pages": zoo_loss,
+          "golden_loss_pil_pages": want, "finetuned_loss": tuned_loss,
+          "loss_first": losses[0], "loss_last": losses[-1], "host_pages_per_s": pages_per_s,
+          "engine": quality, "golden_engine": golden_quality,
+          "limits": {"loss_fidelity": CRAFT_LOSS_FIDELITY, "tuned_slack": CRAFT_TUNED_SLACK,
+                     "engine": ENGINE_DELTA}})
+    if abs(zoo_loss - want) > CRAFT_LOSS_FIDELITY * want:
+        raise AssertionError(f"the zoo CRAFT's held-out loss on the port's pages {zoo_loss}, "
+                             f"on PIL's {want}")
+    if not tuned_loss <= (1.0 + CRAFT_TUNED_SLACK) * zoo_loss:
+        raise AssertionError(f"the fine-tuned CRAFT's held-out loss {tuned_loss} > the zoo "
+                             f"tree's {zoo_loss} x (1 + {CRAFT_TUNED_SLACK})")
+    for key in ("recall", "precision"):
+        if quality[key] < golden_quality[key] - ENGINE_DELTA:
+            raise AssertionError(f"the fine-tuned CRAFT's {key} {quality[key]} < "
+                                 f"{golden_quality[key]} - {ENGINE_DELTA}")
+    del variables
+
+    # (d) an untrained recognizer: the loss falls (report only)
+    losses = []
+    (_, _, cold_cer), run, launches["ocr_train_cold"] = _timed_run(
+        "cold recognizer", lambda timing: trec.train_recognizer_device(
+            config=rcfg, steps=OCR_COLD_STEPS, batch_size=128, dataset_size=1024,
+            steps_per_dispatch=OCR_COLD_STEPS // 4, seed=TRAIN_SEED, eval_samples=64,
+            refresh_every=0, device="cuda", timing=timing, losses=losses,
+            **RECOGNIZER_RECIPE),
+        OCR_COLD_STEPS * layers + rcfg.encoder.num_layers, OCR_COLD_STEPS * layers)
+    emit({"phase": "ocr_train", "part": "cold_recognizer", "card": card, **run,
+          "loss_first": losses[0], "loss_last": losses[-1], "loss_fell": losses[-1] < losses[0],
+          "cer": cold_cer, "note": "report only"})
+    torch.cuda.empty_cache()
+    return kernel_rows, launches
 
 
 def phase_runtime(shipped, trained_engine):
@@ -3866,10 +4233,10 @@ def phase_runtime(shipped, trained_engine):
     from marie_tpu_torch.logging_core.profile import TimeContext, TimeContextTPU
     from marie_tpu_torch.metrics import collect_system_metrics
     from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
     from marie_tpu_torch.utils import image_io
 
-    with open(os.path.join(ZOO_DIR, "golden_reading_order.json")) as f:
+    with open_zoo_json("golden_reading_order") as f:
         golden = json.load(f)
     e = trained_engine
     local = PipelineOcrEngine(e.box_processor, e.ocr_processor, upload_format=e.upload_format,
@@ -4179,7 +4546,7 @@ def phase_serve(shipped, ner_tree):
     from marie_tpu_torch.ocr.util import get_known_ocr_engines
     from marie_tpu_torch.orchestrate.pods import Pod
     from marie_tpu_torch.pipe import ExtractPipeline
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
     from marie_tpu_torch.serve.executors.decorators import _jsonify
     from marie_tpu_torch.serve.runtimes.worker.request_handling import WorkerRequestHandler
     from marie_tpu_torch.types import Document
@@ -4293,7 +4660,7 @@ def phase_serve(shipped, ner_tree):
         row["child_exitcode"] = pod.exitcode
 
     # (f) the NER executor in-process, through the worker's handler
-    with open(os.path.join(ZOO_DIR, "golden_extract.json")) as f:
+    with open_zoo_json("golden_extract") as f:
         ner_labels = tuple(json.load(f)["settings"]["ner_labels"])
     indexer = LayoutDocumentIndexer(ner_labels, LayoutLMConfig.base(5), ner_tree, device="cuda")
     executor = NerExtractionExecutor(reading_order=True, indexer=indexer, device="cuda")
@@ -5902,6 +6269,8 @@ def main() -> int:
                                              trained_engine)
     reading_launches = run("reading_order", phase_reading_order, shipped, trained_engine)
     k2_bwd, train_launches = run("train", phase_train, shipped, trained_engine)
+    _, ocr_launches = run("ocr_train", phase_ocr_train, shipped)
+    train_launches.update(ocr_launches)
     run("runtime", phase_runtime, shipped, trained_engine)
     run("rotated", phase_rotated)
     single_launches = run("single", phase_single, shipped, trained_engine)

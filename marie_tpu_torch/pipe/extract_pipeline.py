@@ -46,6 +46,7 @@ from marie_tpu_torch.pipe.assets import (
 from marie_tpu_torch.pipe.base_pipeline import BasePipeline
 from marie_tpu_torch.utils.device import resolve_device
 from marie_tpu_torch.utils.image_utils import ensure_max_page_size, hash_frames_fast
+from marie_tpu_torch.utils.pil_ops import to_gray
 
 
 def _in_layout(img: np.ndarray, like: np.ndarray) -> np.ndarray:
@@ -53,9 +54,7 @@ def _in_layout(img: np.ndarray, like: np.ndarray) -> np.ndarray:
     gray as PIL's ``convert("L")`` (ITU-R 601-2 in 16-bit fixed point),
     gray to RGB by stacking."""
     if np.asarray(like).ndim == 2 and img.ndim == 3:
-        x = img.astype(np.int32)
-        return ((x[..., 0] * 19595 + x[..., 1] * 38470 + x[..., 2] * 7471 + 0x8000)
-                >> 16).astype(np.uint8)
+        return to_gray(img)
     if np.asarray(like).ndim == 3 and img.ndim == 2:
         return np.stack([img] * 3, axis=-1)
     return img

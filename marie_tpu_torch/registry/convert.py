@@ -340,13 +340,14 @@ def _flax_value(mod: nn.Module, coll: str, leaf: str, arr: np.ndarray, shape) ->
     return np.ascontiguousarray(arr).reshape(shape)
 
 
-def to_flax(module: nn.Module) -> Dict[str, Any]:
+def to_flax(module: nn.Module, dtype=np.float32) -> Dict[str, Any]:
     """The flax-layout variables tree (``{"params": ..., "batch_stats":
-    ...}``) of ``module``'s current weights, as float32 numpy arrays: the
-    inverse of :func:`from_flax`, so ``to_flax(from_flax(tree, m))``
-    gives ``tree`` back (an LSTM's ``bias_ih``, zero by construction, has
-    no flax leaf and is dropped)."""
-    sd = {k: v.detach().to("cpu", torch.float32).numpy()
+    ...}``) of ``module``'s current weights, as numpy arrays of ``dtype``
+    (float64 reads a float64 module without rounding): the inverse of
+    :func:`from_flax`, so ``to_flax(from_flax(tree, m))`` gives ``tree``
+    back (an LSTM's ``bias_ih``, zero by construction, has no flax leaf
+    and is dropped)."""
+    sd = {k: v.detach().to("cpu", torch.float64 if dtype == np.float64 else torch.float32).numpy()
           for k, v in module.state_dict().items() if v.is_floating_point()}
     lstm_cells = getattr(module, "flax_lstm_cells", {})
     tree: Dict[str, Any] = {}
@@ -368,7 +369,7 @@ def to_flax(module: nn.Module) -> Dict[str, Any]:
         node = tree.setdefault(coll, {})
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[leaf] = np.ascontiguousarray(arr, dtype=np.float32)
+        node[leaf] = np.ascontiguousarray(arr, dtype=dtype)
     return tree
 
 

@@ -7,7 +7,8 @@ loss: forward and backward in float32 without TF32 (``utils/device.py::
 float32_precision``, as the float32 engines run; TF32 would move the
 card's gradients from the CPU's by ~1e-3), K2 and its gradient counted on
 the ``"train"`` launch path, then :class:`~marie_tpu_torch.train.optim.
-AdamW` over every parameter.
+AdamW` over every parameter (or the tensors a trainer names), with optax's
+global-norm clip first where the trainer asks for it.
 """
 
 import contextlib
@@ -22,10 +23,6 @@ from marie_tpu_torch.train.optim import AdamW
 from marie_tpu_torch.utils.device import float32_precision, resolve_device
 
 
-def _params_of(tree):
-    return tree["params"] if "params" in tree else tree
-
-
 def _overlay(base, top):
     """``base`` with every leaf that ``top`` has replaced by ``top``'s."""
     out = dict(base)
@@ -36,11 +33,13 @@ def _overlay(base, top):
 
 def init_module(config, head: Optional[str], seed: int, init_params=None, device="cuda"):
     """The port's module for ``config`` (and ``head``) on ``device``,
-    trainable, from the flax-default draw of ``seed`` overlaid with
-    ``init_params`` (a flax-layout tree) where given."""
-    tree = {"params": _params_of(init_flax_defaults(config, seed, head))}
+    trainable, from the flax-default draw of ``seed`` (its BatchNorm
+    statistics too) overlaid with ``init_params`` (a flax-layout tree:
+    variables, or a bare params tree) where given."""
+    tree = init_flax_defaults(config, seed, head)
     if init_params is not None:
-        tree = {"params": _overlay(tree["params"], _params_of(init_params))}
+        top = init_params if "params" in init_params else {"params": init_params}
+        tree = _overlay(tree, top)
     model = from_flax(tree, build_model(config, head))
     return model.to(resolve_device(device)).requires_grad_(True)
 
@@ -52,9 +51,11 @@ class StepTrainer:
     path.  ``step(batch)`` returns the detached loss (and whatever else
     ``loss_fn`` returns, detached) and reads nothing back."""
 
-    def __init__(self, model: torch.nn.Module, loss_fn, schedule, weight_decay: float):
+    def __init__(self, model: torch.nn.Module, loss_fn, schedule, weight_decay: float,
+                 clip_norm: Optional[float] = None, params=None):
         self.loss_fn = loss_fn
-        self.opt = AdamW(model.parameters(), schedule, weight_decay=weight_decay)
+        self.opt = AdamW(model.parameters() if params is None else params, schedule,
+                         weight_decay=weight_decay, clip_norm=clip_norm)
         self.steps = 0
         self.seconds = 0.0
 

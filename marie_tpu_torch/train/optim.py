@@ -17,13 +17,20 @@
   (``torch.optim`` would skip it).  The arithmetic runs on the card as
   multi-tensor ``torch._foreach_*`` operations, in place where optax's
   arithmetic allows, with the step count, the learning rate and the bias
-  corrections as host scalars: no host sync a step.
+  corrections as host scalars: no host sync a step.  The bias corrections
+  are computed in the parameters' float type, as optax computes them
+  (float32, or float64 for float64 parameters under ``jax_enable_x64``).
+* ``clip_norm``: ``optax.chain(optax.clip_by_global_norm(clip_norm),
+  optax.adamw(...))``, as the OCR trainers chain them: where the global
+  norm of the gradients (every leaf's, zeros for a leaf without one)
+  reaches ``clip_norm``, each gradient becomes ``g / norm * clip_norm``
+  before Adam reads it; the norm stays on the card.
 * :func:`softmax_cross_entropy_with_integer_labels`: optax's, written the
   same way (max-shifted log-sum-exp minus the label's logit).
 """
 
 import math
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -91,10 +98,12 @@ class AdamW:
     advances the count; ``zero_grad()`` sets the gradients to None."""
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Schedule, *, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4):
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4,
+                 clip_norm: Optional[float] = None):
         self.params: List[torch.Tensor] = list(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.clip_norm = clip_norm
         self.count = 0
         with torch.no_grad():
             self.mu = [torch.zeros_like(p) for p in self.params]
@@ -116,15 +125,28 @@ class AdamW:
                 out.append(p.grad)
         return out
 
+    def _clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """optax's ``clip_by_global_norm``: ``g / norm * clip_norm`` where
+        the norm reaches ``clip_norm`` (new tensors; ``.grad`` is kept)."""
+        norm = torch.sqrt(torch.stack([(g * g).sum() for g in grads]).sum())
+        keep = norm < self.clip_norm
+        one = torch.ones((), dtype=norm.dtype, device=norm.device)
+        out = torch._foreach_div(grads, torch.where(keep, one, norm))
+        torch._foreach_mul_(out, torch.where(keep, one, one * self.clip_norm))
+        return out
+
     @torch.no_grad()
     def step(self) -> None:
         grads = self._grads()
+        if self.clip_norm is not None:
+            grads = self._clip(grads)
         b1, b2 = self.b1, self.b2
         lr = float(self.schedule(self.count))
         self.count += 1
-        t = np.float32(self.count)
-        bc1 = float(np.float32(1) - np.power(np.float32(b1), t))
-        bc2 = float(np.float32(1) - np.power(np.float32(b2), t))
+        real = np.float64 if self.params and self.params[0].dtype == torch.float64 else np.float32
+        t = real(self.count)
+        bc1 = float(real(1) - np.power(real(b1), t))
+        bc2 = float(real(1) - np.power(real(b2), t))
         # mu = b1 mu + (1 - b1) g; nu = b2 nu + (1 - b2) g^2 (in place)
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - b1)

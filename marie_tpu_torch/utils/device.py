@@ -4,11 +4,12 @@ matmuls."""
 import contextlib
 import subprocess
 import threading
-from typing import Iterator, Optional, Tuple, Union
+from typing import Callable, Iterator, Optional, Tuple, TypeVar, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+T = TypeVar("T")
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
@@ -135,6 +136,50 @@ def float32_precision(allow_tf32: bool = False):
     process-global flags say; the block leaves the flags as it found
     them.  Other threads see the block's setting while it runs."""
     return _FLOAT32.hold("tf32" if allow_tf32 else "ieee")
+
+
+#: the candidates cuDNN times for a shape, its heuristics' first ones: at
+#: the CRNN's float32 shapes the first is an FFT algorithm 2.7x slower than
+#: the second or third, and trying all ten took 21 s (an H100; PERF.md)
+CUDNN_BENCHMARK_LIMIT = 3
+
+
+@contextlib.contextmanager
+def cudnn_benchmark() -> Iterator[None]:
+    """Inside the block cuDNN times the first CUDNN_BENCHMARK_LIMIT
+    algorithms its heuristics rank for each new convolution shape (among
+    those the float32 precision allows) and keeps the fastest
+    (``torch.backends.cudnn.benchmark``); the process-global flags are
+    restored after it.  For a loop of one fixed shape, where the
+    heuristics' first choice is slow."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.benchmark_limit
+    cudnn.benchmark, cudnn.benchmark_limit = True, CUDNN_BENCHMARK_LIMIT
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = saved
+
+
+def on_own_thread(fn: Callable[[], T]) -> T:
+    """``fn()`` run on a new thread and joined; its exception re-raised
+    here.  cuDNN keeps the algorithm it chose for a convolution shape per
+    thread, whatever :func:`cudnn_benchmark` says later: a loop that
+    wants its shapes timed runs where no earlier call chose for them."""
+    out = {}
+
+    def target():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # re-raised on the caller's thread
+            out["error"] = e
+
+    worker = threading.Thread(target=target, name="own-cudnn-plans")
+    worker.start()
+    worker.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
 
 
 def card_name_and_power_limit() -> Optional[str]:

@@ -100,7 +100,7 @@ It writes
   phase: its quality-80 JPEG of page 0 and of the RGB form (the bytes,
   and their decode), and its G4 strips of page 0 and of the 3300x2550
   page thresholded at 128 (the strips joined, and the strips' count).
-* ``golden_train.json`` (~1 min): the held-out figures of the JAX-trained
+* ``golden_train.json`` (~2 min): the held-out figures of the JAX-trained
   trees of ``model_zoo/`` on the held-out sets that the port's trainers
   draw at ``chip_smoke.py``'s ``train`` settings (the seed and dataset
   size of ``scripts/train_splitter.py``, ``train_chain_heads.py`` and
@@ -109,7 +109,17 @@ It writes
   ``layout-classifier-chain``'s accuracy, ``layout-indexer-chain``'s
   token accuracy, and ``reading-order-synth``'s mean Kendall tau and pair
   accuracy over ``evaluate_reading_order``'s pages.  The ``train`` phase
-  holds the card-trained heads to these less 0.03.
+  holds the card-trained heads to these less 0.03.  Its ``ocr`` entry
+  holds the OCR trees of ``torch_zoo/`` (the serving ``.npz``) on the
+  JAX package's held-out renders, drawn by PIL (``chip_smoke.py``'s
+  ``ocr_train`` settings): ``trocr-fast3g2d6ov-synth``'s and
+  ``crnn-synth``'s CER on 512 clean crops and ``craft-s2d2-synth``'s
+  weighted MSE on 32 pages.
+
+The JSON files are gzipped (``<name>.json.gz``, no file name or time
+stamp in the header: ``_write_json``); ``registry/zoo.py::open_zoo_json``
+reads them.  The glyph atlas ``glyphs.npz`` comes from
+``scripts/export_glyph_atlas.py``.
 """
 
 import argparse
@@ -126,6 +136,7 @@ os.environ["MARIE_CC_RUNS"] = "32"  # read by the JAX detector while it traces
 import numpy as np  # noqa: E402
 
 ZOO = os.path.join(REPO, "torch_zoo")
+from marie_tpu_torch.registry.zoo import open_zoo_json, zoo_json_path  # noqa: E402
 #: (tree, storage dtype) of the serving engine, and the rest with --all
 SERVING_TREES = (
     ("craft-s2d2-synth", "bfloat16"),
@@ -317,7 +328,7 @@ def export_best() -> None:
     export_trees(BEST_TREES)
     with np.load(os.path.join(ZOO, "pages.npz")) as data:
         stack = data["pages"]
-    with open(os.path.join(ZOO, "truth.json")) as f:
+    with open_zoo_json("truth") as f:
         truths = json.load(f)["pages"]
     spec = make_requests(truths)["modes"]["word"]
     # the registry's CC run budget (read while the detector traces)
@@ -339,8 +350,7 @@ def export_best() -> None:
             [_cut(stack[spec["page"]], spec["box"])], PSMode.WORD)[0]),
     }
     print(f"golden_best: {time.time() - t0:.1f} s", flush=True)
-    with open(os.path.join(ZOO, "golden_best.json"), "w") as f:
-        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+    _write_json("golden_best", golden, default=_json_default, separators=(",", ":"))
 
 
 #: (seed, config) of the trees in golden_classify.json; the classifier's
@@ -376,7 +386,7 @@ def export_classify() -> None:
 
     with np.load(os.path.join(ZOO, "pages.npz")) as data:
         stack = data["pages"]
-    with open(os.path.join(ZOO, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         ocr = json.load(f)["pages"]
     seeds = CLASSIFY_SEEDS
     t0 = time.time()
@@ -415,8 +425,7 @@ def export_classify() -> None:
         "embeddings": np.round(vectors.astype(np.float64), 6).tolist(),
     }
     print(f"golden_classify: {time.time() - t0:.1f} s", flush=True)
-    with open(os.path.join(ZOO, "golden_classify.json"), "w") as f:
-        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+    _write_json("golden_classify", golden, default=_json_default, separators=(",", ":"))
 
 
 #: the indexer of golden_extract.json: chip_smoke.py's layoutlm_base
@@ -449,7 +458,7 @@ def export_extract() -> None:
     assert GENERATOR_SEED == EXTRACT_SEEDS["generator"]
     with np.load(os.path.join(ZOO, "pages.npz")) as data:
         stack = data["pages"]
-    with open(os.path.join(ZOO, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         ocr = json.load(f)["pages"]
     seeds = EXTRACT_SEEDS
     t0 = time.time()
@@ -498,8 +507,7 @@ def export_extract() -> None:
         "digest": digest,
         "overlay": overlay,
     }
-    with open(os.path.join(ZOO, "golden_extract.json"), "w") as f:
-        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+    _write_json("golden_extract", golden, default=_json_default, separators=(",", ":"))
 
 
 def export_register() -> None:
@@ -634,8 +642,7 @@ def export_register() -> None:
         "matching": matching,
         "pipeline": pipeline,
     }
-    with open(os.path.join(ZOO, "golden_register.json"), "w") as f:
-        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+    _write_json("golden_register", golden, default=_json_default, separators=(",", ":"))
 
 
 def export_detectors() -> None:
@@ -775,8 +782,7 @@ def export_detectors() -> None:
                         "thresholds": rule,
                         "pages": rows},
     }
-    with open(os.path.join(ZOO, "golden_detectors.json"), "w") as f:
-        json.dump(golden, f, default=_json_default, separators=(",", ":"))
+    _write_json("golden_detectors", golden, default=_json_default, separators=(",", ":"))
 
 
 def _jax_order_and_scores(layout, boxes, scale):
@@ -821,7 +827,7 @@ def export_reading_order() -> None:
 
     tree = init_flax_layout(PortConfig.base(), cs.READING_ORDER_SEED)
     layout = TextLayout(ReadingOrderConfig.base(), jax.tree_util.tree_map(jnp.asarray, tree))
-    with open(os.path.join(ZOO, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         pages = json.load(f)["pages"]
     rows = []
     for page in pages:
@@ -871,8 +877,7 @@ def export_reading_order() -> None:
         "jpeg": jpeg,
         "g4": g4,
     }
-    with open(os.path.join(ZOO, "golden_reading_order.json"), "w") as f:
-        json.dump(golden, f, separators=(",", ":"))
+    _write_json("golden_reading_order", golden, separators=(",", ":"))
 
 
 def export_train() -> None:
@@ -953,15 +958,92 @@ def export_train() -> None:
         "indexer_chain": {"tree": "layout-indexer-chain", "token_accuracy": tok_acc},
         "reading_order": {"tree": "reading-order-synth", "kendall_tau": float(np.mean(taus)),
                           "pair_accuracy": float(pair_acc)},
+        "ocr": _ocr_train_golden(cs),
     }
-    with open(os.path.join(ZOO, "golden_train.json"), "w") as f:
-        json.dump(golden, f, indent=1)
+    _write_json("golden_train", golden, indent=1)
     print(json.dumps(golden), flush=True)
+
+
+def _ocr_train_golden(cs) -> dict:
+    """The OCR trees of ``torch_zoo/`` (the serving ``.npz``, as the port
+    reads them) on the JAX package's held-out renders, drawn by PIL: the
+    recognizer's and the CRNN's CER (``evaluate_cer`` / ``evaluate_crnn_cer``
+    on clean crops of seed ``OCR_HELDOUT_SEED``) and CRAFT's weighted MSE
+    on ``render_page_with_targets`` pages of that seed."""
+    import jax
+    import jax.numpy as jnp
+
+    from marie_tpu.models.configs import CraftConfig, CRNNConfig, TrOCRConfig
+    from marie_tpu.models.craft import CRAFT
+    from marie_tpu.models.crnn import CRNN
+    from marie_tpu.models.tokenizer import CharTokenizer, CTCCharTokenizer
+    from marie_tpu.models.trocr import TrOCRModel
+    from marie_tpu.train.craft import render_page_with_targets
+    from marie_tpu.train.crnn import _crnn_render_config, evaluate_crnn_cer
+    from marie_tpu.train.recognizer import SyntheticWordDataset, evaluate_cer
+    from marie_tpu_torch.registry.checkpoints import load_params
+
+    def tree(name):
+        return load_params(os.path.join(ZOO, f"{name}.npz"))
+
+    seed = cs.OCR_HELDOUT_SEED
+    recipe = cs.RECOGNIZER_RECIPE
+    cfg = TrOCRConfig.fast_v3_g2_d6()
+    tok = CharTokenizer()
+    ds = SyntheticWordDataset(cfg, tok, seed=seed, noise=0.0, rotate_deg=recipe["rotate_deg"],
+                              lowres_p=0.0, text_mode=recipe["text_mode"],
+                              font_sizes=recipe["font_sizes"])
+    trocr_cer = evaluate_cer(TrOCRModel(cfg), tree(cs.OCR_TREES["recognizer"]), ds, tok,
+                             n_samples=cs.OCR_EVAL_CROPS)
+    crnn_ds = SyntheticWordDataset(_crnn_render_config(cs.CRNN_WIDTH, 32), seed=seed,
+                                   noise=0.0, lowres_p=0.0)
+    crnn_cer = evaluate_crnn_cer(CRNN(CRNNConfig()), tree(cs.OCR_TREES["crnn"]), crnn_ds,
+                                 CTCCharTokenizer(), n_samples=cs.OCR_EVAL_CROPS)
+    ccfg = CraftConfig.fast_s2d2()
+    rng = np.random.default_rng(seed)
+    pages, targets = zip(*(render_page_with_targets(rng, cs.CRAFT_PAGE_HW,
+                                                    out_stride=ccfg.out_stride)
+                           for _ in range(cs.CRAFT_EVAL_PAGES)))
+    apply = jax.jit(lambda v, x: CRAFT(ccfg).apply(v, x))
+    variables = tree(cs.OCR_TREES["craft"])
+    losses = []
+    for s in range(0, cs.CRAFT_EVAL_PAGES, 8):
+        x = jnp.asarray(np.stack(pages[s:s + 8]), jnp.float32) / 255.0
+        t = jnp.asarray(np.stack(targets[s:s + 8]), jnp.float32) / 255.0
+        out = apply(variables, x)
+        losses += list(np.asarray(((1.0 + 9.0 * t) * (out - t) ** 2).mean(axis=(1, 2, 3))))
+    return {
+        "settings": {"heldout_seed": seed, "crops": cs.OCR_EVAL_CROPS,
+                     "craft_pages": cs.CRAFT_EVAL_PAGES, "craft_page_hw": list(cs.CRAFT_PAGE_HW),
+                     "recognizer_recipe": {k: list(v) if isinstance(v, tuple) else v
+                                           for k, v in recipe.items()},
+                     "crnn_width": cs.CRNN_WIDTH,
+                     "renders": "the JAX package's SyntheticWordDataset and "
+                                "render_page_with_targets (PIL, DejaVu), clean: no noise, "
+                                "no low-resolution pass; the recognizer's held-out set as "
+                                "train_recognizer_device draws it (no bold or shear)",
+                     "trees": "torch_zoo/*.npz, float32 forwards"},
+        "recognizer": {"tree": cs.OCR_TREES["recognizer"], "cer": trocr_cer},
+        "crnn": {"tree": cs.OCR_TREES["crnn"], "cer": crnn_cer},
+        "craft": {"tree": cs.OCR_TREES["craft"], "weighted_mse": float(np.mean(losses))},
+    }
 
 
 def _cut(page, box):
     x, y, w, h = box
     return np.ascontiguousarray(page[y:y + h, x:x + w])
+
+
+def _write_json(name: str, obj, **dump_kwargs) -> None:
+    """``torch_zoo/<name>.json.gz``: ``json.dumps(obj, **dump_kwargs)``
+    gzipped at level 9, with no file name and no time stamp, so that the
+    same content gives the same bytes."""
+    import gzip
+
+    text = json.dumps(obj, **dump_kwargs).encode("utf-8")
+    with open(zoo_json_path(name), "wb") as raw:
+        with gzip.GzipFile(filename="", mode="wb", compresslevel=9, fileobj=raw, mtime=0) as f:
+            f.write(text)
 
 
 def _json_default(x):
@@ -1051,9 +1133,8 @@ def main() -> None:
         },
     }
     print(f"golden: {time.time() - t0:.1f} s", flush=True)
-    for name, obj in (("truth.json", truth), ("golden.json", golden)):
-        with open(os.path.join(ZOO, name), "w") as f:
-            json.dump(obj, f, default=_json_default, separators=(",", ":"))
+    for name, obj in (("truth", truth), ("golden", golden)):
+        _write_json(name, obj, default=_json_default, separators=(",", ":"))
     export_best()
     export_classify()
     export_extract()

@@ -24,7 +24,7 @@ floor).  With ``--mma-rate`` the floors also hold the card's
 ``mma.sync`` TF32 rate (``scripts/mma_rate.cu``, built then: the ceiling
 of K2's float32 path, which spends three MMAs per product).  With
 ``--train`` it also runs ``chip_smoke.py``'s gradient rows
-(``_train_kernel_rows``: K2's backward at the six ``TRAIN_K2_CASES``
+(``_train_kernel_rows``: K2's backward at the eight ``TRAIN_K2_CASES``
 shapes, held against its plain version, cold and warm, with K2's and
 SDPA's forward + backward beside it), without the trainers; so
 
@@ -129,7 +129,7 @@ def main() -> int:
     chip_smoke.phase_k1(chip_smoke.SLICE_PAGES, chip_smoke.SLICE_PAGES * 160, "serving")
     chip_smoke.phase_k2()
     if args.train:
-        chip_smoke._train_kernel_rows()
+        chip_smoke._train_kernel_rows([c[0] for c in chip_smoke.TRAIN_K2_CASES])
     tiny = [torch.zeros(1, device="cuda") for _ in range(4)]
     crops = (256, 48, 320)  # K1's output at the slice's shapes, float32
     floors = {

@@ -101,7 +101,7 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json
     from marie_tpu_torch.utils.device import card_name_and_power_limit
 
     if not torch.cuda.is_available():
@@ -110,7 +110,7 @@ def main() -> int:
     print(card_name_and_power_limit())
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         pages = list(data["pages"][:args.pages])
-    with open(os.path.join(ZOO_DIR, "truth.json")) as f:
+    with open_zoo_json("truth") as f:
         truth = json.load(f)["pages"][0]
     detection_differences(pages)
     beam_cost(pages[0], np.asarray([box for _, box in truth], np.float32))

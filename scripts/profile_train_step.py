@@ -1,11 +1,27 @@
-"""Time and trace one training step of a layout head on the card.
+"""Time and trace one training step of a layout head or of the CRNN on the card.
 
-    python3 scripts/profile_train_step.py [--model splitter|base] [--tree DIR]
+    python3 scripts/profile_train_step.py [--model splitter|base|crnn] [--tree DIR]
+                                          [--cudnn-benchmark [--benchmark-limit N]]
+                                          [--channels-last] [--prior-forward main|thread]
 
 ``splitter`` (the default): the splitter's model (``LayoutLMConfig.synth(2)``)
 and 512 pages of its training set, batch 32.  ``base``: the classifier at
 LayoutLMv3-base width (``LayoutLMConfig.base(3)``, S=512) and 64 pages of
 its training set, batch 8, as ``chip_smoke.py``'s ``train`` phase (f).
+``crnn``: ``train_crnn_device``'s step (``CRNNConfig()``, the
+``crnn-synth`` width: a ResNet stack and two bidirectional LSTMs) on 512
+rendered 32x256 crops, batch 128, as ``chip_smoke.py``'s ``ocr_train``
+phase runs it; its JSON line adds the device share of the convolutions
+(cuDNN's kernels, of which the FFT ones) and the convolutions' float32
+bound.  ``--channels-last`` runs its convolutions in NHWC;
+``--prior-forward`` runs the model once at the step's shape under
+cuDNN's heuristics before the steps, on this thread or another (as
+``chip_smoke.py``'s ``best`` phase runs the serving CRNN before
+``ocr_train``).
+``--cudnn-benchmark`` lets cuDNN time the first ``--benchmark-limit`` (by
+default ``utils/device.py::CUDNN_BENCHMARK_LIMIT``) algorithms its
+heuristics rank for each shape first, as ``train_crnn_device`` steps;
+without it the heuristics' first choice runs.
 Runs 20 warm-up steps of ``StepTrainer`` (5 at base width), then prints
 the wall ms of a step, of the forward, of forward + backward and of the
 AdamW step (each over 30 calls ending in a synchronise; 10 at base
@@ -14,7 +30,10 @@ time, and last one JSON line: the device ms a step and the share of it
 in K2's gradient kernels (``dq_kernel`` and ``dkdv_kernel`` of
 ``csrc/flash_attention_bwd.cu``).  ``--tree`` runs another checkout's
 ``marie_tpu_torch`` (an earlier commit unpacked with ``git archive``), so
-the share can be read before and after a change in one call.
+the share can be read before and after a change in one call.  The JSON
+line also holds the first step's and the warm-up's seconds and the peak
+of the memory allocated (MiB) over the warm-up (cuDNN's algorithm trials
+included) and over the timed steps after it.
 """
 
 import argparse
@@ -37,7 +56,16 @@ def _device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("splitter", "base"), default="splitter")
+    ap.add_argument("--model", choices=("splitter", "base", "crnn"), default="splitter")
+    ap.add_argument("--cudnn-benchmark", action="store_true",
+                    help="let cuDNN time its algorithms for each shape")
+    ap.add_argument("--benchmark-limit", type=int, default=None,
+                    help="the algorithms cuDNN times a shape (default: the trainers')")
+    ap.add_argument("--channels-last", action="store_true",
+                    help="crnn: the convolutions' weights and activations in NHWC")
+    ap.add_argument("--prior-forward", choices=("main", "thread"),
+                    help="crnn: one forward at the step's shape under cuDNN's heuristics "
+                         "first, on this thread or another")
     ap.add_argument("--tree", default=ROOT,
                     help="checkout whose marie_tpu_torch is run (default: this one)")
     args = ap.parse_args()
@@ -48,8 +76,6 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from marie_tpu_torch.components.word_tokenizer import HashWordTokenizer
-    from marie_tpu_torch.models.configs import LayoutLMConfig
     from marie_tpu_torch.train import layout as tl
     from marie_tpu_torch.train.loop import StepTrainer, init_module
     from marie_tpu_torch.train.optim import warmup_cosine_decay_schedule
@@ -57,25 +83,44 @@ def main() -> int:
 
     if not os.path.abspath(tl.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"marie_tpu_torch came from {tl.__file__}, not {tree}")
-    rng = np.random.default_rng(0)
-    if args.model == "splitter":
-        cfg = LayoutLMConfig.synth(2)
-        n, batch, warm, reps = 512, 32, 20, 30
-        data = tl.splitter_dataset(rng, n, HashWordTokenizer(cfg.vocab_size), cfg)
-    else:
-        cfg = LayoutLMConfig.base(len(tl.CLASS_POOLS))
-        n, batch, warm, reps = 64, 8, 5, 10
-        data = tl.classifier_dataset(rng, n, tl.CLASS_POOLS, HashWordTokenizer(cfg.vocab_size),
-                                     cfg, False)
-    model = init_module(cfg, "sequence", 0, device="cuda")
-    toks, bxs, lens, ys = (torch.as_tensor(a, device="cuda") for a in data)
-    trainer = StepTrainer(model, tl.head_loss(model, "sequence"),
-                          warmup_cosine_decay_schedule(0.0, 3e-4, 10, 100), 0.01)
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
+    if args.cudnn_benchmark:
+        from marie_tpu_torch.utils.device import CUDNN_BENCHMARK_LIMIT
+
+        limit = CUDNN_BENCHMARK_LIMIT if args.benchmark_limit is None else args.benchmark_limit
+        torch.backends.cudnn.benchmark_limit = limit
+    schedule = warmup_cosine_decay_schedule(0.0, 3e-4, 10, 100)
     gen = torch.Generator(device="cuda").manual_seed(1)
+    conv_flops = None
+    if args.model == "crnn":
+        n, batch, warm, reps = 512, 128, 20, 30
+        model, trainer, draw, conv_flops, seq_len = _crnn(n, batch, schedule, gen,
+                                                          args.channels_last, args.prior_forward)
+    else:
+        from marie_tpu_torch.components.word_tokenizer import HashWordTokenizer
+        from marie_tpu_torch.models.configs import LayoutLMConfig
+
+        rng = np.random.default_rng(0)
+        if args.model == "splitter":
+            cfg = LayoutLMConfig.synth(2)
+            n, batch, warm, reps = 512, 32, 20, 30
+            data = tl.splitter_dataset(rng, n, HashWordTokenizer(cfg.vocab_size), cfg)
+        else:
+            cfg = LayoutLMConfig.base(len(tl.CLASS_POOLS))
+            n, batch, warm, reps = 64, 8, 5, 10
+            data = tl.classifier_dataset(rng, n, tl.CLASS_POOLS,
+                                         HashWordTokenizer(cfg.vocab_size), cfg, False)
+        seq_len = cfg.max_seq_len
+        model = init_module(cfg, "sequence", 0, device="cuda")
+        tensors = [torch.as_tensor(a, device="cuda") for a in data]
+        trainer = StepTrainer(model, tl.head_loss(model, "sequence"), schedule, 0.01)
+
+        def draw():
+            idx = torch.randint(0, n, (batch,), generator=gen, device="cuda")
+            return [t[idx] for t in tensors]
 
     def step():
-        idx = torch.randint(0, n, (batch,), generator=gen, device="cuda")
-        return trainer.step(toks[idx], bxs[idx], lens[idx], ys[idx])
+        return trainer.step(*draw())
 
     def wall_ms(fn):
         torch.cuda.synchronize()
@@ -85,14 +130,24 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / reps * 1e3
 
-    for _ in range(warm):
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(warm - 1):
         step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     card = card_name_and_power_limit()
     print(card, flush=True)
+    torch.cuda.reset_peak_memory_stats()
     step_ms = wall_ms(step)
+    steady_mib = torch.cuda.max_memory_allocated() / 2**20
     print("step ms", step_ms)
-    idx = torch.randint(0, n, (batch,), generator=gen, device="cuda")
-    batch_t = (toks[idx], bxs[idx], lens[idx], ys[idx])
+    batch_t = draw()
 
     def forward():
         with torch.no_grad(), float32_precision(False):
@@ -112,17 +167,117 @@ def main() -> int:
         torch.cuda.synchronize()
     table = prof.key_averages()
     print(table.table(sort_by="self_cpu_time_total", row_limit=25))
-    print(table.table(sort_by="self_cuda_time_total", row_limit=15))
+    print(table.table(sort_by="self_cuda_time_total", row_limit=25))
     kernels = [e for e in table if str(getattr(e, "device_type", "")).endswith("CUDA")]
     kernels = kernels or list(table)  # no kernel rows: the ops' own device time
     device_us = sum(_device_us(e) for e in kernels)
-    bwd_us = sum(_device_us(e) for e in kernels if "dq_kernel" in e.key or "dkdv_kernel" in e.key)
-    print(json.dumps({"model": args.model, "tree": os.path.relpath(tree, ROOT), "card": card,
-                      "batch": batch, "seq_len": cfg.max_seq_len, "step_ms": step_ms,
-                      "device_ms_per_step": device_us / steps / 1e3,
-                      "k2_backward_ms_per_step": bwd_us / steps / 1e3,
-                      "k2_backward_share": bwd_us / device_us if device_us else None}))
+
+    def share(words):
+        us = sum(_device_us(e) for e in kernels if any(w in e.key.lower() for w in words))
+        return us / steps / 1e3
+
+    bwd_ms = share(("dq_kernel", "dkdv_kernel"))
+    row = {"model": args.model, "tree": os.path.relpath(tree, ROOT), "card": card,
+           "batch": batch, "seq_len": seq_len, "cudnn_benchmark": args.cudnn_benchmark,
+           "benchmark_limit": torch.backends.cudnn.benchmark_limit if args.cudnn_benchmark
+           else None,
+           "channels_last": args.channels_last, "prior_forward": args.prior_forward,
+           "first_step_s": first_s,
+           "warmup_s": warm_s, "warmup_steps": warm,
+           "step_ms": step_ms, "peak_mib": peak_mib, "steady_peak_mib": steady_mib,
+           "device_ms_per_step": device_us / steps / 1e3,
+           "k2_backward_ms_per_step": bwd_ms,
+           "k2_backward_share": bwd_ms * steps * 1e3 / device_us if device_us else None}
+    if conv_flops is not None:
+        # cuDNN's convolution kernels (implicit GEMM, Winograd, FFT and the
+        # weight-gradient reductions); the FFT ones by name
+        row.update({"conv_ms_per_step": share(("conv", "fft", "winograd", "implicit_",
+                                               "xmma", "wgrad", "dgrad", "flip_filter")),
+                    "fft_ms_per_step": share(("fft",)),
+                    "lstm_ms_per_step": share(("lstm", "rnn", "elemwise")),
+                    "conv_gflop_per_step": conv_flops / 1e9,
+                    "conv_fp32_bound_ms": conv_flops / FP32_FLOPS * 1e3})
+    print(json.dumps(row))
     return 0
+
+
+def run_prior_forward(model, images, where):
+    """One forward of ``model`` on ``images`` with cuDNN's heuristics
+    choosing (as a serving engine's CRNN runs at the trainer's shape
+    before it in one process), on this thread or on another."""
+    import threading
+
+    import torch
+
+    from marie_tpu_torch.utils.device import float32_precision
+
+    def forward():
+        with torch.no_grad(), float32_precision(False):
+            model(images)
+        torch.cuda.synchronize()
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        if where == "thread":
+            worker = threading.Thread(target=forward)
+            worker.start()
+            worker.join()
+        else:
+            forward()
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+#: float32 outside the tensor cores, NVIDIA H100 SXM data sheet (chip_smoke.py's H100_FLOPS)
+FP32_FLOPS = 67e12
+
+
+def _crnn(n, batch, schedule, gen, channels_last=False, prior_forward=None):
+    """The CRNN trainer's step: (model, trainer, draw, the convolutions'
+    flops a step, the column count)."""
+    import torch
+
+    from marie_tpu_torch.models.configs import CRNNConfig
+    from marie_tpu_torch.models.tokenizer import CTCCharTokenizer
+    from marie_tpu_torch.train import crnn as trn
+    from marie_tpu_torch.train.loop import StepTrainer, init_module
+    from marie_tpu_torch.train.recognizer import add_noise
+
+    cfg, width = CRNNConfig(), 256
+    imgs, labs, lens = (torch.as_tensor(a, device="cuda") for a in trn.render_crnn_block(
+        trn._crnn_render_config(width, cfg.input_height), CTCCharTokenizer(), 0, n))
+    model = init_module(cfg, None, 0, device="cuda").train()
+    if channels_last:
+        model.to(memory_format=torch.channels_last)
+    trainer = StepTrainer(model, trn.crnn_loss(model), schedule, weight_decay=1e-4,
+                          clip_norm=1.0, params=trn.crnn_trainable(model))
+    if prior_forward:
+        run_prior_forward(model, imgs[:batch].to(torch.float32) / 255.0, prior_forward)
+
+    def draw():
+        idx = torch.randint(0, n, (batch,), generator=gen, device="cuda")
+        images = add_noise(imgs[idx].to(torch.float32) / 255.0, 0.03, gen, None, 0)
+        return images, labs[idx], lens[idx]
+
+    # forward flops of every convolution at this batch (2 per multiply-add);
+    # a step's are three times those (forward, data and weight gradients)
+    flops = 0
+    hooks = []
+
+    def count(mod, inp, out):
+        nonlocal flops
+        k = mod.weight[0].numel()  # Cin * kh * kw
+        flops += 2 * out.numel() * k
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(count))
+    with torch.no_grad():
+        model(draw()[0])
+    for h in hooks:
+        h.remove()
+    return model, trainer, draw, 3 * flops, width // 4
 
 
 if __name__ == "__main__":

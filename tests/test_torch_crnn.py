@@ -61,7 +61,7 @@ from marie_tpu_torch.registry.convert import (
     init_flax_layout,
     load_model,
 )
-from marie_tpu_torch.registry.zoo import ZOO_DIR, zoo_params
+from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json, zoo_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 96, 128
@@ -96,9 +96,9 @@ def _page(seed: int, h: int = H, w: int = W, n_words: int = 4) -> np.ndarray:
 def shipped():
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         pages = data["pages"]
-    with open(os.path.join(ZOO_DIR, "truth.json")) as f:
+    with open_zoo_json("truth") as f:
         truth = json.load(f)
-    with open(os.path.join(ZOO_DIR, "golden_best.json")) as f:
+    with open_zoo_json("golden_best") as f:
         golden = json.load(f)
     return pages, truth, golden
 

@@ -733,10 +733,10 @@ def test_cuda_matchers_match_cpu(cuda_device, name):
     import json
 
     from marie_tpu_torch.components import template_matching as tm
-    from marie_tpu_torch.registry.zoo import ZOO_DIR
+    from marie_tpu_torch.registry.zoo import open_zoo_json
 
     pages, _ = _registered_inputs()
-    with open(os.path.join(ZOO_DIR, "truth.json")) as f:
+    with open_zoo_json("truth") as f:
         truth = json.load(f)["pages"][0]
     card, cpu = getattr(tm, name)(device="cuda"), getattr(tm, name)(device="cpu")
     for k, (_, (x, y, w, h)) in enumerate(truth[:3]):

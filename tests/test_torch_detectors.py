@@ -57,7 +57,7 @@ from marie_tpu_torch.ocr.ocr_engine import PipelineOcrEngine
 from marie_tpu_torch.ops.roi_align import roi_align, roi_align_rotated, roi_align_single
 from marie_tpu_torch.preprocess.ops import normalize_page
 from marie_tpu_torch.registry.convert import init_flax_layout, load_model
-from marie_tpu_torch.registry.zoo import ZOO_DIR
+from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIT_LIMIT = 2e-6
@@ -430,7 +430,7 @@ def test_textfusenet_trained_boxes_match_jax(shipped):
 def _golden_first_page(name):
     import chip_smoke
 
-    with open(os.path.join(ZOO_DIR, "golden_detectors.json")) as f:
+    with open_zoo_json("golden_detectors") as f:
         g = json.load(f)[name]
     return chip_smoke, {**g, "pages": g["pages"][:1]}
 

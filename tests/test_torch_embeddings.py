@@ -25,7 +25,7 @@ from marie_tpu_torch.embeddings import HashingEmbeddings, LayoutEmbeddingsModel
 from marie_tpu_torch.models import configs as tcfg
 from marie_tpu_torch.ops.kernels.flash_attention import flash_attention
 from marie_tpu_torch.registry.convert import init_flax_layout
-from marie_tpu_torch.registry.zoo import ZOO_DIR
+from marie_tpu_torch.registry.zoo import open_zoo_json
 
 ATOL = 1e-5
 TEXTS = ["invoice total amount", "patient claim form due 12/01/2023", "",
@@ -70,9 +70,9 @@ def test_layout_embeddings_base_width_match_jax_and_golden():
     """One LayoutLMv3-base batch (the 4 page texts of
     ``golden_classify.json``, its encoder seed): the port against JAX
     within 1e-5, and against the file's 6-decimal vectors."""
-    with open(os.path.join(ZOO_DIR, "golden_classify.json")) as f:
+    with open_zoo_json("golden_classify") as f:
         golden = json.load(f)
-    with open(os.path.join(ZOO_DIR, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         pages = json.load(f)["pages"][:len(golden["embeddings"])]
     texts = [" ".join(w["text"] for w in p["words"]) for p in pages]
     config = dataclasses.replace(tcfg.LayoutLMConfig.base(), use_image=False)

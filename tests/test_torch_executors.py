@@ -29,7 +29,7 @@ import jax.numpy as jnp
 
 from marie_tpu.types.docs import Document as JDocument
 from marie_tpu.types.docs import DocumentArray as JDocumentArray
-from marie_tpu_torch.registry.zoo import ZOO_DIR
+from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json
 from marie_tpu_torch.types.docs import Document, DocumentArray
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,7 +46,7 @@ def _jnp(tree):
 def shipped():
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         pages = data["pages"][:2].copy()
-    with open(os.path.join(ZOO_DIR, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         golden = json.load(f)["pages"][:2]
     return pages, golden
 
@@ -237,7 +237,7 @@ def test_template_matching_executor_matches_jax():
 
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         page = np.ascontiguousarray(data["pages"][0])
-    with open(os.path.join(ZOO_DIR, "truth.json")) as f:
+    with open_zoo_json("truth") as f:
         truth = json.load(f)["pages"][0]
     port = TemplateMatchingExecutor(matcher_name="ncc", device="cpu")
     ref = JExecutor(matcher_name="ncc")

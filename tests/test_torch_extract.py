@@ -52,7 +52,7 @@ from marie_tpu_torch.overlay.overlay import OverlayProcessor
 from marie_tpu_torch.pipe import ExtractPipeline
 from marie_tpu_torch.pipe import assets as port_assets
 from marie_tpu_torch.registry.convert import init_flax_layout
-from marie_tpu_torch.registry.zoo import ZOO_DIR
+from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json
 from marie_tpu_torch.renderer import AdlibRenderer, BlobRenderer, PdfRenderer, TextRenderer
 from marie_tpu_torch.renderer.pdf_renderer import read_pdf
 from marie_tpu_torch.utils.image_io import read_png, read_tiff
@@ -85,7 +85,7 @@ def no_s3():
 def _shipped(idx):
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         frames = [data["pages"][i] for i in idx]
-    with open(os.path.join(ZOO_DIR, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         golden = json.load(f)["pages"]
     return frames, [golden[i] for i in idx]
 

@@ -255,6 +255,31 @@ def test_precision_context_is_shared_across_threads():
     assert _flags() == before
 
 
+def test_cudnn_benchmark_restores_the_flags_and_own_thread_reraises():
+    """``cudnn_benchmark`` sets the benchmark flag and its limit inside the
+    block and restores both after it, also after an error;
+    ``on_own_thread`` returns ``fn``'s value from another thread and
+    re-raises its exception on the caller's."""
+    from marie_tpu_torch.utils.device import (CUDNN_BENCHMARK_LIMIT, cudnn_benchmark,
+                                              on_own_thread)
+
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark, cudnn.benchmark_limit
+    with pytest.raises(ValueError):
+        with cudnn_benchmark():
+            assert (cudnn.benchmark, cudnn.benchmark_limit) == (True, CUDNN_BENCHMARK_LIMIT)
+            raise ValueError("inside")
+    assert (cudnn.benchmark, cudnn.benchmark_limit) == before
+    caller = threading.get_ident()
+    assert on_own_thread(threading.get_ident) != caller
+
+    def fail():
+        raise KeyError("on the worker")
+
+    with pytest.raises(KeyError, match="on the worker"):
+        on_own_thread(fail)
+
+
 def test_launch_counts_by_path_lose_no_update_across_threads():
     """Kernel launch counts from many threads at once, on two paths and
     outside one, add up (the engine launches from its upload worker and

@@ -379,24 +379,34 @@ boxes, ranks, n = (torch.from_numpy(a) for a in make_batch(np.random.default_rng
 loss, acc = pairwise_rank_loss(model(boxes, n), ranks, n)
 loss.backward()
 print(len(to_flax(model)["params"]), sorted(train.__all__)[0])
+from marie_tpu_torch.models.configs import CraftConfig, TrOCRConfig
+ds = train.SyntheticWordDataset(TrOCRConfig.tiny(), seed=0, bold_p=1.0, shear_p=1.0,
+                                rotate_deg=2, dither_p=1.0, text_mode="open")
+images, tokens, texts = ds.sample(4)
+page, targets = train.render_page_with_targets(np.random.default_rng(0), out_stride=4)
+print(images.shape, tokens.shape[0], page.shape, targets.shape, int(targets.max()))
 """
 
 
 def test_trainers_import_with_jax_and_optax_blocked():
     """The trainers, the optimiser and K2's gradient import and step (on
-    the CPU) with JAX, flax, optax, orbax, PIL and cv2 blocked; the
-    PIL-rendered trainers' names raise, naming their ROADMAP item."""
+    the CPU) with JAX, flax, optax, orbax, PIL and cv2 blocked, the OCR
+    trainers' renderers draw a batch from the glyph atlas; the trainers
+    not ported yet raise, naming their ROADMAP item."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", _TRAINERS], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.split() == ["5", "SyntheticWordDataset"]  # embed, 2 layers, ln_f, head
+    lines = out.stdout.splitlines()
+    assert lines[0].split() == ["5", "SyntheticWordDataset"]  # embed, 2 layers, ln_f, head
+    assert lines[1] == "(4, 32, 64, 3) 4 (512, 384, 3) (128, 96, 2) 255"
     import pytest
 
-    from marie_tpu_torch.train import SyntheticWordDataset, train_recognizer
+    from marie_tpu_torch import train
 
-    for fn in (train_recognizer, SyntheticWordDataset):
+    for fn in (train.train_dit_device, train.train_boundary_device, train.train_overlay_device,
+               train.train_textfusenet_device):
         with pytest.raises(NotImplementedError, match="item 8.2"):
             fn()
 
@@ -405,11 +415,13 @@ def test_trainers_default_to_the_card():
     """Every trainer runs on the card unless the caller asks for the CPU."""
     import inspect
 
-    from marie_tpu_torch.train import layout, reading_order
+    from marie_tpu_torch.train import craft, crnn, layout, reading_order, recognizer
 
     for fn in (layout.train_layout_splitter, layout.train_layout_classifier,
                layout.train_layout_indexer, reading_order.train_reading_order,
-               reading_order.train_reading_order_device):
+               reading_order.train_reading_order_device, recognizer.train_recognizer,
+               recognizer.train_recognizer_device, crnn.train_crnn_device,
+               craft.train_craft_device):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 

@@ -45,7 +45,7 @@ from marie_tpu_torch.pipe.assets import (
 )
 from marie_tpu_torch.pipe.voting import majority_vote
 from marie_tpu_torch.registry.convert import init_flax_layout
-from marie_tpu_torch.registry.zoo import ZOO_DIR
+from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json
 from marie_tpu_torch.storage.manager import PathHandler, StorageManager
 from marie_tpu_torch.utils.image_utils import hash_frames_fast
 
@@ -448,7 +448,7 @@ def test_pipeline_with_engine_and_tiny_heads_matches_jax(tmp_path, no_s3, tiny_e
 def _shipped(pages_idx):
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         frames = [data["pages"][i] for i in pages_idx]
-    with open(os.path.join(ZOO_DIR, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         golden = json.load(f)["pages"]
     return frames, [golden[i] for i in pages_idx]
 

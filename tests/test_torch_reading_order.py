@@ -39,7 +39,7 @@ from marie_tpu_torch.document.layoutreader import (
 from marie_tpu_torch.models.reading_order import (
     ReadingOrderConfig, ReadingOrderModel, TextLayout, box_features)
 from marie_tpu_torch.registry.convert import from_flax, init_flax_layout
-from marie_tpu_torch.registry.zoo import ZOO_DIR
+from marie_tpu_torch.registry.zoo import open_zoo_json
 
 ATOL = 1e-5
 SWAP_GAP = 2e-5
@@ -70,7 +70,7 @@ def _jax_order_and_scores(layout, boxes, scale):
 
 @pytest.fixture(scope="module")
 def golden_pages():
-    with open(os.path.join(ZOO_DIR, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         return json.load(f)["pages"]
 
 

@@ -29,7 +29,7 @@ from marie_tpu.registry.zoo import zoo_checkpoint
 from marie_tpu_torch.components import template_matching as T
 from marie_tpu_torch.models.configs import CraftConfig
 from marie_tpu_torch.registry.convert import init_flax_layout
-from marie_tpu_torch.registry.zoo import ZOO_DIR
+from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json
 
 SCORE_LIMIT = 1e-4
 NEAR_WHITE_LIMIT = 1e-6
@@ -39,7 +39,7 @@ TRAINED = zoo_checkpoint("craft-synth") is not None
 def _shipped(idx, h=256, w=320):
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         pages = [np.ascontiguousarray(data["pages"][i]) for i in range(16)]
-    with open(os.path.join(ZOO_DIR, "truth.json")) as f:
+    with open_zoo_json("truth") as f:
         truth = json.load(f)["pages"]
     tpls = [(f"word{k}", pages[0][y:y + bh, x:x + bw])
             for k, (_, (x, y, bw, bh)) in enumerate(truth[0][:3])]
@@ -162,7 +162,7 @@ def test_ocr_conditioned_matching_matches_jax():
     frames, tpls = _shipped([0])
     port = T.OcrConditionedMatcher(T.NCCTemplateMatcher(device="cpu"), text_threshold=0.6)
     ref = J.OcrConditionedMatcher(J.NCCTemplateMatcher(), text_threshold=0.6)
-    with open(os.path.join(ZOO_DIR, "truth.json")) as f:
+    with open_zoo_json("truth") as f:
         truth = json.load(f)["pages"][0]
     for k, (label, img) in enumerate(tpls):
         text = truth[k][0] if k < 2 else None  # two anchored, two visual
@@ -260,7 +260,7 @@ def test_ncc_resolves_near_white_windows():
 
 
 def _golden_rows(name):
-    with open(os.path.join(ZOO_DIR, "golden_register.json")) as f:
+    with open_zoo_json("golden_register") as f:
         return json.load(f)["matching"][name]
 
 

@@ -24,7 +24,7 @@ import jax.numpy as jnp
 from marie_tpu.registry.checkpoints import load_params as load_orbax
 from marie_tpu_torch.check import agreement, compare_results, truth_pages
 from marie_tpu_torch.registry.checkpoints import load_params, save_params
-from marie_tpu_torch.registry.zoo import ZOO_DIR, zoo_checkpoint, zoo_params
+from marie_tpu_torch.registry.zoo import ZOO_DIR, open_zoo_json, zoo_checkpoint, zoo_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORBAX = os.path.join(REPO, "model_zoo")
@@ -49,9 +49,9 @@ def _bf16(x):
 def shipped():
     with np.load(os.path.join(ZOO_DIR, "pages.npz")) as data:
         pages = {k: data[k] for k in data.files}
-    with open(os.path.join(ZOO_DIR, "truth.json")) as f:
+    with open_zoo_json("truth") as f:
         truth = json.load(f)
-    with open(os.path.join(ZOO_DIR, "golden.json")) as f:
+    with open_zoo_json("golden") as f:
         golden = json.load(f)
     return pages, truth, golden
 
