@@ -95,6 +95,8 @@ script exits nonzero, with no result line, without a CUDA device or
 without the package beside it.  It imports nothing of JAX.
 """
 
+import contextlib
+import functools
 import json
 import os
 import statistics
@@ -374,6 +376,9 @@ K2_CASES = [
     # 16x16 patches) and the no-tree configuration (1024x768)
     ("dit_s1_fp32", (1, 4, 768, 768, 64), "fp32", False, None, True),
     ("dit_default_fp32", (1, 6, 3072, 3072, 64), "fp32", False, None, True),
+    # the DiT trainer's step (dit_synth_s1, batch 8): the forward it
+    # differentiates (ocr_train times the gradient)
+    ("dit_train_fp32", (8, 4, 768, 768, 64), "fp32", False, None, True),
     # the reading-order model at base width on one page band: 256 boxes
     # padded, kv_len = page 0's word count
     ("reading_order_fp32", (1, 4, 256, 256, 32), "fp32", False, EMBEDDINGS, True),
@@ -3422,9 +3427,11 @@ TRAIN_K2_CASES = [
     # the 31 input tokens; no kv_len (None), as the model calls K2
     ("recognizer_encoder", (128, 6, 20, 20, 64), False, None),
     ("recognizer_decoder", (128, 6, 31, 31, 64), True, None),
+    # the DiT trainer's step (dit_synth_s1, batch 8): 768 patch tokens, no mask
+    ("dit_train", (8, 4, 768, 768, 64), False, None),
 ]
 #: the cases of TRAIN_K2_CASES the ``ocr_train`` phase times (``train`` the rest)
-OCR_K2_CASES = ("recognizer_encoder", "recognizer_decoder")
+OCR_K2_CASES = ("recognizer_encoder", "recognizer_decoder", "dit_train")
 
 #: ``ocr_train``: the trees, the recognizer recipe of scripts/round4_chain4.sh,
 #: and the held-out sets of golden_train.json's "ocr" entry
@@ -3455,7 +3462,50 @@ OCR_WARM = {"recognizer": dict(steps=300, dataset_size=2048, learning_rate=3e-5)
             "craft": dict(steps=200, dataset_size=64, learning_rate=5e-5)}
 OCR_STEP_BATCH = {"recognizer": 16, "crnn": 16, "craft": 4}
 OCR_COLD_STEPS = 40  # (d): steps from an untrained recognizer
+BOUNDARY_EVAL_PAGES = 64  # evaluate_boundary's held-out scans
+BOUNDARY_EVAL_SEED = TRAIN_SEED + 777  # train_boundary_device's held-out seed
+#: (g): the boundary recipe (scripts/train_boundary.py's defaults: 3,000
+#: steps, batch 16, 128 pages), its held-out gates against golden_train's
+#: boundary-synth figures: IoU within BOUNDARY_IOU_GATE, corner MAE at most
+#: BOUNDARY_MAE_FACTOR times it
+BOUNDARY_STEPS = 3000
+BOUNDARY_IOU_GATE = 0.03
+BOUNDARY_MAE_FACTOR = 1.5
+#: (g): DiT (dit_synth_s1) and TextFuseNet (synth_s2) from the seed at
+#: their recipes' data settings: steps on a block of pages; the loss of the
+#: last LOSS_WINDOW steps must average below that of the first
+DETECTOR_RUN_STEPS = 200
+DETECTOR_RUN_PAGES = 32
+LOSS_WINDOW = 25
+#: (f): the batches of the one-step checks
+NEW_STEP_BATCH = {"boundary": 16, "dit": 8, "textfusenet": 4}
+#: (f): every step is held in float64 on both sides, for the reason given
+#: (each measured on the CPU: the float32 gradient's largest departure from
+#: the float64 one, of its leaf's largest, against TRAIN_GRAD_LIMIT)
+NEW_STEP_FLOAT64 = {
+    "boundary": "the per-channel GroupNorm's fast variance E[x^2] - E[x]^2: the first "
+                "convolution's float32 weight gradient is 1.2e-4 off float64",
+    "dit": "pos_embed's gradient is a batch sum that cancels: 1.8e-5 off float64 in float32 "
+           "on the CPU, 1.1e-4 on the card with the plain attention, 1.8e-3 with K2's "
+           "3xTF32; K2 takes float32 only, so both sides run its plain version here (the "
+           "kernels: part (e), the float32 step against float64 and the run)",
+    "textfusenet": "the running statistics as constants of the forward: the deepest "
+                   "stage's float32 gradients are 2.9e-4 off float64",
+}
 
+#: (f): each new trainer's float32 card step against its float64 card step
+#: on the same tree and batch: the largest gradient departure of a leaf, of
+#: its largest, over the leaves but those named in NEW_FLOAT32_UNGATED
+#: (DiT's pos_embed: the batch sum that cancels, 1.0e-3-3.7e-3 sound,
+#: reported only).  Each limit sits between the sound readings on four
+#: batches and those of the planted faults (TF32 on, a bfloat16
+#: normalisation variance) of scripts/trainer_float32_gap.py on an H100
+#: (PERF.md §6): boundary 5.3e-6-7.4e-3 sound against 0.17 and 0.22 (its
+#: per-channel GroupNorm's E[x^2] - E[x]^2 on the deep stages' few pixels),
+#: DiT 9.5e-5-2.1e-4 against 1.6e-3 and 3.4e-3, TextFuseNet 6.5e-5-1.1e-3
+#: against 3.3e-3 and 6.0e-3
+NEW_FLOAT32_GAP = {"boundary": 0.03, "dit": 5e-4, "textfusenet": 2e-3}
+NEW_FLOAT32_UNGATED = {"dit": ("backbone.pos_embed",)}
 
 def _train_kv_len(source, b, s):
     """kv_len [B] of a case: the valid counts of the first ``b`` examples
@@ -3516,7 +3566,9 @@ def _train_kernel_rows(names, phase: str = "train"):
     import torch.nn.functional as F
 
     from marie_tpu_torch.ops.kernels import flash_attention as k2
+    from marie_tpu_torch.utils.device import card_name_and_power_limit
 
+    card = card_name_and_power_limit()
     rows = {}
     for i, (name, (b, h, sq, skv, d), causal, source) in enumerate(TRAIN_K2_CASES):
         if name not in names:
@@ -3573,7 +3625,7 @@ def _train_kernel_rows(names, phase: str = "train"):
                  "bound_ms": max(bound_bytes, bound_ops),
                  "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
                  "library_ms": t_lib["cold"]}
-        emit({"phase": phase, "part": "k2_backward", "case": name,
+        emit({"phase": phase, "part": "k2_backward", "case": name, "card": card,
               "shape": [b, h, sq, skv, d], "causal": causal,
               "kv_len_mean": float(skv if kv_len is None else kv_len.float().mean()),
               "rel_err": errs,
@@ -3595,11 +3647,13 @@ def _invariant_param(name: str, kind: str) -> bool:
     ranker, the score head's and ``ln_f``'s biases (they shift every score
     alike, and the loss sees only differences); for CRAFT, a convolution's
     bias right before a batch-statistics BatchNorm (the batch mean takes
-    it out again)."""
+    it out again); for the boundary regressor, a convolution's bias before
+    its per-channel GroupNorm (the same)."""
     return (name.endswith("kv.k.bias")
             or (kind == "ranker" and name in ("head.bias", "ln_f.bias"))
             or (kind == "craft" and name.endswith("Conv_0.bias")
-                and not name.startswith("head_out")))
+                and not name.startswith("head_out"))
+            or (kind == "boundary" and name.startswith("Conv_") and name.endswith(".bias")))
 
 
 def _one_step(model, loss_fn, batch, lr, weight_decay, clip_norm=None, trainable=None,
@@ -3654,6 +3708,7 @@ def _step_card_vs_cpu(name, config, tree, make, data, kind, weight_decay, launch
 
     from marie_tpu_torch.train import batchnorm
     from marie_tpu_torch.train.loop import init_module
+    from marie_tpu_torch.utils.device import card_name_and_power_limit
 
     dtype = getattr(torch, dtype_name)
     runs = {}
@@ -3704,7 +3759,7 @@ def _step_card_vs_cpu(name, config, tree, make, data, kind, weight_decay, launch
            "unresolved_nonzero_grads": band_count, "elements": elements,
            "unresolved_param_err": band_err, "dropped": dropped, "leaves": len(g_cpu),
            "launches": counts}
-    emit({"phase": phase, "part": "step_card_vs_cpu", **row,
+    emit({"phase": phase, "part": "step_card_vs_cpu", "card": card_name_and_power_limit(), **row,
           "limits": {"loss": TRAIN_LOSS_LIMIT, "grad": TRAIN_GRAD_LIMIT,
                      "param": TRAIN_PARAM_LIMIT, "bn_stats": TRAIN_PARAM_LIMIT,
                      "noise": TRAIN_NOISE, "unresolved_param": 2 * lr}})
@@ -3753,6 +3808,8 @@ def _timed_run(label, fn, expect_fwd, expect_bwd):
            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
            "k2_forward_launches": fwd.get("train", 0),
            "k2_backward_launches": bwd.get("train", 0)}
+    if "pages_per_s" in timing:  # the trainer's host renderer
+        row["host_pages_per_s"] = timing["pages_per_s"]
     return out, row, counts
 
 
@@ -3984,24 +4041,7 @@ def _craft_float32_gap(config, tree, batch, device="cuda") -> float:
     there, on the same tree and batch (batch statistics, as the trainer
     steps): the largest difference of a leaf, of that leaf's largest
     (the convolution biases the loss does not depend on aside)."""
-    import torch
-
-    from marie_tpu_torch.train import batchnorm
-    from marie_tpu_torch.train.craft import craft_loss
-    from marie_tpu_torch.train.loop import init_module
-    from marie_tpu_torch.utils.device import float32_precision
-
-    grads = {}
-    for dtype in (torch.float32, torch.float64):
-        model = init_module(config, None, 0, tree, device).to(dtype).train()
-        batchnorm.use_batch_statistics(model)
-        with float32_precision(False):
-            craft_loss(model)(*(torch.from_numpy(a).to(device, dtype) for a in batch)).backward()
-        grads[dtype] = {n: p.grad.double() for n, p in model.named_parameters()}
-        batchnorm.restore(model)
-        del model
-    return max(float((grads[torch.float32][n] - g).abs().max() / g.abs().max())
-               for n, g in grads[torch.float64].items() if not _invariant_param(n, "craft"))
+    return _new_trainer_float32_gap("craft", config, tree, batch, device)["gaps"][0][0]
 
 
 def _engine_quality(shipped, craft_tree):
@@ -4213,7 +4253,287 @@ def phase_ocr_train(shipped):
           "loss_first": losses[0], "loss_last": losses[-1], "loss_fell": losses[-1] < losses[0],
           "cer": cold_cer, "note": "report only"})
     torch.cuda.empty_cache()
+
+    # (f) one step card against CPU of the boundary, DiT and TextFuseNet
+    # trainers, then (g) their runs from the seed
+    _new_trainer_steps()
+    _new_trainer_runs(card, launches)
     return kernel_rows, launches
+
+
+def _new_trainer_batches(batch_seed=TRAIN_SEED + 91):
+    """(f)'s seeded trees and batches (numpy, host-drawn; the data from
+    ``batch_seed`` and ``batch_seed + 1``, the trees from TRAIN_SEED + 90): the boundary
+    regressor at ``BoundaryConfig()`` (scans composited on the host from
+    a seeded CPU generator), DiT at ``dit_synth_s1`` (the served
+    detector's configuration; ``render_block``'s pages and targets) and
+    TextFuseNet at ``synth_s2`` (``render_page_tfn``'s pages, the stride-2
+    head's targets, the stride-4 segmentation, boxes, and seeded jitter and
+    shifts)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from marie_tpu_torch.models.configs import BoundaryConfig, TextFuseNetConfig, ViTConfig
+    from marie_tpu_torch.registry.convert import init_flax_defaults
+    from marie_tpu_torch.train import boundary as tb
+    from marie_tpu_torch.train import dit as td
+    from marie_tpu_torch.train import textfusenet as tt
+
+    out = {}
+    bcfg = BoundaryConfig()
+    n = NEW_STEP_BATCH["boundary"]
+    gen = torch.Generator().manual_seed(batch_seed + 1)
+    docs = torch.from_numpy(tb.render_docs(batch_seed, n, bcfg.input_hw))
+    scans, quads = tb._make_scan(gen, docs, bcfg.input_hw)
+    out["boundary"] = (bcfg, init_flax_defaults(bcfg, TRAIN_SEED + 90),
+                       (scans.numpy(), quads.numpy()))
+    dcfg = ViTConfig.dit_synth_s1()
+    pages, targets = td.render_block(batch_seed, NEW_STEP_BATCH["dit"],
+                                     tuple(dcfg.image_size), dcfg.head_stride)
+    out["dit"] = (dcfg, init_flax_defaults(dcfg, TRAIN_SEED + 90),
+                  (pages.astype(np.float32) / 255.0, targets.astype(np.float32) / 255.0))
+    fcfg = TextFuseNetConfig.synth_s2()
+    b = NEW_STEP_BATCH["textfusenet"]
+    pages, targets, wb, wv, cb, cv = tt.render_dataset(batch_seed, b, CRAFT_PAGE_HW,
+                                                       fcfg.max_words, fcfg.max_chars)
+    t2 = torch.from_numpy(targets.astype(np.float32) / 255.0)
+    t4 = F.max_pool2d(t2.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1).numpy()
+    rng = np.random.default_rng(batch_seed + 1)
+    jitter = rng.uniform(-0.15, 0.15, (b, fcfg.max_words, 4)).astype(np.float32)
+    shift = rng.uniform(40.0, 120.0, (b, fcfg.max_words, 2)).astype(np.float32)
+    out["textfusenet"] = (fcfg, init_flax_defaults(fcfg, TRAIN_SEED + 90),
+                          (pages.astype(np.float32) / 255.0, t2.numpy(), t4[..., 3], wb, wv, cb,
+                           cv, jitter, shift))
+    return out
+
+
+def _plain_attention():
+    """The port's plain attention (``attention_reference``, float64 for
+    float64 inputs) in the models' attention (``models/layers.py``), for a
+    float64 step on the card: the kernels take float32 and bf16 only, and
+    their wrappers raise on any other card tensor."""
+    import marie_tpu_torch.models.layers as layers
+    from marie_tpu_torch.ops.kernels import flash_attention as fa
+
+    def plain(q, k, v, kv_len=None, causal=False, sm_scale=None):
+        return fa.attention_reference(q, k, v, causal=causal, kv_len=kv_len,
+                                      sm_scale=fa._scale(q.shape[3], sm_scale))
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = layers.flash_attention
+        layers.flash_attention = plain
+        try:
+            yield
+        finally:
+            layers.flash_attention = saved
+
+    return swapped()
+
+
+def _new_trainer_loss(kind, model):
+    """(the loss function, the tensors to step or None for every
+    parameter) of ``kind``'s trainer: the boundary's corner loss, DiT's
+    and CRAFT's weighted MSE (``craft_loss``; CRAFT's with batch
+    statistics, as its trainer steps) and TextFuseNet's loss with its
+    BatchNorm running statistics stepped as parameters, as its JAX trainer
+    does (``train=False``, every leaf stepped)."""
+    import torch
+
+    from marie_tpu_torch.train import batchnorm
+    from marie_tpu_torch.train.boundary import boundary_loss
+    from marie_tpu_torch.train.craft import craft_loss
+    from marie_tpu_torch.train.textfusenet import tfn_loss
+
+    if kind == "boundary":
+        ih, iw = model.cfg.input_hw
+        p = next(model.parameters())
+        norm = torch.tensor([iw - 1.0, ih - 1.0], dtype=p.dtype, device=p.device)
+        return boundary_loss(model, norm), None
+    if kind == "craft":
+        batchnorm.use_batch_statistics(model)
+    if kind in ("dit", "craft"):
+        return craft_loss(model), None
+    return tfn_loss(model), list(model.parameters()) + batchnorm.train_running_statistics(model)
+
+
+def _new_trainer_float32_gap(kind, cfg, tree, data, device="cuda"):
+    """``kind``'s float32 step on ``device`` (DiT's through K2 and its
+    gradient on the card) against its float64 step there (DiT's through
+    the plain attention) on the same tree and batch, no TF32: {the two
+    losses, each gradient leaf's largest departure of that leaf's largest
+    (worst first; the leaves the loss does not depend on aside), the
+    float32 step's launches}."""
+    import torch
+
+    from marie_tpu_torch.train import batchnorm
+    from marie_tpu_torch.train.loop import init_module
+
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        model = init_module(cfg, None, 0, tree, device).to(dtype)
+        loss_fn, trainable = _new_trainer_loss(kind, model)
+        batch = [torch.from_numpy(a).to(device) for a in data]
+        batch = [b.to(dtype) if b.is_floating_point() else b for b in batch]
+        _reset_counts()
+        with contextlib.ExitStack() as stack:
+            if dtype == torch.float64 and kind == "dit" and device == "cuda":
+                stack.enter_context(_plain_attention())
+            try:
+                runs[dtype] = _one_step(model, loss_fn, batch, TRAIN_STEP_LR, 0.0, 1.0,
+                                        trainable)[:2]
+            finally:
+                batchnorm.restore(model)
+        if dtype == torch.float32:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            counts = _read_train_counts()
+        del model
+    (l32, g32), (l64, g64) = runs[torch.float32], runs[torch.float64]
+    gaps = sorted(((float((g32[n] - g).abs().max() / g.abs().max()), n) for n, g in g64.items()
+                   if not _invariant_param(n, kind)), reverse=True)
+    return {"loss_float32": l32, "loss_float64": l64, "loss_rel_err": abs(l32 - l64) / abs(l64),
+            "gaps": gaps, "launches": counts}
+
+
+def _gated_gap(kind, gaps):
+    """The gap NEW_FLOAT32_GAP holds: the worst leaf but those named in
+    NEW_FLOAT32_UNGATED."""
+    return max(g for g, n in gaps if n not in NEW_FLOAT32_UNGATED.get(kind, ()))
+
+
+def _new_trainer_float32_row(kind, cfg, tree, data):
+    """(f): ``kind``'s float32 card step against its float64 card step
+    (``_new_trainer_float32_gap``): the loss within TRAIN_LOSS_LIMIT, the
+    gated gradient gap within NEW_FLOAT32_GAP, K2 and its gradient launched
+    once a layer for DiT and never for the others."""
+    from marie_tpu_torch.utils.device import card_name_and_power_limit
+
+    got = _new_trainer_float32_gap(kind, cfg, tree, data)
+    gaps, counts = got.pop("gaps"), got["launches"]
+    gated = _gated_gap(kind, gaps)
+    row = {"phase": "ocr_train", "part": "float32_vs_float64", "model": kind,
+           "card": card_name_and_power_limit(), **got, "grad_gap_gated": gated,
+           "grad_gap_largest": gaps[:3], "grad_gap_median": gaps[len(gaps) // 2][0],
+           "ungated": list(NEW_FLOAT32_UNGATED.get(kind, ())),
+           "limits": {"loss": TRAIN_LOSS_LIMIT, "grad_gap_gated": NEW_FLOAT32_GAP[kind]}}
+    emit(row)
+    if got["loss_rel_err"] > TRAIN_LOSS_LIMIT or not gated <= NEW_FLOAT32_GAP[kind]:
+        raise AssertionError(f"{kind}'s float32 card step is off its float64 one: {row}")
+    k2 = cfg.num_layers if kind == "dit" else 0
+    if (counts["flash_attention"].get("train", 0) != k2
+            or counts["flash_attention_backward"].get("train", 0) != k2):
+        raise AssertionError(f"{kind}'s float32 card step launches: {counts}")
+    return row
+
+
+def _new_trainer_steps():
+    """(f): one AdamW step card against CPU of the boundary regressor, DiT
+    and TextFuseNet (``_step_card_vs_cpu``: their trainers' losses, clip
+    1.0, weight decay 1e-4, their peak learning rates held constant), each
+    in float64 on both sides (NEW_STEP_FLOAT64 says why; DiT's through the
+    plain attention), then each float32 card step against the float64 card
+    step (``_new_trainer_float32_row``; DiT's with K2)."""
+    import torch
+
+    from marie_tpu_torch.utils.device import card_name_and_power_limit
+
+    rows = {}
+    rates = {"boundary": 4e-4, "dit": 3e-4, "textfusenet": 3e-4}
+    for kind, (cfg, tree, data) in _new_trainer_batches().items():
+        emit({"phase": "ocr_train", "part": "step_in_float64", "model": kind,
+              "card": card_name_and_power_limit(), "why": NEW_STEP_FLOAT64[kind]})
+        with contextlib.ExitStack() as stack:
+            if kind == "dit":
+                stack.enter_context(_plain_attention())
+            rows[kind] = _step_card_vs_cpu(kind, cfg, tree,
+                                           functools.partial(_new_trainer_loss, kind), data,
+                                           kind, 1e-4, 0, phase="ocr_train", lr=rates[kind],
+                                           clip_norm=1.0, dtype_name="float64")
+        rows[f"{kind}_float32"] = _new_trainer_float32_row(kind, cfg, tree, data)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _loss_fell(label, losses):
+    first = sum(losses[:LOSS_WINDOW]) / LOSS_WINDOW
+    last = sum(losses[-LOSS_WINDOW:]) / LOSS_WINDOW
+    if not last < first:
+        raise AssertionError(f"{label}: the last {LOSS_WINDOW} steps' mean loss {last} is not "
+                             f"below the first {LOSS_WINDOW}'s {first}")
+    return {"loss_first_mean": first, "loss_last_mean": last}
+
+
+def _new_trainer_runs(card, launches):
+    """(g): the boundary recipe from the seed (BOUNDARY_STEPS steps, batch
+    16, 128 pages), its held-out figures gated by golden_train.json's
+    ``boundary-synth`` ones; DiT (``dit_synth_s1``, batch 8) and
+    TextFuseNet (``synth_s2``, batch 4) from the seed for
+    DETECTOR_RUN_STEPS steps on DETECTOR_RUN_PAGES pages, their losses
+    falling.  Each reports ms/step, the host renderer's pages/s, peak
+    memory and K2's launches against the prediction: 6 forward and 6
+    gradient a DiT step, none in the others."""
+    import torch
+
+    from marie_tpu_torch.models.configs import BoundaryConfig, TextFuseNetConfig, ViTConfig
+    from marie_tpu_torch.registry.zoo import open_zoo_json
+    from marie_tpu_torch.train import boundary as tb
+    from marie_tpu_torch.train import dit as td
+    from marie_tpu_torch.train import textfusenet as tt
+    from marie_tpu_torch.train.loop import init_module
+
+    with open_zoo_json("golden_train") as f:
+        golden = json.load(f)["boundary"]
+    if golden["pages"] != BOUNDARY_EVAL_PAGES or golden["seed"] != BOUNDARY_EVAL_SEED:
+        raise AssertionError("golden_train.json's boundary entry is of other settings")
+    bcfg = BoundaryConfig()
+    untrained = tb.evaluate_boundary(init_module(bcfg, None, TRAIN_SEED, device="cuda").eval(),
+                                     bcfg, BOUNDARY_EVAL_PAGES, BOUNDARY_EVAL_SEED)
+    losses = []
+    (model, _, metrics), run, launches["ocr_train_boundary"] = _timed_run(
+        "boundary", lambda timing: tb.train_boundary_device(
+            config=bcfg, steps=BOUNDARY_STEPS, batch_size=16, dataset_size=128,
+            seed=TRAIN_SEED, device="cuda", timing=timing, losses=losses), 0, 0)
+    emit({"phase": "ocr_train", "part": "boundary_run", "card": card, **run, "batch": 16,
+          "dataset_size": 128, "heldout": metrics, "untrained": untrained, "golden": golden,
+          "predicted_k2_launches": 0, **_loss_fell("boundary", losses),
+          "limits": {"iou": BOUNDARY_IOU_GATE, "mae_factor": BOUNDARY_MAE_FACTOR}})
+    if metrics["mean_quad_iou"] < golden["mean_quad_iou"] - BOUNDARY_IOU_GATE:
+        raise AssertionError(f"the boundary run's held-out IoU {metrics['mean_quad_iou']} < "
+                             f"{golden['mean_quad_iou']} - {BOUNDARY_IOU_GATE}")
+    if metrics["corner_mae_px"] > BOUNDARY_MAE_FACTOR * golden["corner_mae_px"]:
+        raise AssertionError(f"the boundary run's held-out corner error "
+                             f"{metrics['corner_mae_px']} px > {BOUNDARY_MAE_FACTOR} x "
+                             f"{golden['corner_mae_px']}")
+    del model
+    torch.cuda.empty_cache()
+
+    dcfg = ViTConfig.dit_synth_s1()
+    losses, steps = [], DETECTOR_RUN_STEPS
+    (model, _), run, launches["ocr_train_dit"] = _timed_run(
+        "dit", lambda timing: td.train_dit_device(
+            config=dcfg, steps=steps, batch_size=8, dataset_size=DETECTOR_RUN_PAGES,
+            refresh_every=0, seed=TRAIN_SEED, device="cuda", timing=timing, losses=losses),
+        steps * dcfg.num_layers, steps * dcfg.num_layers)
+    emit({"phase": "ocr_train", "part": "dit_run", "card": card, **run, "batch": 8,
+          "dataset_size": DETECTOR_RUN_PAGES, "config": "dit_synth_s1",
+          "predicted_k2_launches": steps * dcfg.num_layers, **_loss_fell("dit", losses)})
+    del model
+    torch.cuda.empty_cache()
+
+    fcfg = TextFuseNetConfig.synth_s2()
+    losses = []
+    (model, _), run, launches["ocr_train_textfusenet"] = _timed_run(
+        "textfusenet", lambda timing: tt.train_textfusenet_device(
+            config=fcfg, steps=steps, batch_size=4, dataset_size=DETECTOR_RUN_PAGES,
+            page_hw=CRAFT_PAGE_HW, seed=TRAIN_SEED, device="cuda", timing=timing,
+            losses=losses), 0, 0)
+    emit({"phase": "ocr_train", "part": "textfusenet_run", "card": card, **run, "batch": 4,
+          "dataset_size": DETECTOR_RUN_PAGES, "config": "synth_s2", "predicted_k2_launches": 0,
+          **_loss_fell("textfusenet", losses)})
+    del model
+    torch.cuda.empty_cache()
 
 
 def phase_runtime(shipped, trained_engine):

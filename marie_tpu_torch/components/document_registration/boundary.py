@@ -260,9 +260,9 @@ class DocumentBoundaryRegistration:
     def corners(self, frame: np.ndarray) -> np.ndarray:
         """The regressor's quad [4, 2] (xy, frame pixels, float32) of an
         [H, W, 3] uint8 frame: the frame resized to the model's input as
-        ``jax.image.resize`` resizes (antialiased, ``overlay/overlay.py::
+        ``jax.image.resize`` resizes (antialiased, ``preprocess/ops.py::
         resize_linear``), divided by 255, the network in float32."""
-        from marie_tpu_torch.overlay.overlay import resize_linear
+        from marie_tpu_torch.preprocess.ops import resize_linear
 
         h, w = frame.shape[:2]
         ih, iw = self.model_config.input_hw

@@ -97,9 +97,10 @@ class SameConvTranspose2d(nn.ConvTranspose2d):
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm`` on NCHW: ``groups`` groups of channels, or one
     channel a group (``groups=None``: flax's ``group_size=1``, an instance
-    norm), epsilon 1e-6, statistics in float32 as ``E[x^2] - E[x]^2``
-    clipped at 0, ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
-    float32, rounded to the input's dtype once."""
+    norm), epsilon 1e-6, statistics in float32 (float64 for float64
+    inputs, as flax promotes) as ``E[x^2] - E[x]^2`` clipped at 0, ``(x -
+    mean) * (rsqrt(var + eps) * scale) + bias`` in that type, rounded to
+    the input's dtype once."""
 
     #: the bridge names this module's weight ``scale`` in the flax tree
     flax_norm = True
@@ -113,7 +114,8 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         g = self.groups or c
-        x32 = x.float()
+        ct = torch.promote_types(x.dtype, torch.float32)
+        x32 = x.to(ct)
         grouped = x32.reshape(b, g, c // g, h, w)
         mean = grouped.mean(dim=(2, 3, 4), keepdim=True)
         mean2 = (grouped * grouped).mean(dim=(2, 3, 4), keepdim=True)
@@ -122,8 +124,8 @@ class GroupNorm(nn.Module):
         def per_channel(v):
             return v.expand(b, g, c // g, 1, 1).reshape(b, c, 1, 1)
 
-        mul = per_channel(torch.rsqrt(var + GN_EPS)) * self.weight.float()[None, :, None, None]
-        y = (x32 - per_channel(mean)) * mul + self.bias.float()[None, :, None, None]
+        mul = per_channel(torch.rsqrt(var + GN_EPS)) * self.weight.to(ct)[None, :, None, None]
+        y = (x32 - per_channel(mean)) * mul + self.bias.to(ct)[None, :, None, None]
         return y.to(x.dtype)
 
 

@@ -4,13 +4,14 @@
 from typing import Any, Dict, List
 
 from marie_tpu_torch.enums import CoordinateFormat, PSMode
-from marie_tpu_torch.ocr.ocr_engine import _as_frame_list
+from marie_tpu_torch.ocr.ocr_engine import OcrEngine, _as_frame_list
 
 
-class MockOcrEngine:
+class MockOcrEngine(OcrEngine):
     """A deterministic fake extraction: one word per page quadrant."""
 
-    def __init__(self, text: str = "mock"):
+    def __init__(self, text: str = "mock", **kwargs):
+        super().__init__(**kwargs)
         self.text = text
 
     def extract(

@@ -28,8 +28,12 @@ is taken as it is (:func:`~marie_tpu_torch.utils.device.resolve_mesh`).
 The fused path splits each page group whose padded size divides by the
 mesh's entry count over the entries, and runs any other group whole
 (:func:`~marie_tpu_torch.ocr.fused.fused_dispatch_stream`).
+
+:class:`OcrEngine` is the abstract base of every engine (the JAX
+package's): ``extract`` over frames or regions.
 """
 
+from abc import ABC, abstractmethod
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -38,6 +42,7 @@ import torch
 from marie_tpu_torch.boxes.box_processor import np_rgb
 from marie_tpu_torch.document.ocr_processor import assemble_page_result
 from marie_tpu_torch.enums import CoordinateFormat, PSMode
+from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.ocr.fused import (
     UPLOAD_FORMATS,
     fused_collect_many,
@@ -49,7 +54,28 @@ from marie_tpu_torch.ops.kernels._build import launch_path
 from marie_tpu_torch.utils.device import resolve_mesh
 
 
-class PipelineOcrEngine:
+class OcrEngine(ABC):
+    """Extracts text from frames (full page) or regions."""
+
+    def __init__(self, **kwargs):
+        self.logger = MarieLogger(type(self).__name__)
+
+    @abstractmethod
+    def extract(
+        self,
+        frames,
+        pms_mode: PSMode = PSMode.SPARSE,
+        coordinate_format: CoordinateFormat = CoordinateFormat.XYWH,
+        regions: Optional[List[Dict[str, Any]]] = None,
+        queue_id: str = "",
+        **kwargs,
+    ) -> List[Dict[str, Any]]:
+        """One result dict per page (``meta`` with ``page``, ``lines``,
+        ``lines_bboxes`` and ``format``; ``words``; ``lines``), or one per
+        region with ``regions``."""
+
+
+class PipelineOcrEngine(OcrEngine):
     """Concrete engine over a (box_processor, ocr_processor) pair, e.g.
     :class:`~marie_tpu_torch.boxes.craft_box_processor.BoxProcessorCraft`
     and :class:`~marie_tpu_torch.document.trocr_ocr_processor.TrOcrProcessor`.
@@ -88,6 +114,7 @@ class PipelineOcrEngine:
         classifier=None,
         indexer=None,
     ):
+        super().__init__()
         self.mesh = resolve_mesh(mesh, getattr(box_processor, "device", "cuda"))
         if upload_format not in UPLOAD_FORMATS:
             raise ValueError(f"upload_format must be one of {UPLOAD_FORMATS}, "

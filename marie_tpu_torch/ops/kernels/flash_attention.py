@@ -45,8 +45,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _masked_logits(q, k, causal, kv_len, sm_scale):
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * sm_scale
+    ct = torch.promote_types(q.dtype, torch.float32)  # float64 stays float64
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), k.to(ct)) * sm_scale
     sq, skv = q.shape[2], k.shape[2]
     if kv_len is not None:
         pos = torch.arange(skv, device=q.device)
@@ -61,20 +61,22 @@ def _masked_logits(q, k, causal, kv_len, sm_scale):
 
 def attention_reference(q, k, v, *, causal=False, kv_len=None, sm_scale=1.0):
     """Plain softmax(q k^T * sm_scale + masks) v: q [B,H,Sq,D], k/v
-    [B,H,Skv,D]; logits, probabilities and sums in float32 for every input
-    type, as in the TPU kernel (the JAX ``_attention_reference`` rounds
-    bf16 logits to bf16; in float32 the two are the same function); output
+    [B,H,Skv,D]; logits, probabilities and sums in float32 for float32 and
+    bf16 inputs, as in the TPU kernel (the JAX ``_attention_reference``
+    rounds bf16 logits to bf16; in float32 the two are the same function),
+    in float64 for float64 inputs (which the kernels do not take); output
     in q's dtype.  Masked logits are -1e30 (a fully masked row averages v
     uniformly).  Returns the ``[B,H,Sq,D]`` view of a contiguous
     ``[B,Sq,H,D]`` tensor, as the kernel does."""
     probs = torch.softmax(_masked_logits(q, k, causal, kv_len, sm_scale), dim=-1)
-    out = torch.einsum("bhqk,bhkd->bqhd", probs, v.to(torch.float32))
+    out = torch.einsum("bhqk,bhkd->bqhd", probs, v.to(probs.dtype))
     return out.to(q.dtype).contiguous().transpose(1, 2)
 
 
 def attention_lse_reference(q, k, v, *, causal=False, kv_len=None, sm_scale=1.0):
     """(out, lse): :func:`attention_reference` and each row's natural-log
-    log-sum-exp of its scaled, masked logits, [B,H,Sq] float32.  A fully
+    log-sum-exp of its scaled, masked logits, [B,H,Sq] in the logits'
+    type (float32; float64 for float64 inputs).  A fully
     masked row's lse is that of its -1e30 logits (the kernel's is another
     value near -1e30: neither enters the gradient, see
     ``csrc/flash_attention_bwd.cu``)."""

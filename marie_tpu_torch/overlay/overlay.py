@@ -19,8 +19,8 @@ What must match the JAX version:
 * ``jax.image.resize(..., "linear")`` antialiases by default: the 2x
   downscale is a triangle filter widened to 4 taps ([1, 3, 3, 1] / 8,
   renormalised at the edges), the 2x upscale half-pixel bilinear.  Both
-  are JAX's weight matrices (:func:`resize_weights`) applied one axis at
-  a time in the compute dtype, in ``jnp.einsum``'s order;
+  are JAX's weight matrices applied one axis at a time in the compute
+  dtype, in ``jnp.einsum``'s order (``preprocess/ops.py::resize_linear``);
 * the host resizes of oversize pages are cv2's ``INTER_AREA``,
   ``INTER_LINEAR`` and ``INTER_NEAREST`` in numpy
   (:mod:`marie_tpu_torch.preprocess.resize`).
@@ -41,6 +41,7 @@ from torch.profiler import record_function
 from marie_tpu_torch.logging_core import MarieLogger
 from marie_tpu_torch.models.configs import Pix2PixConfig
 from marie_tpu_torch.preprocess.buckets import BucketSpec, pad_to
+from marie_tpu_torch.preprocess.ops import resize_linear
 from marie_tpu_torch.preprocess.resize import (
     resize_area_u8,
     resize_linear_u8,
@@ -62,38 +63,6 @@ def _unit_table() -> torch.Tensor:
     it: ``fma(v, float32(1 / 127.5), -1)``."""
     v = np.arange(256, dtype=np.float64)
     return torch.from_numpy((v * np.float64(np.float32(1.0 / 127.5)) - 1.0).astype(np.float32))
-
-
-def resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """float32 [n_in, n_out] weights of ``jax.image.resize``'s linear
-    kernel with antialiasing (``compute_weight_mat``): the triangle
-    widened by ``1 / scale`` when downscaling, each column normalised to
-    sum 1, columns whose sample falls outside the input zeroed."""
-    f32 = np.float32
-    inv_scale = f32(1.0) / f32(n_out / n_in)
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
-    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x)).astype(f32)
-    total = w.sum(axis=0, keepdims=True, dtype=f32)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
-
-
-def resize_linear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """``jax.image.resize(x, (P, h, w, C), "linear")`` of NHWC ``x`` in
-    its dtype: one axis contracted, rounded, then the other, in the
-    order ``jnp.einsum`` picks (fewer multiply-adds first; H on a tie)."""
-    hi, wi = x.shape[1], x.shape[2]
-    wh = torch.from_numpy(resize_weights(hi, h)).to(x.device, x.dtype)
-    ww = torch.from_numpy(resize_weights(wi, w)).to(x.device, x.dtype)
-    if hi * w * (wi + h) < h * wi * (hi + w):
-        x = torch.einsum("phwc,wl->phlc", x, ww)
-        return torch.einsum("phlc,hk->pklc", x, wh)
-    x = torch.einsum("phwc,hk->pkwc", x, wh)
-    return torch.einsum("pkwc,wl->pklc", x, ww)
 
 
 def _segment_batch_gray(model, unit, pages: torch.Tensor, gan_scale: int):

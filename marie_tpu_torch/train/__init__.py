@@ -1,19 +1,21 @@
 """Trainers of the port (counterpart of ``marie_tpu/train/``): the LayoutLM
 heads (:mod:`.layout`: splitter, classifier, indexer; the chained heads are
 the classifier and indexer with ``RollingWordTokenizer`` and shuffled
-words), the reading-order ranker (:mod:`.reading_order`), and the OCR
-trainers on synthetic renders drawn with the glyph atlas
-(``utils/glyphs.py``): the TrOCR recognizer (:mod:`.recognizer`), the
-CRNN (:mod:`.crnn`) and the CRAFT detector (:mod:`.craft`), trained on
-the card.
+words), the reading-order ranker (:mod:`.reading_order`), and the trainers
+on synthetic renders drawn with the glyph atlas (``utils/glyphs.py``): the
+TrOCR recognizer (:mod:`.recognizer`), the CRNN (:mod:`.crnn`), the CRAFT
+detector (:mod:`.craft`), the boundary regressor (:mod:`.boundary`), the
+DiT detector (:mod:`.dit`) and TextFuseNet (:mod:`.textfusenet`), trained
+on the card.
 
-The JAX package's other renderer-fed trainers (DiT, boundary, overlay,
-TextFuseNet) are not ported yet: ROADMAP §1 item 8.2 names them, and their
-names here raise naming it.
+The JAX package's overlay GAN trainer is not ported yet: ROADMAP §1 item
+8.2 names it, and its name here raises naming it.
 """
 
+from marie_tpu_torch.train.boundary import evaluate_boundary, train_boundary_device
 from marie_tpu_torch.train.craft import render_page_with_targets, train_craft_device
 from marie_tpu_torch.train.crnn import evaluate_crnn_cer, train_crnn_device
+from marie_tpu_torch.train.dit import train_dit_device
 from marie_tpu_torch.train.layout import (
     train_layout_classifier,
     train_layout_indexer,
@@ -31,8 +33,9 @@ from marie_tpu_torch.train.recognizer import (
     train_recognizer,
     train_recognizer_device,
 )
+from marie_tpu_torch.train.textfusenet import render_page_tfn, train_textfusenet_device
 
-_NEXT_TRAINERS = "the rest of the renderer-fed trainers (ROADMAP §1 item 8.2)"
+_NEXT_TRAINERS = "the overlay GAN trainer (ROADMAP §1 item 8.2)"
 
 
 def _not_ported(name: str):
@@ -43,13 +46,11 @@ def _not_ported(name: str):
     return stub
 
 
-train_dit_device = _not_ported("train_dit_device")
-train_boundary_device = _not_ported("train_boundary_device")
 train_overlay_device = _not_ported("train_overlay_device")
-train_textfusenet_device = _not_ported("train_textfusenet_device")
 
-__all__ = ["SyntheticWordDataset", "character_error_rate", "evaluate_cer", "evaluate_crnn_cer",
-           "evaluate_reading_order", "render_page_with_targets", "train_boundary_device",
+__all__ = ["SyntheticWordDataset", "character_error_rate", "evaluate_boundary", "evaluate_cer",
+           "evaluate_crnn_cer", "evaluate_reading_order", "render_page_tfn",
+           "render_page_with_targets", "train_boundary_device",
            "train_craft_device", "train_crnn_device", "train_dit_device",
            "train_layout_classifier", "train_layout_indexer", "train_layout_splitter",
            "train_overlay_device", "train_reading_order", "train_reading_order_device",

@@ -45,7 +45,7 @@ sys.path.insert(0, REPO)
 FONT_DIR = "/usr/share/fonts/truetype/dejavu"
 FACES = ("DejaVuSans", "DejaVuSans-Bold", "DejaVuSansMono", "DejaVuSansMono-Bold",
          "DejaVuSerif")
-SIZES = (12, 14, 16, 18, 20, 22, 24, 26, 30)
+SIZES = (7, 9, 11, 12, 13, 14, 16, 18, 20, 22, 24, 26, 28, 30)
 STROKE_SIZES = (14, 18, 20, 24, 30)  # the recognizer's sizes: its bold draws stroke 1 or 2
 STROKES = (1, 2)
 CHARS = tuple(chr(c) for c in range(32, 127))

@@ -114,7 +114,10 @@ It writes
   JAX package's held-out renders, drawn by PIL (``chip_smoke.py``'s
   ``ocr_train`` settings): ``trocr-fast3g2d6ov-synth``'s and
   ``crnn-synth``'s CER on 512 clean crops and ``craft-s2d2-synth``'s
-  weighted MSE on 32 pages.
+  weighted MSE on 32 pages.  Its ``boundary`` entry holds
+  ``model_zoo/boundary-synth`` to the JAX ``evaluate_boundary`` (64
+  scans, seed 777, the trainer's own held-out seed): the yardstick of the
+  ``ocr_train`` phase's boundary run.
 
 The JSON files are gzipped (``<name>.json.gz``, no file name or time
 stamp in the header: ``_write_json``); ``registry/zoo.py::open_zoo_json``
@@ -959,6 +962,7 @@ def export_train() -> None:
         "reading_order": {"tree": "reading-order-synth", "kendall_tau": float(np.mean(taus)),
                           "pair_accuracy": float(pair_acc)},
         "ocr": _ocr_train_golden(cs),
+        "boundary": _boundary_train_golden(cs),
     }
     _write_json("golden_train", golden, indent=1)
     print(json.dumps(golden), flush=True)
@@ -1027,6 +1031,27 @@ def _ocr_train_golden(cs) -> dict:
         "crnn": {"tree": cs.OCR_TREES["crnn"], "cer": crnn_cer},
         "craft": {"tree": cs.OCR_TREES["craft"], "weighted_mse": float(np.mean(losses))},
     }
+
+
+def _boundary_train_golden(cs) -> dict:
+    """``model_zoo/boundary-synth`` (``BoundaryConfig()``) on the JAX
+    trainer's own held-out scans: ``evaluate_boundary``'s figures over
+    BOUNDARY_EVAL_PAGES pages of seed BOUNDARY_EVAL_SEED (its quads and
+    noise from ``jax.random``: the port draws other ones, so the figures
+    compare distributions, not pages)."""
+    import jax
+
+    from marie_tpu.models.boundary import BoundaryNet
+    from marie_tpu.models.configs import BoundaryConfig
+    from marie_tpu.registry.checkpoints import load_params as load_orbax
+    from marie_tpu.train.boundary import evaluate_boundary
+
+    cfg = BoundaryConfig()
+    params = jax.device_get(load_orbax(os.path.join(REPO, "model_zoo", "boundary-synth")))
+    metrics = evaluate_boundary(BoundaryNet(cfg), params, cfg, n_pages=cs.BOUNDARY_EVAL_PAGES,
+                                seed=cs.BOUNDARY_EVAL_SEED)
+    return {"tree": "boundary-synth", "pages": cs.BOUNDARY_EVAL_PAGES,
+            "seed": cs.BOUNDARY_EVAL_SEED, **metrics}
 
 
 def _cut(page, box):

@@ -52,13 +52,15 @@ from marie_tpu_torch.components.document_registration import (
 from marie_tpu_torch.components.document_registration import boundary as tbd
 from marie_tpu_torch.models import boundary as tb
 from marie_tpu_torch.models.configs import BoundaryConfig
-from marie_tpu_torch.ops import box_ops, nms
+from marie_tpu_torch.ops import box_ops
 from marie_tpu_torch.preprocess.ops import _bilinear_hwc
 from marie_tpu_torch.registry.convert import init_flax_layout, load_model
 from marie_tpu_torch.registry.zoo import ZOO_DIR
 
 #: the module (``marie_tpu.ops`` exports its function under the same name)
 jnms = importlib.import_module("marie_tpu.ops.nms")
+# the package's ``nms`` is the function, as in the JAX package
+nms = importlib.import_module("marie_tpu_torch.ops.nms")
 
 FLOAT32_LIMIT = 1e-5
 SCORE_LIMIT = 1e-4

@@ -82,7 +82,7 @@ def test_atlas_contents_and_refusals():
     assert meta["faces"] == ["DejaVuSans", "DejaVuSans-Bold", "DejaVuSansMono",
                              "DejaVuSansMono-Bold", "DejaVuSerif"]
     assert "DejaVuSerif-Bold" not in meta["faces"]  # the recognizer's held-out face
-    assert meta["sizes"] == [12, 14, 16, 18, 20, 22, 24, 26, 30]
+    assert meta["sizes"] == [7, 9, 11, 12, 13, 14, 16, 18, 20, 22, 24, 26, 28, 30]
     assert meta["stroke_sizes"] == [14, 18, 20, 24, 30] and meta["strokes"] == [0, 1, 2]
     assert meta["pillow"] and meta["freetype"] and meta["raqm"] and meta["layout"] == "raqm"
     assert "DejaVu changes are in public domain" in meta["licence"]
@@ -94,7 +94,7 @@ def test_atlas_contents_and_refusals():
     with pytest.raises(ValueError, match="no face"):
         load_font("DejaVuSerif-Bold", 24)
     with pytest.raises(ValueError, match="no size"):
-        load_font("DejaVuSans", 13)
+        load_font("DejaVuSans", 15)
     with pytest.raises(ValueError, match="no stroke 1"):
         load_font("DejaVuSans", 12).draw_text(np.full((40, 80), 255, np.uint8), (0, 0), "a",
                                               stroke_width=1)

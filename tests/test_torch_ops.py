@@ -2,6 +2,8 @@
 unpackers, page preprocessing (normalize, grayscale, Otsu) and the
 run-domain connected components with their pixel-domain oracle."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -12,8 +14,10 @@ from marie_tpu.ocr import fused as jfused
 from marie_tpu.ops import component_boxes, component_boxes_runs_cc, connected_components
 from marie_tpu.preprocess import ops as jops
 from marie_tpu_torch.ocr import fused as tfused
-from marie_tpu_torch.ops import connected_components as tcc
 from marie_tpu_torch.preprocess import ops as tops
+
+# the package's ``connected_components`` is the function, as in the JAX package
+tcc = importlib.import_module("marie_tpu_torch.ops.connected_components")
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4])
