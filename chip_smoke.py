@@ -3491,6 +3491,8 @@ NEW_STEP_FLOAT64 = {
            "kernels: part (e), the float32 step against float64 and the run)",
     "textfusenet": "the running statistics as constants of the forward: the deepest "
                    "stage's float32 gradients are 2.9e-4 off float64",
+    "overlay": "the per-channel GroupNorm's fast variance E[x^2] - E[x]^2 in both nets, as "
+               "in the boundary regressor",
 }
 
 #: (f): each new trainer's float32 card step against its float64 card step
@@ -3503,9 +3505,30 @@ NEW_STEP_FLOAT64 = {
 #: (PERF.md §6): boundary 5.3e-6-7.4e-3 sound against 0.17 and 0.22 (its
 #: per-channel GroupNorm's E[x^2] - E[x]^2 on the deep stages' few pixels),
 #: DiT 9.5e-5-2.1e-4 against 1.6e-3 and 3.4e-3, TextFuseNet 6.5e-5-1.1e-3
-#: against 3.3e-3 and 6.0e-3
-NEW_FLOAT32_GAP = {"boundary": 0.03, "dit": 5e-4, "textfusenet": 2e-3}
+#: against 3.3e-3 and 6.0e-3, the overlay GAN (both nets, cuDNN's timed
+#: algorithms) 3.7e-3-1.2e-2 against 0.061 and 0.093
+NEW_FLOAT32_GAP = {"boundary": 0.03, "dit": 5e-4, "textfusenet": 2e-3, "overlay": 0.03}
 NEW_FLOAT32_UNGATED = {"dit": ("backbone.pos_embed",)}
+
+#: (f) and (h): the overlay GAN trainer (train_overlay_device).  Its one-step
+#: checks run the synth generator and the PatchGAN (the recipe's nets, from
+#: init_flax_defaults' trees of TRAIN_SEED + 90 and + 91) on OVERLAY_STEP_BATCH
+#: pairs of OVERLAY_STEP_HW: one step card against CPU in float64, every
+#: gradient leaf within OVERLAY_STEP_LIMIT of its largest (GroupNorm's fast
+#: variance makes a float32 gate there ill-conditioned), then the float32
+#: card step against the float64 one (NEW_FLOAT32_GAP["overlay"]).  (h) runs
+#: OVERLAY_RUN_STEPS steps of the recipe (batch 4, OVERLAY_DATASET pairs of
+#: OVERLAY_PAGE_HW) from the seed, its L1 falling, its held-out figures on
+#: golden_train.json's overlay set printed beside the JAX tree's
+OVERLAY_STEP_HW = (128, 160)
+OVERLAY_STEP_BATCH = 4
+OVERLAY_STEP_LIMIT = 1e-9
+OVERLAY_LR = 2e-4  # train_overlay_device's learning rate
+OVERLAY_PAGE_HW = (512, 384)
+OVERLAY_DATASET = 192
+OVERLAY_RUN_STEPS = 200
+OVERLAY_EVAL_PAGES = 32
+OVERLAY_EVAL_SEED = TRAIN_SEED + 9999  # train_overlay_device's held-out seed
 
 def _train_kv_len(source, b, s):
     """kv_len [B] of a case: the valid counts of the first ``b`` examples
@@ -3648,12 +3671,25 @@ def _invariant_param(name: str, kind: str) -> bool:
     alike, and the loss sees only differences); for CRAFT, a convolution's
     bias right before a batch-statistics BatchNorm (the batch mean takes
     it out again); for the boundary regressor, a convolution's bias before
-    its per-channel GroupNorm (the same)."""
+    its per-channel GroupNorm (the same), and the overlay nets' likewise."""
     return (name.endswith("kv.k.bias")
             or (kind == "ranker" and name in ("head.bias", "ln_f.bias"))
             or (kind == "craft" and name.endswith("Conv_0.bias")
                 and not name.startswith("head_out"))
-            or (kind == "boundary" and name.startswith("Conv_") and name.endswith(".bias")))
+            or (kind == "boundary" and name.startswith("Conv_") and name.endswith(".bias"))
+            or (kind == "overlay" and _overlay_norm_bias(name)))
+
+
+def _overlay_norm_bias(name: str) -> bool:
+    """An overlay net's convolution bias before its per-channel GroupNorm:
+    every generator convolution but the last (``gen.Conv_3``), and the
+    discriminator's ``Conv_1`` to ``Conv_3``."""
+    if not name.endswith(".bias"):
+        return False
+    if name.startswith("gen."):
+        return name != "gen.Conv_3.bias" and name.split(".")[-2].startswith(
+            ("Conv_", "ConvTranspose_"))
+    return name in ("disc.Conv_1.bias", "disc.Conv_2.bias", "disc.Conv_3.bias")
 
 
 def _one_step(model, loss_fn, batch, lr, weight_decay, clip_norm=None, trainable=None,
@@ -3693,82 +3729,125 @@ def _one_step(model, loss_fn, batch, lr, weight_decay, clip_norm=None, trainable
     return float(loss.detach()), grads, params, stats
 
 
-def _step_card_vs_cpu(name, config, tree, make, data, kind, weight_decay, launches,
-                      head=None, phase="train", lr=TRAIN_STEP_LR, clip_norm=None,
-                      dtype_name="float32", after=None):
-    """(b) for one model: one AdamW step (``_one_step``) on the card and
-    the CPU from the same flax-layout ``tree`` and batch ``data`` (numpy;
-    floating arrays cast to ``dtype_name``).  ``make(model)`` gives (the
-    loss function, the tensors to step or None for every parameter).
-    Holds the loss, every gradient leaf, the updated parameters where the
-    gradient resolves, the BatchNorm running statistics, no leaf the loss
-    reaches left without a gradient on the card, and K2's forward and
-    gradient launched ``launches`` times each on ``"train"``."""
+def _trainer_step(config, tree, make, data, weight_decay, lr=TRAIN_STEP_LR, head=None,
+                  clip_norm=None, after=None):
+    """One AdamW step (``_one_step``) of the model ``config`` builds from
+    the flax-layout ``tree``, as ``step(device, dtype)`` -> ((loss,),
+    {name: grad}, {name: updated tensor}, {name: BatchNorm running
+    statistic}) for ``_step_card_vs_cpu`` and ``_float32_gap``.
+    ``make(model)`` gives (the loss function, the tensors to step or None
+    for every parameter); the batch is ``data`` (numpy) with its floating
+    arrays cast to ``dtype``.  A float64 step runs the port's plain
+    attention (``_plain_attention``)."""
+
+    def step(device, dtype):
+        import torch
+
+        from marie_tpu_torch.train import batchnorm
+        from marie_tpu_torch.train.loop import init_module
+
+        model = init_module(config, head, 0, tree, device).to(dtype)
+        loss_fn, trainable = make(model)
+        batch = [torch.from_numpy(a).to(next(model.parameters()).device) for a in data]
+        batch = [b.to(dtype) if b.is_floating_point() else b for b in batch]
+        with contextlib.ExitStack() as stack:
+            if dtype == torch.float64:
+                stack.enter_context(_plain_attention())
+            try:
+                loss, grads, params, stats = _one_step(model, loss_fn, batch, lr, weight_decay,
+                                                       clip_norm, trainable, after)
+            finally:
+                batchnorm.restore(model)
+        return (loss,), grads, params, stats
+
+    return step
+
+
+def _compare_steps(kind, ref, got, grad_limit=TRAIN_GRAD_LIMIT):
+    """Two runs of one step (``(losses, {name: grad}, {name: stepped
+    parameter}, {name: running statistic})``, the tensors float64 on the
+    host), ``got`` against ``ref``: the largest relative loss difference;
+    each gradient leaf's largest departure of that leaf's largest
+    (``gaps``, worst first, the leaves the loss does not depend on aside;
+    those, as ``invariant_noise``, of the largest gradient); the stepped
+    parameters where the gradient resolves (at least ``grad_limit`` of its
+    leaf's largest) and elsewhere; the running statistics; and the leaves
+    ``got`` left without a gradient."""
+    (l_ref, g_ref, p_ref, s_ref), (l_got, g_got, p_got, s_got) = ref, got
+    top = max(float(g.abs().max()) for g in g_ref.values())
+    gaps, param_err, noise, dropped = [], 0.0, 0.0, []
+    # Adam's first step moves a parameter by lr * g / (|g| + eps), about lr
+    # whatever g's size: where a gradient component is below what the
+    # gradient check resolves, the two runs may step apart by up to 2 lr;
+    # those are held to that and counted
+    band_err, band_count, elements = 0.0, 0, 0
+    for n, g in g_ref.items():
+        elements += g.numel()
+        diff = (p_got[n] - p_ref[n]).abs()
+        if _invariant_param(n, kind):
+            noise = max(noise, float(g.abs().max()) / top, float(g_got[n].abs().max()) / top)
+            band_err = max(band_err, float(diff.max()))
+            continue
+        if float(g_got[n].abs().max()) == 0.0:
+            dropped.append(n)
+        leaf_top = float(g.abs().max())
+        gaps.append((float((g_got[n] - g).abs().max()) / leaf_top, n))
+        resolved = g.abs() >= grad_limit * leaf_top
+        param_err = max(param_err, float(diff[resolved].max()))
+        band_count += int((~resolved & (g != 0)).sum())
+        if bool((~resolved).any()):
+            band_err = max(band_err, float(diff[~resolved].max()))
+    gaps.sort(reverse=True)
+    return {"loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(l_got, l_ref)),
+            "grad_rel_err": gaps[0][0], "gaps": gaps, "param_err": param_err,
+            "bn_stats_err": max((float((s_got[n] - s_ref[n]).abs().max()) for n in s_ref),
+                                default=0.0),
+            "invariant_noise": noise, "unresolved_nonzero_grads": band_count,
+            "elements": elements, "unresolved_param_err": band_err, "dropped": dropped,
+            "leaves": len(g_ref)}
+
+
+def _step_card_vs_cpu(name, kind, step, batch, launches, phase="train", lr=TRAIN_STEP_LR,
+                      dtype_name="float32", loss_limit=TRAIN_LOSS_LIMIT,
+                      grad_limit=TRAIN_GRAD_LIMIT):
+    """(b) for one model: ``step(device, dtype)`` (``_trainer_step``,
+    ``_overlay_step``; learning rate ``lr``) on the card and the CPU in
+    ``dtype_name``, compared by ``_compare_steps``: the losses within
+    ``loss_limit`` (relative), every gradient leaf within ``grad_limit`` of
+    its largest, the updated parameters within TRAIN_PARAM_LIMIT where the
+    gradient resolves (2 lr elsewhere), the BatchNorm running statistics,
+    no leaf the loss reaches left without a gradient on the card, and K2's
+    forward and gradient launched ``launches`` times each on ``"train"``,
+    no other kernel."""
     import torch
 
-    from marie_tpu_torch.train import batchnorm
-    from marie_tpu_torch.train.loop import init_module
     from marie_tpu_torch.utils.device import card_name_and_power_limit
 
     dtype = getattr(torch, dtype_name)
     runs = {}
     for dev in ("cuda", "cpu"):
-        model = init_module(config, head, 0, tree, dev).to(dtype)
-        loss_fn, trainable = make(model)
-        batch = [torch.from_numpy(a).to(next(model.parameters()).device) for a in data]
-        batch = [b.to(dtype) if b.is_floating_point() else b for b in batch]
         _reset_counts()
-        try:
-            runs[dev] = _one_step(model, loss_fn, batch, lr, weight_decay, clip_norm, trainable,
-                                  after)
-        finally:
-            batchnorm.restore(model)
+        runs[dev] = step(dev, dtype)
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = _read_train_counts()
-        del model
-    (l_card, g_card, p_card, s_card), (l_cpu, g_cpu, p_cpu, s_cpu) = runs["cuda"], runs["cpu"]
-    top = max(float(g.abs().max()) for g in g_cpu.values())
-    grad_err, param_err, noise, dropped = 0.0, 0.0, 0.0, []
-    # Adam's first step moves a parameter by lr * g / (|g| + eps), about lr
-    # whatever g's size: where a gradient component is below what the
-    # gradient check resolves (TRAIN_GRAD_LIMIT of its leaf's largest), card
-    # and CPU may step apart by up to 2 lr; those are held to that and counted
-    band_err, band_count, elements = 0.0, 0, 0
-    for n, g in g_cpu.items():
-        elements += g.numel()
-        diff = (p_card[n] - p_cpu[n]).abs()
-        if _invariant_param(n, kind):
-            noise = max(noise, float(g.abs().max()) / top, float(g_card[n].abs().max()) / top)
-            band_err = max(band_err, float(diff.max()))
-            continue
-        if float(g_card[n].abs().max()) == 0.0:
-            dropped.append(n)
-        leaf_top = float(g.abs().max())
-        grad_err = max(grad_err, float((g_card[n] - g).abs().max()) / leaf_top)
-        resolved = g.abs() >= TRAIN_GRAD_LIMIT * leaf_top
-        param_err = max(param_err, float(diff[resolved].max()))
-        band_count += int((~resolved & (g != 0)).sum())
-        if bool((~resolved).any()):
-            band_err = max(band_err, float(diff[~resolved].max()))
-    stats_err = max((float((s_card[n] - s_cpu[n]).abs().max()) for n in s_cpu), default=0.0)
-    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
-    row = {"model": name, "dtype": dtype_name, "batch": len(data[0]), "loss_card": l_card,
-           "loss_cpu": l_cpu, "loss_rel_err": loss_err, "grad_rel_err": grad_err,
-           "param_err": param_err, "bn_stats_err": stats_err, "invariant_noise": noise,
-           "unresolved_nonzero_grads": band_count, "elements": elements,
-           "unresolved_param_err": band_err, "dropped": dropped, "leaves": len(g_cpu),
+    cmp = _compare_steps(kind, runs["cpu"], runs["cuda"], grad_limit)
+    cmp.pop("gaps")
+    row = {"model": name, "dtype": dtype_name, "batch": batch,
+           "losses_card": list(runs["cuda"][0]), "losses_cpu": list(runs["cpu"][0]), **cmp,
            "launches": counts}
     emit({"phase": phase, "part": "step_card_vs_cpu", "card": card_name_and_power_limit(), **row,
-          "limits": {"loss": TRAIN_LOSS_LIMIT, "grad": TRAIN_GRAD_LIMIT,
+          "limits": {"loss": loss_limit, "grad": grad_limit,
                      "param": TRAIN_PARAM_LIMIT, "bn_stats": TRAIN_PARAM_LIMIT,
                      "noise": TRAIN_NOISE, "unresolved_param": 2 * lr}})
-    if (loss_err > TRAIN_LOSS_LIMIT or grad_err > TRAIN_GRAD_LIMIT
-            or param_err > TRAIN_PARAM_LIMIT or stats_err > TRAIN_PARAM_LIMIT
-            or noise > TRAIN_NOISE or dropped or band_err > 2 * lr):
+    if (cmp["loss_rel_err"] > loss_limit or cmp["grad_rel_err"] > grad_limit
+            or cmp["param_err"] > TRAIN_PARAM_LIMIT or cmp["bn_stats_err"] > TRAIN_PARAM_LIMIT
+            or cmp["invariant_noise"] > TRAIN_NOISE or cmp["dropped"]
+            or cmp["unresolved_param_err"] > 2 * lr):
         raise AssertionError(f"{name} step card vs CPU outside the limits: {row}")
-    if (counts["flash_attention"].get("train", 0) != launches
-            or counts["flash_attention_backward"].get("train", 0) != launches):
+    k2 = (counts["flash_attention"].get("train", 0),
+          counts["flash_attention_backward"].get("train", 0))
+    if k2 != (launches, launches) or sum(c["all"] for c in counts.values()) != 2 * launches:
         raise AssertionError(f"{name} step launches: {counts}")
     return row
 
@@ -3810,6 +3889,8 @@ def _timed_run(label, fn, expect_fwd, expect_bwd):
            "k2_backward_launches": bwd.get("train", 0)}
     if "pages_per_s" in timing:  # the trainer's host renderer
         row["host_pages_per_s"] = timing["pages_per_s"]
+    if "pairs_per_s" in timing:  # the overlay trainer's
+        row["host_pairs_per_s"] = timing["pairs_per_s"]
     return out, row, counts
 
 
@@ -3833,20 +3914,23 @@ def _layout_steps_card_vs_cpu():
 
     cfg = LayoutLMConfig.synth(2)
     rng = np.random.default_rng(TRAIN_SEED)
-    _step_card_vs_cpu("splitter synth(2)", cfg,
-                      init_flax_defaults(cfg, TRAIN_SEED + 90, "sequence"),
-                      lambda model: (tl.head_loss(model, "sequence"), None),
-                      tl.splitter_dataset(rng, 32, HashWordTokenizer(cfg.vocab_size), cfg),
-                      "layout", 0.01, cfg.num_layers, head="sequence")
+    data = tl.splitter_dataset(rng, 32, HashWordTokenizer(cfg.vocab_size), cfg)
+    _step_card_vs_cpu("splitter synth(2)", "layout",
+                      _trainer_step(cfg, init_flax_defaults(cfg, TRAIN_SEED + 90, "sequence"),
+                                    lambda model: (tl.head_loss(model, "sequence"), None), data,
+                                    0.01, head="sequence"),
+                      len(data[0]), cfg.num_layers)
     rcfg = ReadingOrderConfig.base()
 
     def ranker(model):
         return (lambda boxes, ranks, n_valid: tr.pairwise_rank_loss(
             model(boxes, n_valid), ranks, n_valid)), None
 
-    _step_card_vs_cpu("reading order base", rcfg, init_flax_defaults(rcfg, TRAIN_SEED + 90),
-                      ranker, tr.make_batch(np.random.default_rng(TRAIN_SEED), 32, 256), "ranker",
-                      1e-4, rcfg.num_layers)
+    data = tr.make_batch(np.random.default_rng(TRAIN_SEED), 32, 256)
+    _step_card_vs_cpu("reading order base", "ranker",
+                      _trainer_step(rcfg, init_flax_defaults(rcfg, TRAIN_SEED + 90), ranker, data,
+                                    1e-4),
+                      len(data[0]), rcfg.num_layers)
 
 
 def phase_train(shipped, trained_engine):
@@ -4030,10 +4114,10 @@ def _ocr_step_card_vs_cpu(kind: str, config, tree, data, dtype_name: str = "floa
 
     lr, decay = {"recognizer": (3e-4, 0.01), "crnn": (1e-3, 1e-4), "craft": (5e-4, 1e-4)}[kind]
     launches = 2 * config.encoder.num_layers if kind == "recognizer" else 0
-    return _step_card_vs_cpu(kind, config, tree, make, data, kind, decay, launches,
-                             phase="ocr_train", lr=lr, clip_norm=1.0, dtype_name=dtype_name,
-                             after=batchnorm.update_running_statistics if kind == "craft"
-                             else None)
+    step = _trainer_step(config, tree, make, data, decay, lr, clip_norm=1.0,
+                         after=batchnorm.update_running_statistics if kind == "craft" else None)
+    return _step_card_vs_cpu(kind, kind, step, len(data[0]), launches, phase="ocr_train", lr=lr,
+                             dtype_name=dtype_name)
 
 
 def _craft_float32_gap(config, tree, batch, device="cuda") -> float:
@@ -4083,7 +4167,10 @@ def phase_ocr_train(shipped):
     the serving engine on the 16 shipped pages, recall and precision no
     lower than golden.json's less ENGINE_DELTA, K2
     launched as predicted; (d) OCR_COLD_STEPS steps of an untrained
-    recognizer, its loss reported.  Returns {run: launches}."""
+    recognizer, its loss reported; (f), (g) the boundary, DiT and
+    TextFuseNet trainers (``_new_trainer_steps``, ``_new_trainer_runs``),
+    (f) with the overlay GAN's steps; (h) the overlay GAN's run
+    (``_overlay_run``).  Returns {run: launches}."""
     import numpy as np
     import torch
 
@@ -4258,6 +4345,8 @@ def phase_ocr_train(shipped):
     # trainers, then (g) their runs from the seed
     _new_trainer_steps()
     _new_trainer_runs(card, launches)
+    # (h) the overlay GAN from the seed at its recipe's data settings
+    _overlay_run(card, launches)
     return kernel_rows, launches
 
 
@@ -4305,7 +4394,60 @@ def _new_trainer_batches(batch_seed=TRAIN_SEED + 91):
     out["textfusenet"] = (fcfg, init_flax_defaults(fcfg, TRAIN_SEED + 90),
                           (pages.astype(np.float32) / 255.0, t2.numpy(), t4[..., 3], wb, wv, cb,
                            cv, jitter, shift))
+    out["overlay"] = _overlay_batch(batch_seed)
     return out
+
+
+def _overlay_batch(batch_seed):
+    """(f)'s overlay nets and pairs: (the generator's config, (generator
+    tree, discriminator tree), (dirty, clean) uint8 [B, H, W, 3])."""
+    from marie_tpu_torch.models.configs import PatchDiscriminatorConfig, Pix2PixConfig
+    from marie_tpu_torch.registry.convert import init_flax_defaults
+    from marie_tpu_torch.train import overlay as tov
+
+    gcfg = Pix2PixConfig.synth()
+    trees = (init_flax_defaults(gcfg, TRAIN_SEED + 90),
+             init_flax_defaults(PatchDiscriminatorConfig(), TRAIN_SEED + 91))
+    return gcfg, trees, tov.render_block(batch_seed, OVERLAY_STEP_BATCH, OVERLAY_STEP_HW)
+
+
+def _overlay_step(cfg, trees, data):
+    """One ``OverlayGan`` step (the trainer's learning rate, OVERLAY_LR, and
+    L1 weight) of the overlay nets, as ``step(device, dtype)`` ->
+    ((d_loss, g_loss, l1), {"gen.<name>" / "disc.<name>": gradient},
+    {name: stepped parameter}, {}), the tensors on the host in float64.
+    The pages map to [-1, 1] as ``u8 / 127.5 - 1`` in ``dtype``.  A
+    float32 step on the card runs the convolution algorithms the trainer's
+    loop runs (cuDNN's timed choice, on a thread of its own)."""
+    import torch
+
+    from marie_tpu_torch.train import overlay as tov
+    from marie_tpu_torch.utils.device import cudnn_benchmark, on_own_thread
+
+    def run(device, dtype):
+        gen, disc = tov.init_overlay(cfg, 0, trees, device)
+        gen, disc = gen.to(dtype), disc.to(dtype)
+        gan = tov.OverlayGan(gen, disc, OVERLAY_LR)
+        dev = next(gen.parameters()).device
+        x, y = (torch.from_numpy(a).to(dev).to(dtype) / 127.5 - 1.0 for a in data)
+        grads = {}
+        losses = tuple(float(v) for v in gan.step(x, y, grads))
+        grads = {n: g.detach().double().cpu() for n, g in grads.items()}
+        params = {f"{prefix}.{n}": p.detach().double().cpu()
+                  for prefix, mod in (("gen", gen), ("disc", disc))
+                  for n, p in mod.named_parameters()}
+        return losses, grads, params, {}
+
+    def timed(device, dtype):
+        with cudnn_benchmark():
+            return run(device, dtype)
+
+    def step(device, dtype):
+        if device == "cuda" and dtype == torch.float32:
+            return on_own_thread(lambda: timed(device, dtype))
+        return run(device, dtype)
+
+    return step
 
 
 def _plain_attention():
@@ -4358,43 +4500,52 @@ def _new_trainer_loss(kind, model):
     return tfn_loss(model), list(model.parameters()) + batchnorm.train_running_statistics(model)
 
 
-def _new_trainer_float32_gap(kind, cfg, tree, data, device="cuda"):
-    """``kind``'s float32 step on ``device`` (DiT's through K2 and its
-    gradient on the card) against its float64 step there (DiT's through
-    the plain attention) on the same tree and batch, no TF32: {the two
-    losses, each gradient leaf's largest departure of that leaf's largest
-    (worst first; the leaves the loss does not depend on aside), the
-    float32 step's launches}."""
-    import torch
+#: the one-step checks' learning rates: each new trainer's peak rate, held
+#: constant, the overlay GAN's, and CRAFT's (its float32 gap)
+NEW_STEP_LR = {"boundary": 4e-4, "dit": 3e-4, "textfusenet": 3e-4, "overlay": OVERLAY_LR,
+               "craft": 5e-4}
+#: (loss, gradient) limits of a float64 step card vs CPU where not
+#: (TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT)
+NEW_STEP_LIMITS = {"overlay": (OVERLAY_STEP_LIMIT, OVERLAY_STEP_LIMIT)}
 
-    from marie_tpu_torch.train import batchnorm
-    from marie_tpu_torch.train.loop import init_module
+
+def _new_trainer_step(kind, cfg, tree, data):
+    """``kind``'s trainer step as ``step(device, dtype)``: the overlay GAN's
+    (``_overlay_step``), else one AdamW step (``_trainer_step``) of
+    ``_new_trainer_loss``, clip 1.0, weight decay 1e-4, NEW_STEP_LR."""
+    if kind == "overlay":
+        return _overlay_step(cfg, tree, data)
+    return _trainer_step(cfg, tree, functools.partial(_new_trainer_loss, kind), data, 1e-4,
+                         NEW_STEP_LR[kind], clip_norm=1.0)
+
+
+def _float32_gap(kind, step, device="cuda"):
+    """``step(device, float32)`` against ``step(device, float64)`` on the
+    same tree and batch, no TF32 (``_compare_steps``): {the two steps'
+    losses, the largest relative loss difference, each gradient leaf's
+    largest departure of that leaf's largest (worst first; the leaves the
+    loss does not depend on aside), the float32 step's launches}."""
+    import torch
 
     runs = {}
     for dtype in (torch.float32, torch.float64):
-        model = init_module(cfg, None, 0, tree, device).to(dtype)
-        loss_fn, trainable = _new_trainer_loss(kind, model)
-        batch = [torch.from_numpy(a).to(device) for a in data]
-        batch = [b.to(dtype) if b.is_floating_point() else b for b in batch]
         _reset_counts()
-        with contextlib.ExitStack() as stack:
-            if dtype == torch.float64 and kind == "dit" and device == "cuda":
-                stack.enter_context(_plain_attention())
-            try:
-                runs[dtype] = _one_step(model, loss_fn, batch, TRAIN_STEP_LR, 0.0, 1.0,
-                                        trainable)[:2]
-            finally:
-                batchnorm.restore(model)
+        runs[dtype] = step(device, dtype)
         if dtype == torch.float32:
             if device == "cuda":
                 torch.cuda.synchronize()
             counts = _read_train_counts()
-        del model
-    (l32, g32), (l64, g64) = runs[torch.float32], runs[torch.float64]
-    gaps = sorted(((float((g32[n] - g).abs().max() / g.abs().max()), n) for n, g in g64.items()
-                   if not _invariant_param(n, kind)), reverse=True)
-    return {"loss_float32": l32, "loss_float64": l64, "loss_rel_err": abs(l32 - l64) / abs(l64),
-            "gaps": gaps, "launches": counts}
+    cmp = _compare_steps(kind, runs[torch.float64], runs[torch.float32])
+    return {"loss_float32": list(runs[torch.float32][0]),
+            "loss_float64": list(runs[torch.float64][0]), "loss_rel_err": cmp["loss_rel_err"],
+            "gaps": cmp["gaps"], "launches": counts}
+
+
+def _new_trainer_float32_gap(kind, cfg, tree, data, device="cuda"):
+    """``kind``'s float32 step on ``device`` (DiT's through K2 and its
+    gradient on the card) against its float64 step there (DiT's through
+    the plain attention): ``_float32_gap`` of ``_new_trainer_step``."""
+    return _float32_gap(kind, _new_trainer_step(kind, cfg, tree, data), device)
 
 
 def _gated_gap(kind, gaps):
@@ -4434,23 +4585,21 @@ def _new_trainer_steps():
     1.0, weight decay 1e-4, their peak learning rates held constant), each
     in float64 on both sides (NEW_STEP_FLOAT64 says why; DiT's through the
     plain attention), then each float32 card step against the float64 card
-    step (``_new_trainer_float32_row``; DiT's with K2)."""
+    step (``_new_trainer_float32_row``; DiT's with K2); the overlay GAN's
+    step (``_overlay_step``) the same way, its limits NEW_STEP_LIMITS."""
     import torch
 
     from marie_tpu_torch.utils.device import card_name_and_power_limit
 
     rows = {}
-    rates = {"boundary": 4e-4, "dit": 3e-4, "textfusenet": 3e-4}
     for kind, (cfg, tree, data) in _new_trainer_batches().items():
         emit({"phase": "ocr_train", "part": "step_in_float64", "model": kind,
               "card": card_name_and_power_limit(), "why": NEW_STEP_FLOAT64[kind]})
-        with contextlib.ExitStack() as stack:
-            if kind == "dit":
-                stack.enter_context(_plain_attention())
-            rows[kind] = _step_card_vs_cpu(kind, cfg, tree,
-                                           functools.partial(_new_trainer_loss, kind), data,
-                                           kind, 1e-4, 0, phase="ocr_train", lr=rates[kind],
-                                           clip_norm=1.0, dtype_name="float64")
+        loss_limit, grad_limit = NEW_STEP_LIMITS.get(kind, (TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT))
+        rows[kind] = _step_card_vs_cpu(kind, kind, _new_trainer_step(kind, cfg, tree, data),
+                                       len(data[0]), 0, phase="ocr_train", lr=NEW_STEP_LR[kind],
+                                       dtype_name="float64", loss_limit=loss_limit,
+                                       grad_limit=grad_limit)
         rows[f"{kind}_float32"] = _new_trainer_float32_row(kind, cfg, tree, data)
         torch.cuda.empty_cache()
     return rows
@@ -4533,6 +4682,42 @@ def _new_trainer_runs(card, launches):
           "dataset_size": DETECTOR_RUN_PAGES, "config": "synth_s2", "predicted_k2_launches": 0,
           **_loss_fell("textfusenet", losses)})
     del model
+    torch.cuda.empty_cache()
+
+
+def _overlay_run(card, launches):
+    """(h): OVERLAY_RUN_STEPS steps of the overlay recipe from the seed
+    (``Pix2PixConfig.synth()``, batch 4, OVERLAY_DATASET pairs of
+    OVERLAY_PAGE_HW rendered on the host): ms/step, peak memory, the host's
+    render rate, no K2 launched; the mean L1 of the last LOSS_WINDOW steps
+    below that of the first; the held-out figures (OVERLAY_EVAL_PAGES pairs
+    of seed OVERLAY_EVAL_SEED) beside golden_train.json's JAX-trained tree,
+    reported only (a short run)."""
+    import torch
+
+    from marie_tpu_torch.models.configs import Pix2PixConfig
+    from marie_tpu_torch.registry.zoo import open_zoo_json
+    from marie_tpu_torch.train import overlay as tov
+
+    with open_zoo_json("golden_train") as f:
+        golden = json.load(f)["overlay"]
+    if (golden["pages"] != OVERLAY_EVAL_PAGES or golden["seed"] != OVERLAY_EVAL_SEED
+            or tuple(golden["page_hw"]) != OVERLAY_PAGE_HW):
+        raise AssertionError("golden_train.json's overlay entry is of other settings")
+    losses = []
+    (_, _, metrics), run, launches["ocr_train_overlay"] = _timed_run(
+        "overlay", lambda timing: tov.train_overlay_device(
+            config=Pix2PixConfig.synth(), steps=OVERLAY_RUN_STEPS, batch_size=4,
+            dataset_size=OVERLAY_DATASET, page_hw=OVERLAY_PAGE_HW, seed=TRAIN_SEED,
+            device="cuda", timing=timing, losses=losses), 0, 0)
+    fell = _loss_fell("overlay L1", [l1 for _, _, l1 in losses])
+    emit({"phase": "ocr_train", "part": "overlay_run", "card": card, **run, "batch": 4,
+          "dataset_size": OVERLAY_DATASET, "page_hw": list(OVERLAY_PAGE_HW),
+          "config": "Pix2PixConfig.synth()",
+          "d_loss_first_last": [losses[0][0], losses[-1][0]],
+          "g_loss_first_last": [losses[0][1], losses[-1][1]],
+          "l1_first_mean": fell["loss_first_mean"], "l1_last_mean": fell["loss_last_mean"],
+          "heldout": metrics, "golden": golden, "note": "held-out figures reported only"})
     torch.cuda.empty_cache()
 
 

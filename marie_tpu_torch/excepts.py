@@ -38,6 +38,10 @@ class EstablishGrpcConnectionError(BaseMarieException):
     """No replica to send a request to."""
 
 
+class ModelRegistryError(BaseMarieException):
+    """Model could not be resolved from the registry."""
+
+
 class InternalNetworkError(BaseMarieException):
     """A gRPC call failed after its retries."""
 

@@ -258,6 +258,16 @@ class Pix2PixConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PatchDiscriminatorConfig:
+    """The overlay trainer's 70x70 PatchGAN discriminator
+    (``marie_tpu/train/overlay.py::PatchDiscriminator``): the dirty page and
+    a clean one side by side (6 channels) to a grid of patch logits."""
+
+    base_channels: int = 32
+    in_channels: int = 6
+
+
+@dataclasses.dataclass(frozen=True)
 class BoundaryConfig:
     """The document-boundary corner regressor (``models/boundary.py``)."""
 

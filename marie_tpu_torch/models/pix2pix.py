@@ -21,8 +21,14 @@ What must match the flax model:
 * on the CPU the last ``tanh`` is XLA's CPU tanh (:func:`xla_tanh`): it
   saturates to exactly +-1 from |x| = 7.9988 on, where the exact tanh
   stays an ulp under 1 up to |x| ~ 9, and a page's white pixels sit
-  there (``clip((fake + 1) * 127.5)`` truncates 254.99998 to 254).  The
-  card runs ``torch.tanh``.
+  there (``clip((fake + 1) * 127.5)`` truncates 254.99998 to 254).  Its
+  gradient is JAX's, ``1 - y^2`` of the output, not the polynomial's.
+  The card runs ``torch.tanh``.
+
+:class:`PatchDiscriminator` is the overlay trainer's PatchGAN
+(``marie_tpu/train/overlay.py``): 4x4 ``"SAME"`` convolutions (stride 2
+pads (1, 1) on an even side, stride 1 pads (1, 2)), the same GroupNorm,
+leaky ReLU 0.2.
 """
 
 import torch
@@ -42,12 +48,7 @@ _TANH_DEN = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
              4.89352518554385e-03)
 
 
-def xla_tanh(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 tanh (``EmitFastTanh`` with FMA): the input
-    clamped to +-7.99881172, a rational polynomial in x^2 by float32
-    fused multiply-adds (emulated in float64), one float32 division; x
-    itself below 0.0004.  Equal to ``jnp.tanh`` under jit on the CPU on
-    2.2 M probed values."""
+def _xla_tanh_forward(x: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
     xc = torch.clamp(x32, -_TANH_CLAMP, _TANH_CLAMP)
     x2 = (xc * xc).double()
@@ -61,6 +62,34 @@ def xla_tanh(x: torch.Tensor) -> torch.Tensor:
 
     y = (xc * poly(_TANH_NUM)) / poly(_TANH_DEN)
     return torch.where(x32.abs() < 0.0004, x32, y).to(x.dtype)
+
+
+class _XlaTanh(torch.autograd.Function):
+    """XLA's CPU tanh forward, JAX's tanh gradient ``g * (1 - y^2)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _xla_tanh_forward(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (1 - y * y)
+
+
+def xla_tanh(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 tanh (``EmitFastTanh`` with FMA): the input
+    clamped to +-7.99881172, a rational polynomial in x^2 by float32
+    fused multiply-adds (emulated in float64), one float32 division; x
+    itself below 0.0004.  Equal to ``jnp.tanh`` under jit on the CPU on
+    2.2 M probed values.  Differentiable, as JAX differentiates ``tanh``:
+    ``1 - y^2`` of the output.  A float64 input takes ``torch.tanh`` (the
+    polynomial is the float32 one)."""
+    if x.dtype == torch.float64:
+        return torch.tanh(x)
+    return _XlaTanh.apply(x)
 
 
 def _same_pads(size: int, k: int, s: int):
@@ -179,3 +208,28 @@ class ResnetGenerator(nn.Module):
         h = self.Conv_3(h).to(out_dtype or x.dtype)
         h = xla_tanh(h) if h.device.type == "cpu" else torch.tanh(h)
         return h.permute(0, 2, 3, 1)
+
+
+class PatchDiscriminator(nn.Module):
+    """70x70 PatchGAN: [B, H, W, 6] (the dirty page beside a clean one, in
+    [-1, 1]) -> patch logits [B, H/8, W/8, 1]; flax's module names."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        f = cfg.base_channels
+        self.Conv_0 = SameConv2d(cfg.in_channels, f, 4, 2)
+        self.Conv_1 = SameConv2d(f, 2 * f, 4, 2)
+        self.GroupNorm_0 = GroupNorm(2 * f)
+        self.Conv_2 = SameConv2d(2 * f, 4 * f, 4, 2)
+        self.GroupNorm_1 = GroupNorm(4 * f)
+        self.Conv_3 = SameConv2d(4 * f, 8 * f, 4)
+        self.GroupNorm_2 = GroupNorm(8 * f)
+        self.Conv_4 = SameConv2d(8 * f, 1, 4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(self.Conv_0(x.permute(0, 3, 1, 2)), 0.2)
+        h = F.leaky_relu(self.GroupNorm_0(self.Conv_1(h)), 0.2)
+        h = F.leaky_relu(self.GroupNorm_1(self.Conv_2(h)), 0.2)
+        h = F.leaky_relu(self.GroupNorm_2(self.Conv_3(h)), 0.2)
+        return self.Conv_4(h).permute(0, 2, 3, 1)

@@ -1,5 +1,7 @@
 """The weight bridge (:mod:`.convert`), the ``.npz`` trees
-(:mod:`.checkpoints`) and the port's zoo (:mod:`.zoo`).  The JAX
-package's ``ModelRegistry`` comes with its module: ROADMAP §1 item 13."""
+(:mod:`.checkpoints`), the port's zoo (:mod:`.zoo`) and
+:class:`ModelRegistry` (:mod:`.model_registry`)."""
 
-__all__: list = []
+from marie_tpu_torch.registry.model_registry import ModelRegistry
+
+__all__ = ["ModelRegistry"]

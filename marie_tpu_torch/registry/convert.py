@@ -48,6 +48,7 @@ from marie_tpu_torch.models.configs import (
     CraftConfig,
     CRNNConfig,
     LayoutLMConfig,
+    PatchDiscriminatorConfig,
     Pix2PixConfig,
     TextFuseNetConfig,
     TrOCRConfig,
@@ -57,7 +58,7 @@ from marie_tpu_torch.models.configs import (
 #: (and ``models.reading_order.ReadingOrderConfig``, which lives with its
 #: model as in the JAX package)
 Config = Union[CraftConfig, TrOCRConfig, LayoutLMConfig, CRNNConfig, Pix2PixConfig,
-               BoundaryConfig, ViTConfig, TextFuseNetConfig]
+               PatchDiscriminatorConfig, BoundaryConfig, ViTConfig, TextFuseNetConfig]
 #: the LayoutLM heads by name ("encoder": the bare encoder, no head)
 LAYOUT_HEADS = ("sequence", "token", "encoder")
 
@@ -72,7 +73,8 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
     bare :class:`ViTConfig` builds the DiT detector (its ``backbone``,
     ``up{i}`` and ``head``), a ``models.reading_order.ReadingOrderConfig``
     the reading-order ranker (``embed``, ``layer_{i}``, ``ln_f``,
-    ``head``).  A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
+    ``head``), a :class:`PatchDiscriminatorConfig` the overlay trainer's
+    PatchGAN.  A :class:`LayoutLMConfig` takes ``head``: ``"sequence"`` (page
     classification), ``"token"`` (NER) or ``"encoder"`` (the encoder
     alone, whose flax tree has its modules at the top); other configs
     take none."""
@@ -84,7 +86,7 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         LayoutLMv3ForSequenceClassification,
         LayoutLMv3ForTokenClassification,
     )
-    from marie_tpu_torch.models.pix2pix import ResnetGenerator
+    from marie_tpu_torch.models.pix2pix import PatchDiscriminator, ResnetGenerator
     from marie_tpu_torch.models.reading_order import ReadingOrderConfig, ReadingOrderModel
     from marie_tpu_torch.models.textfusenet import TextFuseNet
     from marie_tpu_torch.models.trocr import TrOCRModel
@@ -108,6 +110,8 @@ def build_model(config: Config, head: Optional[str] = None) -> nn.Module:
         return CRNN(config)
     if isinstance(config, Pix2PixConfig):
         return ResnetGenerator(config)
+    if isinstance(config, PatchDiscriminatorConfig):
+        return PatchDiscriminator(config)
     if isinstance(config, BoundaryConfig):
         return BoundaryNet(config)
     if isinstance(config, ViTConfig):

@@ -5,11 +5,8 @@ words), the reading-order ranker (:mod:`.reading_order`), and the trainers
 on synthetic renders drawn with the glyph atlas (``utils/glyphs.py``): the
 TrOCR recognizer (:mod:`.recognizer`), the CRNN (:mod:`.crnn`), the CRAFT
 detector (:mod:`.craft`), the boundary regressor (:mod:`.boundary`), the
-DiT detector (:mod:`.dit`) and TextFuseNet (:mod:`.textfusenet`), trained
-on the card.
-
-The JAX package's overlay GAN trainer is not ported yet: ROADMAP §1 item
-8.2 names it, and its name here raises naming it.
+DiT detector (:mod:`.dit`), TextFuseNet (:mod:`.textfusenet`) and the
+overlay cleanup GAN (:mod:`.overlay`), trained on the card.
 """
 
 from marie_tpu_torch.train.boundary import evaluate_boundary, train_boundary_device
@@ -21,6 +18,7 @@ from marie_tpu_torch.train.layout import (
     train_layout_indexer,
     train_layout_splitter,
 )
+from marie_tpu_torch.train.overlay import evaluate_overlay, render_overlay_pair, train_overlay_device
 from marie_tpu_torch.train.reading_order import (
     evaluate_reading_order,
     train_reading_order,
@@ -35,21 +33,9 @@ from marie_tpu_torch.train.recognizer import (
 )
 from marie_tpu_torch.train.textfusenet import render_page_tfn, train_textfusenet_device
 
-_NEXT_TRAINERS = "the overlay GAN trainer (ROADMAP §1 item 8.2)"
-
-
-def _not_ported(name: str):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported: it waits for {_NEXT_TRAINERS}")
-
-    stub.__name__ = name
-    return stub
-
-
-train_overlay_device = _not_ported("train_overlay_device")
-
 __all__ = ["SyntheticWordDataset", "character_error_rate", "evaluate_boundary", "evaluate_cer",
-           "evaluate_crnn_cer", "evaluate_reading_order", "render_page_tfn",
+           "evaluate_crnn_cer", "evaluate_overlay", "evaluate_reading_order",
+           "render_overlay_pair", "render_page_tfn",
            "render_page_with_targets", "train_boundary_device",
            "train_craft_device", "train_crnn_device", "train_dit_device",
            "train_layout_classifier", "train_layout_indexer", "train_layout_splitter",

@@ -84,49 +84,53 @@ def _precision_flags():
     return read_legacy, write_legacy, len(legacy)
 
 
-class _Float32Precision:
-    """Holds the float32 precision flags for blocks of work.
+class _SharedHold:
+    """Process-global flags held for blocks of work.
 
-    The flags are process-global and the engine runs blocks on two
-    threads at once (the device thread and the collect), so blocks that
-    want the same precision share one hold: the first saves the flags and
-    sets them, the last restores what the first found.  A block that
-    wants the other precision waits until no block holds them."""
+    The flags are process-global and blocks run on several threads at
+    once (the engine's device thread and the collect; a trainer's loop
+    thread), so blocks that want the same value share one hold: the first
+    saves the flags and sets them, later ones (on any thread, or nested
+    in one) join it, and the last to leave restores what the first found.
+    A block that wants another value waits until no block holds the
+    flags; nested in a block of another value on its own thread, it
+    raises.  A save and restore per block would let two blocks on two
+    threads restore each other's values out of order."""
 
-    def __init__(self):
+    def __init__(self, read: Callable[[], tuple], write: Callable[[tuple], None]):
+        self._read, self._write = read, write
         self._cond = threading.Condition()
         self._holders = 0
-        self._mode: Optional[str] = None
-        self._saved: Optional[Tuple[str, ...]] = None
+        self._value: Optional[tuple] = None
+        self._saved: Optional[tuple] = None
         self._local = threading.local()
 
     @contextlib.contextmanager
-    def hold(self, mode: str) -> Iterator[None]:
-        held = getattr(self._local, "mode", None)
-        if held is not None and held != mode:
-            raise RuntimeError(f"a {held} precision block cannot nest a {mode} one")
-        read, write, n = _precision_flags()
+    def hold(self, value: tuple) -> Iterator[None]:
+        held = getattr(self._local, "value", None)
+        if held is not None and held != value:
+            raise RuntimeError(f"a block holding {held} cannot nest one holding {value}")
         with self._cond:
-            self._cond.wait_for(lambda: self._holders == 0 or self._mode == mode)
+            self._cond.wait_for(lambda: self._holders == 0 or self._value == value)
             if self._holders == 0:
-                self._saved = read()
-                write((mode,) * n)
-                self._mode = mode
+                self._saved = self._read()
+                self._write(value)
+                self._value = value
             self._holders += 1
-        self._local.mode = mode
+        self._local.value = value
         try:
             yield
         finally:
-            self._local.mode = held
+            self._local.value = held
             with self._cond:
                 self._holders -= 1
                 if self._holders == 0:
-                    write(self._saved)
-                    self._mode = self._saved = None
+                    self._write(self._saved)
+                    self._value = self._saved = None
                     self._cond.notify_all()
 
 
-_FLOAT32 = _Float32Precision()
+_FLOAT32 = _SharedHold(lambda: _precision_flags()[0](), lambda v: _precision_flags()[1](v))
 
 
 def float32_precision(allow_tf32: bool = False):
@@ -135,7 +139,7 @@ def float32_precision(allow_tf32: bool = False):
     reference's precision) or in TF32 inside the block, whatever the
     process-global flags say; the block leaves the flags as it found
     them.  Other threads see the block's setting while it runs."""
-    return _FLOAT32.hold("tf32" if allow_tf32 else "ieee")
+    return _FLOAT32.hold(("tf32" if allow_tf32 else "ieee",) * _precision_flags()[2])
 
 
 #: the candidates cuDNN times for a shape, its heuristics' first ones: at
@@ -144,21 +148,29 @@ def float32_precision(allow_tf32: bool = False):
 CUDNN_BENCHMARK_LIMIT = 3
 
 
-@contextlib.contextmanager
-def cudnn_benchmark() -> Iterator[None]:
-    """Inside the block cuDNN times the first CUDNN_BENCHMARK_LIMIT
-    algorithms its heuristics rank for each new convolution shape (among
-    those the float32 precision allows) and keeps the fastest
-    (``torch.backends.cudnn.benchmark``); the process-global flags are
-    restored after it.  For a loop of one fixed shape, where the
-    heuristics' first choice is slow."""
+def _read_cudnn_benchmark() -> tuple:
     cudnn = torch.backends.cudnn
-    saved = cudnn.benchmark, cudnn.benchmark_limit
-    cudnn.benchmark, cudnn.benchmark_limit = True, CUDNN_BENCHMARK_LIMIT
-    try:
-        yield
-    finally:
-        cudnn.benchmark, cudnn.benchmark_limit = saved
+    return cudnn.benchmark, cudnn.benchmark_limit
+
+
+def _write_cudnn_benchmark(values: tuple) -> None:
+    cudnn = torch.backends.cudnn
+    cudnn.benchmark, cudnn.benchmark_limit = values
+
+
+_CUDNN_BENCHMARK = _SharedHold(_read_cudnn_benchmark, _write_cudnn_benchmark)
+
+
+def cudnn_benchmark():
+    """Context manager: inside the block cuDNN times the first
+    CUDNN_BENCHMARK_LIMIT algorithms its heuristics rank for each new
+    convolution shape (among those the float32 precision allows) and
+    keeps the fastest (``torch.backends.cudnn.benchmark``).  Blocks that
+    overlap, on one thread or several, share one hold of the
+    process-global flags: the last to leave restores what the first
+    found.  For a loop of one fixed shape, where the heuristics' first
+    choice is slow."""
+    return _CUDNN_BENCHMARK.hold((True, CUDNN_BENCHMARK_LIMIT))
 
 
 def on_own_thread(fn: Callable[[], T]) -> T:

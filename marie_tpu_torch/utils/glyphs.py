@@ -30,8 +30,10 @@ them this module lays text out and draws it as Pillow 12 does with raqm:
   stroke's fill is the text's.
 
 A face, size or stroke the atlas lacks raises: there is no fallback to
-another font.  Canvases are 2-D uint8 (one grey channel: the trainers draw
-black on white, so the three channels of PIL's RGB canvas are equal).
+another font.  Canvases are 2-D uint8 (one grey channel: most trainers draw
+black on white, so the three channels of PIL's RGB canvas are equal) or
+[H, W, 3] uint8 (the overlay trainer's coloured pages: Pillow blends each
+channel alike).
 """
 
 import json
@@ -171,6 +173,11 @@ class GlyphFont:
                 pen += self._kern.get((i, idx[j + 1]), 0)
         return idx, pens, pen
 
+    def has_glyph(self, ch: str) -> bool:
+        """Whether the atlas holds a glyph of the character ``ch``."""
+        i = self._tok.get(ch)
+        return i is not None and self._adv[i] >= 0
+
     def getlength(self, text: str) -> float:
         """The advance of ``text`` in pixels (a multiple of 1/64), as
         ``FreeTypeFont.getlength``."""
@@ -239,28 +246,36 @@ class GlyphFont:
             m[r0:r1, c0:c1] = dst + src - (((t >> 8) + t) >> 8)
         return m.astype(np.uint8), (col0, row0)
 
-    def draw_text(self, canvas: np.ndarray, xy, text: str, fill: int = 0,
+    def draw_text(self, canvas: np.ndarray, xy, text: str, fill=0,
                   stroke_width: int = 0) -> np.ndarray:
         """``ImageDraw.Draw(canvas).text(xy, text, fill=fill, font=self,
-        stroke_width=stroke_width, stroke_fill=fill)`` into the 2-D uint8
-        ``canvas``, in place; returns it."""
-        if canvas.dtype != np.uint8 or canvas.ndim != 2:
-            raise ValueError("draw_text draws into a 2-D uint8 canvas")
+        stroke_width=stroke_width, stroke_fill=fill)`` into the uint8
+        ``canvas``, in place; returns it.  A 2-D canvas is a grey image; an
+        [H, W, 3] one an RGB image, each channel blended with its ink
+        (``fill`` a value a channel, or Pillow's packed colour)."""
+        from marie_tpu_torch.utils.pil_ops import _ink
+
+        ink = _ink(canvas, fill)
         m, (col0, row0) = self.mask(text, xy, stroke_width)
-        _blend(canvas, m, col0, row0, fill)
+        _blend(canvas, m, col0, row0, ink)
         return canvas
 
 
-def _blend(canvas: np.ndarray, m: np.ndarray, col0: int, row0: int, ink: int) -> None:
-    """Pillow's ``draw_bitmap``: ``ink`` blended over ``canvas`` through the
-    coverage ``m`` placed at (col0, row0), clipped to the canvas."""
-    H, W = canvas.shape
+def _blend(canvas: np.ndarray, m: np.ndarray, col0: int, row0: int, ink) -> None:
+    """Pillow's ``draw_bitmap``: ``ink`` blended over ``canvas`` ([H, W],
+    or [H, W, C] with one ink a channel, each channel blended alike)
+    through the coverage ``m`` placed at (col0, row0), clipped to the
+    canvas."""
+    H, W = canvas.shape[:2]
     mh, mw = m.shape
     c0, r0 = max(col0, 0), max(row0, 0)
     c1, r1 = min(col0 + mw, W), min(row0 + mh, H)
     if c1 <= c0 or r1 <= r0:
         return
     a = m[r0 - row0:r1 - row0, c0 - col0:c1 - col0].astype(np.int32)
+    ink = np.asarray(ink, np.int32)
+    if canvas.ndim == 3:
+        a = a[..., None]
     out = canvas[r0:r1, c0:c1].astype(np.int32)
-    t = out * (255 - a) + int(ink) * a + 128
+    t = out * (255 - a) + ink * a + 128
     canvas[r0:r1, c0:c1] = (((t >> 8) + t) >> 8).astype(np.uint8)

@@ -117,7 +117,11 @@ It writes
   weighted MSE on 32 pages.  Its ``boundary`` entry holds
   ``model_zoo/boundary-synth`` to the JAX ``evaluate_boundary`` (64
   scans, seed 777, the trainer's own held-out seed): the yardstick of the
-  ``ocr_train`` phase's boundary run.
+  ``ocr_train`` phase's boundary run.  Its ``overlay`` entry holds
+  ``model_zoo/pix2pix-synth`` to the JAX ``evaluate_overlay`` (32 pairs
+  of 512x384, seed 9999, the trainer's own held-out seed): the yardstick
+  of the overlay runs (the smoke's short one, and
+  ``scripts/train_overlay_gpu.py``'s recipe).
 
 The JSON files are gzipped (``<name>.json.gz``, no file name or time
 stamp in the header: ``_write_json``); ``registry/zoo.py::open_zoo_json``
@@ -963,6 +967,7 @@ def export_train() -> None:
                           "pair_accuracy": float(pair_acc)},
         "ocr": _ocr_train_golden(cs),
         "boundary": _boundary_train_golden(cs),
+        "overlay": _overlay_train_golden(cs),
     }
     _write_json("golden_train", golden, indent=1)
     print(json.dumps(golden), flush=True)
@@ -1052,6 +1057,28 @@ def _boundary_train_golden(cs) -> dict:
                                 seed=cs.BOUNDARY_EVAL_SEED)
     return {"tree": "boundary-synth", "pages": cs.BOUNDARY_EVAL_PAGES,
             "seed": cs.BOUNDARY_EVAL_SEED, **metrics}
+
+
+def _overlay_train_golden(cs) -> dict:
+    """``model_zoo/pix2pix-synth`` (``Pix2PixConfig.synth()``) on the JAX
+    trainer's own held-out pairs: ``evaluate_overlay``'s mask precision,
+    recall and F1 and residual L1 over OVERLAY_EVAL_PAGES pages of
+    OVERLAY_PAGE_HW, seed OVERLAY_EVAL_SEED (the pairs drawn by PIL; the
+    port's renderer draws the same pages)."""
+    import jax
+
+    from marie_tpu.models.configs import Pix2PixConfig
+    from marie_tpu.models.pix2pix import ResnetGenerator
+    from marie_tpu.registry.checkpoints import load_params as load_orbax
+    from marie_tpu.train.overlay import evaluate_overlay
+
+    params = jax.device_get(load_orbax(os.path.join(REPO, "model_zoo", "pix2pix-synth")))
+    metrics = evaluate_overlay(ResnetGenerator(Pix2PixConfig.synth()), params,
+                               cs.OVERLAY_PAGE_HW, n_pages=cs.OVERLAY_EVAL_PAGES,
+                               seed=cs.OVERLAY_EVAL_SEED)
+    return {"tree": "pix2pix-synth", "config": "Pix2PixConfig.synth()",
+            "pages": cs.OVERLAY_EVAL_PAGES, "page_hw": list(cs.OVERLAY_PAGE_HW),
+            "seed": cs.OVERLAY_EVAL_SEED, **metrics}
 
 
 def _cut(page, box):

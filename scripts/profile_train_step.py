@@ -1,6 +1,6 @@
-"""Time and trace one training step of a layout head or of the CRNN on the card.
+"""Time and trace one training step of a layout head, the CRNN or the overlay GAN on the card.
 
-    python3 scripts/profile_train_step.py [--model splitter|base|crnn] [--tree DIR]
+    python3 scripts/profile_train_step.py [--model splitter|base|crnn|overlay] [--tree DIR]
                                           [--cudnn-benchmark [--benchmark-limit N]]
                                           [--channels-last] [--prior-forward main|thread]
 
@@ -13,7 +13,11 @@ its training set, batch 8, as ``chip_smoke.py``'s ``train`` phase (f).
 rendered 32x256 crops, batch 128, as ``chip_smoke.py``'s ``ocr_train``
 phase runs it; its JSON line adds the device share of the convolutions
 (cuDNN's kernels, of which the FFT ones) and the convolutions' float32
-bound.  ``--channels-last`` runs its convolutions in NHWC;
+bound.  ``overlay``: ``train_overlay_device``'s GAN step (``OverlayGan``: the synth
+generator and the PatchGAN) on 32 rendered 512x384 pairs, batch 4; its
+JSON line adds the convolutions' device share and float32 bound too (no
+forward / backward split: the step is two optimisers' work).
+``--channels-last`` runs the CRNN's convolutions in NHWC;
 ``--prior-forward`` runs the model once at the step's shape under
 cuDNN's heuristics before the steps, on this thread or another (as
 ``chip_smoke.py``'s ``best`` phase runs the serving CRNN before
@@ -56,7 +60,8 @@ def _device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("splitter", "base", "crnn"), default="splitter")
+    ap.add_argument("--model", choices=("splitter", "base", "crnn", "overlay"),
+                    default="splitter")
     ap.add_argument("--cudnn-benchmark", action="store_true",
                     help="let cuDNN time its algorithms for each shape")
     ap.add_argument("--benchmark-limit", type=int, default=None,
@@ -92,7 +97,12 @@ def main() -> int:
     schedule = warmup_cosine_decay_schedule(0.0, 3e-4, 10, 100)
     gen = torch.Generator(device="cuda").manual_seed(1)
     conv_flops = None
-    if args.model == "crnn":
+    trainer = None
+    if args.model == "overlay":
+        n, batch, warm, reps = 32, 4, 10, 20
+        step, draw, conv_flops = _overlay(n, batch, gen)
+        seq_len = None
+    elif args.model == "crnn":
         n, batch, warm, reps = 512, 128, 20, 30
         model, trainer, draw, conv_flops, seq_len = _crnn(n, batch, schedule, gen,
                                                           args.channels_last, args.prior_forward)
@@ -119,8 +129,9 @@ def main() -> int:
             idx = torch.randint(0, n, (batch,), generator=gen, device="cuda")
             return [t[idx] for t in tensors]
 
-    def step():
-        return trainer.step(*draw())
+    if trainer is not None:
+        def step():
+            return trainer.step(*draw())
 
     def wall_ms(fn):
         torch.cuda.synchronize()
@@ -147,19 +158,20 @@ def main() -> int:
     step_ms = wall_ms(step)
     steady_mib = torch.cuda.max_memory_allocated() / 2**20
     print("step ms", step_ms)
-    batch_t = draw()
+    if trainer is not None:
+        batch_t = draw()
 
-    def forward():
-        with torch.no_grad(), float32_precision(False):
-            trainer.loss_fn(*batch_t)
+        def forward():
+            with torch.no_grad(), float32_precision(False):
+                trainer.loss_fn(*batch_t)
 
-    def forward_backward():
-        trainer.opt.zero_grad()
-        with float32_precision(False):
-            trainer.loss_fn(*batch_t).backward()
+        def forward_backward():
+            trainer.opt.zero_grad()
+            with float32_precision(False):
+                trainer.loss_fn(*batch_t).backward()
 
-    print("forward ms", wall_ms(forward), "forward+backward ms", wall_ms(forward_backward),
-          "AdamW ms", wall_ms(trainer.opt.step))
+        print("forward ms", wall_ms(forward), "forward+backward ms", wall_ms(forward_backward),
+              "AdamW ms", wall_ms(trainer.opt.step))
     steps = 10
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -233,6 +245,54 @@ def run_prior_forward(model, images, where):
 FP32_FLOPS = 67e12
 
 
+def _conv_flops(model, *inputs) -> int:
+    """The forward flops (2 per multiply-add) of every convolution and
+    transposed convolution of ``model`` on ``inputs``."""
+    import torch
+
+    flops = 0
+
+    def count(mod, inp, out):
+        nonlocal flops
+        if isinstance(mod, torch.nn.ConvTranspose2d):  # each input pixel into kh x kw x Cout
+            flops += 2 * inp[0].numel() * mod.weight[0].numel()
+        else:
+            flops += 2 * out.numel() * mod.weight[0].numel()  # Cin * kh * kw an output
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    with torch.no_grad():
+        model(*inputs)
+    for h in hooks:
+        h.remove()
+    return flops
+
+
+def _overlay(n, batch, gen):
+    """The overlay GAN's step: (step, draw, the convolutions' flops a step:
+    three generator forwards' worth, and eight of the discriminator's (its
+    step's two forwards and their gradients; the generator step's forward
+    and its input gradient))."""
+    import torch
+
+    from marie_tpu_torch.models.configs import Pix2PixConfig
+    from marie_tpu_torch.overlay.overlay import _unit_table
+    from marie_tpu_torch.train import overlay as tov
+
+    xs, ys = (torch.as_tensor(a, device="cuda") for a in tov.render_block(0, n, (512, 384)))
+    g, d = tov.init_overlay(Pix2PixConfig.synth(), 0, device="cuda")
+    gan = tov.OverlayGan(g, d)
+    unit = _unit_table().cuda()
+
+    def draw():
+        idx = torch.randint(0, n, (batch,), generator=gen, device="cuda")
+        return unit[xs[idx].long()], unit[ys[idx].long()]
+
+    x, y = draw()
+    flops = 3 * _conv_flops(g, x) + 8 * _conv_flops(d, torch.cat([x, y], -1))
+    return (lambda: gan.step(*draw())), draw, flops
+
+
 def _crnn(n, batch, schedule, gen, channels_last=False, prior_forward=None):
     """The CRNN trainer's step: (model, trainer, draw, the convolutions'
     flops a step, the column count)."""
@@ -260,24 +320,9 @@ def _crnn(n, batch, schedule, gen, channels_last=False, prior_forward=None):
         images = add_noise(imgs[idx].to(torch.float32) / 255.0, 0.03, gen, None, 0)
         return images, labs[idx], lens[idx]
 
-    # forward flops of every convolution at this batch (2 per multiply-add);
-    # a step's are three times those (forward, data and weight gradients)
-    flops = 0
-    hooks = []
-
-    def count(mod, inp, out):
-        nonlocal flops
-        k = mod.weight[0].numel()  # Cin * kh * kw
-        flops += 2 * out.numel() * k
-
-    for m in model.modules():
-        if isinstance(m, torch.nn.Conv2d):
-            hooks.append(m.register_forward_hook(count))
-    with torch.no_grad():
-        model(draw()[0])
-    for h in hooks:
-        h.remove()
-    return model, trainer, draw, 3 * flops, width // 4
+    # a step's convolution flops are three times the forward's (forward,
+    # data and weight gradients)
+    return model, trainer, draw, 3 * _conv_flops(model, draw()[0]), width // 4
 
 
 if __name__ == "__main__":

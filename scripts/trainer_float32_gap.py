@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where ``chip_smoke.py``'s NEW_FLOAT32_GAP limits sit: the float32
-card step of the boundary, DiT and TextFuseNet trainers against their
-float64 card step, sound and with planted faults.
+card step of the boundary, DiT, TextFuseNet and overlay GAN trainers
+against their float64 card step, sound and with planted faults.
 
-    python3 scripts/trainer_float32_gap.py [--kinds boundary dit textfusenet]
+    python3 scripts/trainer_float32_gap.py [--kinds boundary dit textfusenet overlay]
 
 For each trainer, ``_new_trainer_float32_gap`` (every gradient leaf's
 largest departure from float64, of that leaf's largest) on the
@@ -12,8 +12,9 @@ shapes of ``_new_trainer_batches``), then on the phase's batch with each
 float32 fault planted: ``tf32`` (the step under TF32, as a wrong
 precision setting would run it) and ``bf16_stat`` (the normalisation's
 variance rounded to bfloat16 in float32: the GroupNorms of the boundary
-regressor and of TextFuseNet's fuse module, DiT's LayerNorms, TextFuseNet's
-BatchNorm running variances).  Each reading gives
+regressor, of TextFuseNet's fuse module and of both overlay nets, DiT's
+LayerNorms, TextFuseNet's BatchNorm running variances).  The overlay's
+step is ``train/overlay.py::OverlayGan``'s (both nets' gradients).  Each reading gives
 the gated gap (``_gated_gap``), the worst and the median leaf and the
 loss's relative departure.
 
@@ -30,7 +31,7 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KINDS = ("boundary", "dit", "textfusenet")
+KINDS = ("boundary", "dit", "textfusenet", "overlay")
 BATCHES = 4
 
 
@@ -49,6 +50,7 @@ def planted(fault):
 
     from marie_tpu_torch.models import pix2pix
     from marie_tpu_torch.train import batchnorm
+    from marie_tpu_torch.train import overlay
     from marie_tpu_torch.utils import device
 
     saved = []
@@ -61,8 +63,11 @@ def planted(fault):
         return t.to(torch.bfloat16).to(t.dtype) if t.dtype == torch.float32 else t
 
     if fault == "tf32":
-        patch(device, "float32_precision",
-              lambda allow_tf32=False, orig=device.float32_precision: orig(True))
+        def tf32(allow_tf32=False, orig=device.float32_precision):
+            return orig(True)
+
+        patch(device, "float32_precision", tf32)
+        patch(overlay, "float32_precision", tf32)  # imported by name there
     elif fault == "bf16_stat":
         def group_norm(gn, x):
             b, c, h, w = x.shape

@@ -2,6 +2,7 @@
 result schema, the upload packers), its bf16 CRAFT and its float32
 precision context, against the JAX package on the same seeded inputs."""
 
+import contextlib
 import ctypes
 import threading
 import time
@@ -278,6 +279,78 @@ def test_cudnn_benchmark_restores_the_flags_and_own_thread_reraises():
 
     with pytest.raises(KeyError, match="on the worker"):
         on_own_thread(fail)
+
+
+def _old_cudnn_benchmark():
+    """The save-and-restore-per-block ``cudnn_benchmark`` this module had
+    before it shared one hold: planted to show the crossed-threads test
+    fails it."""
+    from marie_tpu_torch.utils.device import CUDNN_BENCHMARK_LIMIT
+
+    @contextlib.contextmanager
+    def block():
+        cudnn = torch.backends.cudnn
+        saved = cudnn.benchmark, cudnn.benchmark_limit
+        cudnn.benchmark, cudnn.benchmark_limit = True, CUDNN_BENCHMARK_LIMIT
+        try:
+            yield
+        finally:
+            cudnn.benchmark, cudnn.benchmark_limit = saved
+
+    return block()
+
+
+def _crossed_blocks(hold):
+    """Two threads enter ``hold()`` blocks A then B and leave A then B
+    (crossed); a third block nests in B.  Returns (the flags B read after
+    A left, the flags after both), the flags reset to what they were."""
+    cudnn = torch.backends.cudnn
+    a_in, b_in, a_out = threading.Event(), threading.Event(), threading.Event()
+    seen = {}
+
+    def a():
+        with hold():
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def b():
+        a_in.wait(10)
+        with hold():
+            b_in.set()
+            a_out.wait(10)
+            seen["b_after_a"] = cudnn.benchmark, cudnn.benchmark_limit
+            with hold():
+                pass
+
+    threads = [threading.Thread(target=a), threading.Thread(target=b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    return seen["b_after_a"], (cudnn.benchmark, cudnn.benchmark_limit)
+
+
+def test_cudnn_benchmark_is_one_hold_across_crossed_threads():
+    """Blocks on two threads that enter and leave in crossed order (and a
+    block nested in the second) share one hold: the second still holds
+    the flags after the first left, and the flags end as they began.
+    The old per-block save and restore fails both."""
+    from marie_tpu_torch.utils.device import CUDNN_BENCHMARK_LIMIT, cudnn_benchmark
+
+    cudnn = torch.backends.cudnn
+    start = cudnn.benchmark, cudnn.benchmark_limit
+    held = (True, CUDNN_BENCHMARK_LIMIT)
+    try:
+        cudnn.benchmark, cudnn.benchmark_limit = False, 7
+        inside, after = _crossed_blocks(cudnn_benchmark)
+        assert inside == held
+        assert after == (False, 7)
+        inside, after = _crossed_blocks(_old_cudnn_benchmark)
+        assert inside == (False, 7) and after == held  # the old code's two faults
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = start
 
 
 def test_launch_counts_by_path_lose_no_update_across_threads():

@@ -362,7 +362,8 @@ def test_grpc_plane_serves_with_its_absent_packages_blocked():
 
 _TRAINERS = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "PIL", "cv2"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "PIL", "cv2",
+             "marie_tpu"):
     sys.modules[name] = None
 import numpy as np
 import marie_tpu_torch.train as train
@@ -390,15 +391,25 @@ from marie_tpu_torch.train import (evaluate_boundary, render_page_tfn, train_bou
 tfn = render_page_tfn(np.random.default_rng(0))
 print(train_boundary_device.__name__, train_dit_device.__name__,
       train_textfusenet_device.__name__, tfn[0].shape, tfn[1].shape, int(tfn[3].sum()) > 0)
+from marie_tpu_torch.models.configs import Pix2PixConfig
+from marie_tpu_torch.train.overlay import OverlayGan, init_overlay
+clean, dirty, mask = train.render_overlay_pair(np.random.default_rng(0), (128, 160))
+gen, disc = init_overlay(Pix2PixConfig.tiny(), 0, device="cpu")
+x = torch.from_numpy(dirty[None]).float() / 127.5 - 1
+y = torch.from_numpy(clean[None]).float() / 127.5 - 1
+d_loss, g_loss, l1 = OverlayGan(gen, disc).step(x, y)
+print(train.train_overlay_device.__name__, dirty.shape, int(mask.max()),
+      bool((clean != dirty).any()), bool(torch.isfinite(g_loss)))
+assert not any(m.split(".")[0] == "marie_tpu" for m in sys.modules if sys.modules[m] is not None)
 """
 
 
 def test_trainers_import_with_jax_and_optax_blocked():
     """The trainers, the optimiser and K2's gradient import and step (on
-    the CPU) with JAX, flax, optax, orbax, PIL and cv2 blocked, the OCR
-    trainers' renderers draw a batch from the glyph atlas; the trainers
-    ported last import, and the overlay trainer, not ported yet, raises
-    naming its ROADMAP item."""
+    the CPU) with JAX, flax, optax, orbax, PIL, cv2 and the JAX package
+    blocked, the OCR trainers' renderers draw a batch from the glyph
+    atlas; the trainers ported last import, and the overlay trainer renders
+    a pair and takes a GAN step."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", _TRAINERS], cwd=REPO, env=env,
@@ -409,18 +420,18 @@ def test_trainers_import_with_jax_and_optax_blocked():
     assert lines[1] == "(4, 32, 64, 3) 4 (512, 384, 3) (128, 96, 2) 255"
     assert lines[2] == ("train_boundary_device train_dit_device train_textfusenet_device "
                         "(512, 384, 3) (256, 192, 4) True")
-    import pytest
-
+    assert lines[3] == "train_overlay_device (128, 160, 3) 255 True True"
     from marie_tpu_torch import train
-    from marie_tpu_torch.train import boundary, dit, textfusenet
+    from marie_tpu_torch.train import boundary, dit, overlay, textfusenet
 
     assert train.train_boundary_device is boundary.train_boundary_device
     assert train.evaluate_boundary is boundary.evaluate_boundary
     assert train.train_dit_device is dit.train_dit_device
     assert train.train_textfusenet_device is textfusenet.train_textfusenet_device
     assert train.render_page_tfn is textfusenet.render_page_tfn
-    with pytest.raises(NotImplementedError, match="item 8.2"):
-        train.train_overlay_device()
+    assert train.train_overlay_device is overlay.train_overlay_device
+    assert train.evaluate_overlay is overlay.evaluate_overlay
+    assert train.render_overlay_pair is overlay.render_overlay_pair
 
 
 def test_trainers_default_to_the_card():
@@ -434,6 +445,7 @@ def test_trainers_default_to_the_card():
         crnn,
         dit,
         layout,
+        overlay,
         reading_order,
         recognizer,
         textfusenet,
@@ -444,7 +456,8 @@ def test_trainers_default_to_the_card():
                reading_order.train_reading_order_device, recognizer.train_recognizer,
                recognizer.train_recognizer_device, crnn.train_crnn_device,
                craft.train_craft_device, boundary.train_boundary_device, dit.train_dit_device,
-               textfusenet.train_textfusenet_device, ops.crop_resize, ops.resize_page,
+               textfusenet.train_textfusenet_device, overlay.train_overlay_device,
+               overlay.init_overlay, ops.crop_resize, ops.resize_page,
                ops.prepare_page):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 

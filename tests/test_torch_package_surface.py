@@ -1,7 +1,7 @@
 """The port's package surface against the JAX package's: every name of the
 ``__all__`` of ``ocr``, ``ops``, ``preprocess``, ``components``, ``models``,
-``document`` and ``registry`` is on the port's package (the names whose
-modules wait for ROADMAP §1 item 13 are listed here, by name), the engines'
+``document`` and ``registry`` is on the port's package (``WAITING`` would
+list, by name, any whose module is not ported yet: none is), the engines'
 common base ``OcrEngine``, and the page functions ``crop_resize``,
 ``resize_page`` and ``prepare_page`` against JAX on the CPU.
 
@@ -24,12 +24,8 @@ from marie_tpu.preprocess import ops as jops
 from marie_tpu_torch.preprocess import ops as tops
 
 PACKAGES = ("ocr", "ops", "preprocess", "components", "models", "document", "registry")
-#: names of the JAX ``__all__`` whose modules are not ported yet (item 13)
-WAITING = {
-    "document": ("TesseractOcrProcessor", "GoogleVisionOcrProcessor", "AzureVisionOcrProcessor",
-                 "AwsTextractOcrProcessor"),
-    "registry": ("ModelRegistry",),
-}
+#: names of the JAX ``__all__`` whose modules are not ported yet (none)
+WAITING = {}
 RESIZE_LIMIT = 2e-6  # of the page's largest value
 
 
